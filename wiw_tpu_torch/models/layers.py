@@ -1,0 +1,378 @@
+"""Building blocks for the SVD-family models, as torch `nn.Module`s.
+
+Port of `wiw_tpu/models/layers.py`. Activations keep the reference's
+channels-last layouts ([N, H, W, C], [B, F, H, W, C], [N, S, C]); convs
+permute to NCHW views at their edges, which for a contiguous channels-last
+tensor is a channels_last-strided view, so no copy is made.
+
+Precision follows the reference: Linear/Conv weights live in the model
+dtype and their inputs are cast to it; norm parameters stay fp32 and norms
+compute in fp32, returning the input dtype (`cast_matmul_weights` casts only
+Linear/Conv weights, never a norm).
+
+Submodule and parameter names are the diffusers ones, so checkpoints load
+with `load_state_dict` and `models/convert.py` maps the reference's flax
+trees onto them.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from wiw_tpu_torch.core.schedule import timestep_embedding
+from wiw_tpu_torch.ops.attention import attention_bsd
+from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention_batched
+
+
+class Linear(nn.Linear):
+    """nn.Linear that casts its input to the weight dtype (flax promote)."""
+
+    def forward(self, x):
+        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+
+
+class Conv2d(nn.Conv2d):
+    """3x3/1x1 conv on channels-last [N, H, W, C]; `pad` is
+    (left, right, top, bottom) when asymmetric padding is needed."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 bias=True, pad=None):
+        super().__init__(in_ch, out_ch, kernel_size, stride=stride,
+                         padding=padding, bias=bias)
+        self.pad = pad
+
+    def forward(self, x):
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        if self.pad is not None:
+            x = F.pad(x, self.pad)
+        return self._conv_forward(x, self.weight, self.bias).permute(0, 2, 3, 1)
+
+
+class TemporalConv(nn.Conv3d):
+    """(3, 1, 1) conv over the frame axis of channels-last [B, F, H, W, C]."""
+
+    def __init__(self, in_ch, out_ch):
+        super().__init__(in_ch, out_ch, (3, 1, 1), padding=(1, 0, 0))
+
+    def forward(self, x):
+        x = x.to(self.weight.dtype).permute(0, 4, 1, 2, 3)
+        return self._conv_forward(x, self.weight, self.bias).permute(0, 2, 3, 4, 1)
+
+
+def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast Linear/Conv parameters to `dtype`, leaving norms, mix factors
+    and embeddings in fp32 (the reference casts those at use)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+            m.to(dtype)
+    return module
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the last (channel) axis in fp32, exact two-pass
+    statistics, each batch row on its own. Channel grouping matches torch's
+    (contiguous chunks)."""
+
+    def __init__(self, num_channels: int, num_groups: int = 32,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.groups = (num_groups if num_channels % num_groups == 0
+                       and num_channels >= num_groups else num_channels)
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x):
+        N, C = x.shape[0], x.shape[-1]
+        g = x.float().reshape(N, -1, self.groups, C // self.groups)
+        d = g - g.mean(dim=(1, 3), keepdim=True)
+        var = (d * d).mean(dim=(1, 3), keepdim=True)
+        out = (d * torch.rsqrt(var + self.eps)).reshape(x.shape)
+        return (out * self.weight + self.bias).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis in fp32; returns the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x):
+        out = F.layer_norm(x.float(), (x.shape[-1],), self.weight, self.bias,
+                           self.eps)
+        return out.to(x.dtype)
+
+
+class TimestepEmbedding(nn.Module):
+    """linear_1 -> silu -> linear_2 (diffusers embeddings.TimestepEmbedding)."""
+
+    def __init__(self, in_dim: int, embed_dim: int, out_dim: int | None = None):
+        super().__init__()
+        self.linear_1 = Linear(in_dim, embed_dim)
+        self.linear_2 = Linear(embed_dim, out_dim or embed_dim)
+
+    def forward(self, x):
+        return self.linear_2(F.silu(self.linear_1(x)))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = Linear(dim, inner * 2)
+
+    def forward(self, x):
+        hidden, gate = self.proj(x).chunk(2, dim=-1)
+        return hidden * F.gelu(gate)
+
+
+class FeedForward(nn.Module):
+    """GEGLU feed-forward; `net` indices follow diffusers (0 = GEGLU,
+    1 = dropout slot, 2 = out projection)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        self.net = nn.ModuleList(
+            [GEGLU(dim, dim * mult), nn.Identity(), Linear(dim * mult, dim)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class CrossAttention(nn.Module):
+    """diffusers `Attention` in its transformer-block configuration: no qkv
+    bias, output projection with bias."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 context_dim: int | None = None):
+        super().__init__()
+        inner = heads * dim_head
+        self.heads = heads
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_v = Linear(context_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, query_dim), nn.Identity()])
+
+    def forward(self, x, context=None):
+        if context is not None and context.shape[-2] == 1:
+            # exact shortcut: with one key token the softmax is identically
+            # 1, so every query's output is V's projection
+            o = self.to_out[0](self.to_v(context))  # [B, 1, C]
+            o = o.reshape(o.shape[0], *([1] * (x.ndim - 2)), o.shape[-1])
+            return o.expand(x.shape)
+        if x.ndim != 3:
+            raise NotImplementedError(
+                "multi-token cross-attention on [B, F, S, C] (past_images) "
+                "is not ported yet")
+        context = x if context is None else context
+        out = attention_bsd(self.to_q(x), self.to_k(context),
+                            self.to_v(context), self.heads)
+        return self.to_out[0](out)
+
+
+class TemporalSelfAttention(CrossAttention):
+    """Self-attention across frames on [B, F, S, C]; same parameters as
+    CrossAttention."""
+
+    def forward(self, x):
+        out = temporal_self_attention_batched(
+            self.to_q(x), self.to_k(x), self.to_v(x), self.heads)
+        return self.to_out[0](out)
+
+
+class BasicTransformerBlock(nn.Module):
+    """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, all residual."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = CrossAttention(dim, heads, dim_head)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context=None):
+        x = x + self.attn1(self.norm1(x))
+        x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class TemporalBasicTransformerBlock(nn.Module):
+    """ff_in -> self-attn over frames -> cross-attn -> ff on [B, F, S, C]."""
+
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+        super().__init__()
+        self.norm_in = LayerNorm(dim)
+        self.ff_in = FeedForward(dim)
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = TemporalSelfAttention(dim, heads, dim_head)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = FeedForward(dim)
+
+    def forward(self, x, context=None):
+        x = x + self.ff_in(self.norm_in(x))
+        x = x + self.attn1(self.norm1(x))
+        if context is not None:
+            x = x + self.attn2(self.norm2(x), context)
+        return x + self.ff(self.norm3(x))
+
+
+class AlphaBlender(nn.Module):
+    """alpha*x_spatial + (1-alpha)*x_temporal with alpha = sigmoid(mix);
+    `switch` flips the roles (temporal VAE)."""
+
+    def __init__(self, alpha_init: float = 0.5, switch: bool = False):
+        super().__init__()
+        self.alpha_init = alpha_init
+        self.switch = switch
+        self.mix_factor = nn.Parameter(torch.full((1,), float(alpha_init)))
+
+    def forward(self, x_spatial, x_temporal):
+        alpha = torch.sigmoid(self.mix_factor)[0].to(x_spatial.dtype)
+        if self.switch:
+            alpha = 1.0 - alpha
+        return alpha * x_spatial + (1.0 - alpha) * x_temporal
+
+
+class ResnetBlock2D(nn.Module):
+    """GN -> silu -> conv -> (+temb) -> GN -> silu -> conv -> +skip on NHWC."""
+
+    def __init__(self, in_ch: int, out_ch: int, eps: float = 1e-6,
+                 temb_ch: int | None = None):
+        super().__init__()
+        self.norm1 = GroupNorm(in_ch, eps=eps)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
+        if temb_ch is not None:
+            self.time_emb_proj = Linear(temb_ch, out_ch)
+        self.norm2 = GroupNorm(out_ch, eps=eps)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
+        if in_ch != out_ch:
+            self.conv_shortcut = Conv2d(in_ch, out_ch, 1)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None and hasattr(self, "time_emb_proj"):
+            h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if hasattr(self, "conv_shortcut"):
+            x = self.conv_shortcut(x)
+        return x + h
+
+
+class TemporalResnetBlock(nn.Module):
+    """Temporal resnet over [B, F, H, W, C] with (3, 1, 1) convs; channels
+    in == out (it always follows the spatial block of the same width)."""
+
+    def __init__(self, ch: int, eps: float = 1e-6, temb_ch: int | None = None):
+        super().__init__()
+        self.norm1 = GroupNorm(ch, eps=eps)
+        self.conv1 = TemporalConv(ch, ch)
+        if temb_ch is not None:
+            self.time_emb_proj = Linear(temb_ch, ch)
+        self.norm2 = GroupNorm(ch, eps=eps)
+        self.conv2 = TemporalConv(ch, ch)
+
+    def forward(self, x, temb=None):
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None and hasattr(self, "time_emb_proj"):
+            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
+        h = self.conv2(F.silu(self.norm2(h)))
+        return x + h
+
+
+class SpatioTemporalResBlock(nn.Module):
+    """Spatial resnet (frames in batch) + temporal resnet, alpha-blended.
+    Input [B*F, H, W, C]; temb [B*F, C_temb] or None."""
+
+    def __init__(self, in_ch: int, out_ch: int, eps: float = 1e-6,
+                 temporal_eps: float | None = None, merge_factor: float = 0.5,
+                 switch: bool = False, temb_ch: int | None = None):
+        super().__init__()
+        self.spatial_res_block = ResnetBlock2D(in_ch, out_ch, eps, temb_ch)
+        self.temporal_res_block = TemporalResnetBlock(
+            out_ch, temporal_eps if temporal_eps is not None else eps, temb_ch)
+        self.time_mixer = AlphaBlender(merge_factor, switch)
+
+    def forward(self, x, num_frames: int, temb=None):
+        x = self.spatial_res_block(x, temb)
+        BF, H, W, C = x.shape
+        x5 = x.reshape(BF // num_frames, num_frames, H, W, C)
+        temb5 = (temb.reshape(BF // num_frames, num_frames, -1)
+                 if temb is not None else None)
+        h = self.temporal_res_block(x5, temb5)
+        return self.time_mixer(x5, h).reshape(BF, H, W, C)
+
+
+class Downsample2D(nn.Module):
+    """Stride-2 3x3 conv; `asymmetric_pad` is the VAE encoder's (0, 1) pad."""
+
+    def __init__(self, ch: int, asymmetric_pad: bool = False):
+        super().__init__()
+        if asymmetric_pad:
+            self.conv = Conv2d(ch, ch, 3, stride=2, pad=(0, 1, 0, 1))
+        else:
+            self.conv = Conv2d(ch, ch, 3, stride=2, padding=1)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class Upsample2D(nn.Module):
+    """Nearest 2x upsample + 3x3 conv on NHWC."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv = Conv2d(ch, ch, 3, padding=1)
+
+    def forward(self, x):
+        x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+        return self.conv(x)
+
+
+class TransformerSpatioTemporal(nn.Module):
+    """Spatial + temporal transformer over feature maps [B*F, H, W, C];
+    `context` is [B, S_ctx, cross_dim] CLIP embeddings (tiled per frame
+    inside). The action-block branch waits for a later port."""
+
+    def __init__(self, ch: int, heads: int, dim_head: int, context_dim: int,
+                 num_layers: int = 1):
+        super().__init__()
+        inner = heads * dim_head
+        self.norm = GroupNorm(ch, eps=1e-6)
+        self.proj_in = Linear(ch, inner)
+        self.transformer_blocks = nn.ModuleList(
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim)
+             for _ in range(num_layers)])
+        self.temporal_transformer_blocks = nn.ModuleList(
+            [TemporalBasicTransformerBlock(inner, heads, dim_head, context_dim)
+             for _ in range(num_layers)])
+        self.time_pos_embed = TimestepEmbedding(ch, ch * 4, out_dim=ch)
+        self.time_mixer = AlphaBlender(0.5)
+        self.proj_out = Linear(inner, ch)
+
+    def forward(self, x, num_frames: int, context=None):
+        BF, H, W, C = x.shape
+        B = BF // num_frames
+        residual = x
+        h = self.proj_in(self.norm(x).reshape(BF, H * W, C))
+        inner = h.shape[-1]
+        spatial_context = (context.repeat_interleave(num_frames, dim=0)
+                           if context is not None else None)
+        frame_ids = torch.arange(num_frames, dtype=torch.float32,
+                                 device=x.device)
+        t_emb = timestep_embedding(frame_ids, C).to(self.proj_in.weight.dtype)
+        pos = self.time_pos_embed(t_emb)  # [F, C]
+        for block, tblock in zip(self.transformer_blocks,
+                                 self.temporal_transformer_blocks):
+            h = block(h, spatial_context)
+            hmix = h.reshape(B, num_frames, H * W, inner) + pos[None, :, None, :]
+            hmix = tblock(hmix, context).reshape(BF, H * W, inner)
+            h = self.time_mixer(h, hmix)
+        return self.proj_out(h).reshape(BF, H, W, C) + residual
