@@ -5,22 +5,34 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. the card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN
-  2. build: every CUDA kernel of the serving path, from wiw_tpu_torch/csrc
-  3. kernels: each kernel against its plain PyTorch version on the same bf16
-     inputs, at the shapes the serving path gives it (max/mean |error|
-     against the stated tolerance, kernel ms vs plain ms by CUDA events)
-  4. small-input reference: a tiny bf16 pipeline on the card against the
-     same weights run in fp32 on the CPU (plain attention there)
-  5. slice: the full-width SVDActionWorker (1.5 B-parameter UNet with
-     micro_cond, bf16, random weights from a seed) answers two 576x1024,
-     14-frame, 25-step requests with output 480x480; per request: seconds,
-     denoise frames/s, output checks, peak memory and kernel launches
+  2. build: every CUDA kernel of the serving paths, from wiw_tpu_torch/csrc,
+     one nvcc per source, all at once (ptxas registers/spills printed)
+  3. kernels: K1 (flash attention), K4 (frame attention), K5 and K6 (fused
+     GEGLU feed-forward) each against its plain PyTorch version on the same
+     bf16 inputs at the shapes the serving path gives it (max/mean |error|
+     and relative Frobenius error against the stated tolerance, which
+     scales with the plain output); kernel, plain and library-call ms by
+     CUDA events in turns (plain, kernel, kernel, plain); the least time the
+     card could take (bound) from the bytes and flops of each call; the
+     device kernels the library call ran at the largest shape
+  4. small-input reference: a tiny bf16 pipeline on the card, in the default
+     and in the fused-kernel configuration, against the same weights run in
+     fp32 on the CPU (plain versions there)
+  5. slices: the full-width SVDActionWorker (1.5 B-parameter UNet with
+     micro_cond, bf16, random weights from a seed) answers 576x1024,
+     14-frame, 25-step requests with output 480x480: one request in the
+     default configuration, two in the fused-kernel one (fused_ff,
+     temporal_attention='pallas'); per request: seconds, denoise frames/s,
+     output checks, peak memory and each kernel's launches (counts set to 0
+     just before a path and read just after); then one 2-row UNet forward of
+     each configuration under torch.profiler (device time by op)
 Then one JSON line with the kernels, the card line again, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It imports no jax and needs no network.
 """
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -29,21 +41,36 @@ import time
 import numpy as np
 import torch
 
-# K1 tolerance against the plain version: about two bf16 ulps of the
-# output (the kernel rounds P to bf16 before PV, the plain version rounds
-# the softmax weights; both round the output to bf16)
-K1_ATOL, K1_RTOL = 2e-2, 1e-2
+# every kernel against its plain version, scaled by the plain output (K1's
+# shrinks as 1/sqrt(S): rms 0.017 at S = 9216): each element within
+# ATOL_RMS * rms(ref) + RTOL * |ref| (RTOL: two bf16 ulps at worst), and
+# ||out - ref|| / ||ref|| within REL_FRO over the whole output, so that a
+# fault which moves every element by a little (a mis-scaled row sum) fails
+# too. Both sides round to bf16 at the same places but sum in another order;
+# K1 rounds P where its plain version rounds the softmax weights.
+ATOL_RMS, RTOL, REL_FRO = 0.05, 2.0 ** -6, 5e-3
+STEPS = 25
+FRAMES = 14
 # the UNet's spatial self-attentions at 576x1024, 14 frames, CFG pair
 # folded: (batch = 2 rows x 14 frames, heads, S, calls per UNet forward)
 K1_SHAPES = [(28, 5, 9216, 5), (28, 10, 2304, 5), (28, 20, 576, 5),
              (28, 20, 144, 1)]
-STEPS = 25
-FRAMES = 14
+# frame attentions with S % 64 == 0 (levels 0-2): (rows, F, S, heads, calls)
+K4_SHAPES = [(2, 14, 9216, 5, 5), (2, 14, 2304, 10, 5), (2, 14, 576, 20, 5)]
+# feed-forwards with C <= 640 (levels 0-1): (rows x 14 x S, C, calls); five
+# transformers per level, three feed-forwards each
+FF_SHAPES = [(2 * 14 * 9216, 320, 15), (2 * 14 * 2304, 640, 15)]
+# launches per request: 16 / 15 / 30 per UNet forward x 25 forwards
+PER_REQUEST = {"default": {"K1": 400, "K4": 0, "K6": 0},
+               "fused": {"K1": 400, "K4": 375, "K6": 750}}
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+HBM_BYTES_S, BF16_FLOPS_S, FP32_FLOPS_S = 3.35e12, 989e12, 67e12
 # small-input phase: frames in [0, 1] from a bf16 card run vs an fp32 CPU
 # run. bf16 alone drifts this tiny random-weight pipeline by max 0.045 /
 # mean 0.0057 (the CPU's own bf16 path against fp32); the bounds are ~3x
 # that, well below the tens-of-percent error of a wrong kernel or layout
 SMALL_ATOL, SMALL_MEAN_ATOL = 0.15, 0.02
+FUSED = dict(fused_ff=True, temporal_attention="pallas")
 
 
 def card_line() -> str:
@@ -62,9 +89,103 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_phase(flash_attention, flash_attention_plain, dev):
-    g = torch.Generator(device=dev).manual_seed(0)
-    worst, total_ms, total_plain_ms = 0.0, 0.0, 0.0
+def self_dev(e) -> float:
+    """A profiler event's own device time, us (the name changed in torch 2.4)."""
+    if hasattr(e, "self_device_time_total"):
+        return e.self_device_time_total
+    return e.self_cuda_time_total
+
+
+def kernel_names(fn) -> str:
+    """The top device kernels of one call of `fn`: which backend a library
+    call took."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages() if self_dev(e) > 0),
+                    key=self_dev, reverse=True)
+    return "; ".join(f"{e.key[:70]} {self_dev(e) / 1e3:.2f} ms"
+                     for e in events[:3])
+
+
+def bound_ms(nbytes: float, flops: float, peak: float) -> float:
+    return max(nbytes / HBM_BYTES_S, flops / peak) * 1e3
+
+
+def compare(name: str, out, ref) -> tuple[float, str]:
+    """max |out - ref| and a line of the error against the tolerance;
+    raises beyond it (see ATOL_RMS, RTOL, REL_FRO)."""
+    torch.cuda.synchronize()
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    max_err, mean_err = err.max().item(), err.mean().item()
+    rms = ref.square().mean().sqrt().item()
+    atol = ATOL_RMS * rms
+    beyond = (err > atol + RTOL * ref.abs()).float().mean().item()
+    rel_fro = (torch.linalg.vector_norm(out - ref)
+               / torch.linalg.vector_norm(ref)).item()
+    line = (f"max|err| {max_err:.6g} mean|err| {mean_err:.6g} rel_fro "
+            f"{rel_fro:.6g} (tol {atol:.6g} + {RTOL:.6g}*|ref| with rms(ref) "
+            f"{rms:.6g}, rel_fro {REL_FRO}; beyond: {beyond:.6g} of elements)")
+    if beyond > 0 or rel_fro > REL_FRO:
+        raise RuntimeError(f"{name} disagrees with its plain version: {line}")
+    return max_err, line
+
+
+class Row:
+    """One kernel's line of the JSON summary, summed over the calls of one
+    2-row UNet forward."""
+
+    def __init__(self, name, source, replaces, per, library):
+        self.d = {"name": name, "route": "cuda", "source": source,
+                  "replaces": replaces, "per": per, "launches": 0,
+                  "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                  "bound_ms": 0.0, "bound_by": None,
+                  "library_ms": 0.0 if library else None}
+
+    def add(self, calls, max_err, ms, plain_ms, bound, bound_by, library_ms=None):
+        d = self.d
+        d["max_abs_err"] = max(d["max_abs_err"], max_err)
+        d["ms"] += calls * ms
+        d["plain_ms"] += calls * plain_ms
+        d["bound_ms"] += calls * bound
+        d["bound_by"] = bound_by
+        if d["library_ms"] is not None:
+            d["library_ms"] += calls * library_ms
+
+
+def timed(label, plain, kernel, library, reps, plain_reps, bound, rate):
+    """Times in turns on one card: plain, kernel, kernel, plain (and the
+    library call twice, after one untimed call: a backend such as cuDNN
+    builds its plan for a new shape on the first call). `rate(ms)` says
+    what the kernel's time achieves."""
+    p1 = cuda_ms(plain, plain_reps)
+    k1 = cuda_ms(kernel, reps)
+    lib = None
+    if library:
+        library()
+        lib = cuda_ms(library, reps)
+    k2 = cuda_ms(kernel, reps)
+    p2 = cuda_ms(plain, plain_reps)
+    if library:
+        lib = (lib + cuda_ms(library, reps)) / 2
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound:.4f} ms, library "
+          + (f"{lib:.4f} ms" if library else "none") + f" ({rate(ms)})",
+          flush=True)
+    return ms, plain_ms, lib
+
+
+def k1_phase(row: Row, dev, g):
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
     for B, H, S, calls in K1_SHAPES:
         # q, k, v as head views of [B, S, H*64] projections, as in the UNet
         q, k, v = (torch.randn(B, S, H * 64, generator=g, device=dev,
@@ -77,39 +198,94 @@ def kernel_phase(flash_attention, flash_attention_plain, dev):
                                                     v[i:i + chunk])
                               for i in range(0, B, chunk)])
 
-        out = flash_attention(q, k, v)
-        ref = plain()
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs()
-        bound = K1_ATOL + K1_RTOL * ref.float().abs()
-        max_err, mean_err = err.max().item(), err.mean().item()
-        ok = bool((err <= bound).all())
-        reps = max(3, int(3e4 // S))
-        # alternate plain, kernel, kernel, plain on one card
-        p1 = cuda_ms(plain, 2)
-        k1 = cuda_ms(lambda: flash_attention(q, k, v), reps)
-        k2 = cuda_ms(lambda: flash_attention(q, k, v), reps)
-        p2 = cuda_ms(plain, 2)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        tflops = 4 * B * H * S * S * 64 / ms / 1e9
-        print(f"K1 B*H={B * H} S={S} D=64: max|err| {max_err:.6g} "
-              f"mean|err| {mean_err:.6g} (tol {K1_ATOL} + {K1_RTOL}*|ref|) "
-              f"kernel {ms:.4f} ms ({tflops:.1f} TFLOP/s) plain {plain_ms:.4f} ms",
-              flush=True)
-        if not ok:
-            raise RuntimeError(f"K1 disagrees with its plain version at S={S}")
-        worst = max(worst, max_err)
-        total_ms += calls * ms
-        total_plain_ms += calls * plain_ms
-        del q, k, v, out, ref, err, bound
-    print(f"K1 per UNet forward (16 calls): kernel {total_ms:.4f} ms, "
-          f"plain {total_plain_ms:.4f} ms", flush=True)
-    return worst, total_ms, total_plain_ms
+        max_err, err_line = compare(f"K1 S={S}", flash_attention(q, k, v),
+                                    plain())
+        flops = 4 * B * H * S * S * 64
+        bound = bound_ms(4 * B * H * S * 64 * 2, flops, BF16_FLOPS_S)
+        ms, plain_ms, lib = timed(
+            f"K1 B*H={B * H} S={S} D=64 {err_line}",
+            plain, lambda: flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            max(3, int(3e4 // S)), 2, bound,
+            lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
+        if S == K1_SHAPES[0][2]:
+            print("  its library call's kernels: " + kernel_names(
+                lambda: F.scaled_dot_product_attention(q, k, v)), flush=True)
+        row.add(calls, max_err, ms, plain_ms, bound, "operations", lib)
+        del q, k, v
+
+
+def k4_phase(row: Row, dev, g):
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops.temporal_attention import (
+        frame_attention,
+        frame_attention_plain,
+    )
+
+    for B, Fr, S, H, calls in K4_SHAPES:
+        q, k, v = (torch.randn(B, Fr, S, H * 64, generator=g, device=dev,
+                               dtype=torch.bfloat16) for _ in range(3))
+        max_err, err_line = compare(f"K4 S={S}", frame_attention(q, k, v, H),
+                                    frame_attention_plain(q, k, v, H))
+        # q, k, v read once, o written once; fp32 FMA work on the CUDA cores
+        nbytes, flops = 4 * q.numel() * 2, 4 * B * S * H * Fr * Fr * 64
+        bound = bound_ms(nbytes, flops, FP32_FLOPS_S)
+        # the library call sees (position, head) pairs as its heads and the
+        # frames as its sequence: 4-D [B, S*H, F, 64] views, which its fused
+        # backends take (5-D [B, S, H, F, 64] views fall to its math path)
+        heads = [t.view(B, Fr, S * H, 64).transpose(1, 2) for t in (q, k, v)]
+        ms, plain_ms, lib = timed(
+            f"K4 [{B},{Fr},{S},{H * 64}] {err_line}",
+            lambda: frame_attention_plain(q, k, v, H),
+            lambda: frame_attention(q, k, v, H),
+            lambda: F.scaled_dot_product_attention(*heads), 20, 3, bound,
+            lambda ms: f"{nbytes / ms / 1e6:.0f} GB/s")
+        if S == K4_SHAPES[0][2]:
+            print("  its library call's kernels: " + kernel_names(
+                lambda: F.scaled_dot_product_attention(*heads)), flush=True)
+        row.add(calls, max_err, ms, plain_ms, bound, "bytes", lib)
+        del q, k, v, heads
+
+
+def ffn_phase(k5: Row, k6: Row, dev, g):
+    from wiw_tpu_torch.ops import fused_mlp as TF
+
+    for M, C, calls in FF_SHAPES:
+        inner = 4 * C
+
+        def r(*shape, scale=1.0):
+            return torch.randn(*shape, generator=g, device=dev) * scale
+
+        x = r(M, C).bfloat16()
+        ln_w, ln_b = 1 + r(C, scale=0.1), r(C, scale=0.1)
+        w1 = r(2 * inner, C, scale=C ** -0.5).bfloat16()
+        b1 = r(2 * inner, scale=0.1).bfloat16()
+        w2 = r(C, inner, scale=inner ** -0.5).bfloat16()
+        b2 = r(C, scale=0.1).bfloat16()
+        flops = 6 * M * C * inner  # two products: 2*M*C*2I + 2*M*I*C
+        nbytes = 2 * (2 * M * C + 3 * inner * C)  # x, out; W1, W2 once
+        bound = bound_ms(nbytes, flops, BF16_FLOPS_S)
+        for row, kern, plain, args in (
+                (k6, TF.ln_geglu_ffn_residual, TF.ln_geglu_ffn_residual_plain,
+                 (x, ln_w, ln_b, w1, b1, w2, b2)),
+                (k5, TF.geglu_ffn, TF.geglu_ffn_plain, (x, w1, b1, w2, b2))):
+            name = row.d["name"]
+            max_err, err_line = compare(f"{name} C={C}", kern(*args),
+                                        plain(*args))
+            ms, plain_ms, _ = timed(
+                f"{name} M={M} C={C} inner={inner} {err_line}",
+                lambda: plain(*args), lambda: kern(*args), None, 5, 3, bound,
+                lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
+            row.add(calls, max_err, ms, plain_ms, bound, "operations")
+        del x, w1, w2
 
 
 def small_reference_phase(dev):
-    """Tiny bf16 pipeline on the card vs the same weights in fp32 on the CPU
-    (where attention takes the plain version)."""
+    """Tiny bf16 pipelines on the card (default and fused configurations)
+    vs the same weights in fp32 on the CPU (where every kernel wrapper takes
+    its plain version). Sized so that K4 and K6 launch at both levels:
+    head_dim 64, S = 1024 and 256, rows of 3072..6144."""
     from wiw_tpu_torch.core.schedule import SERVING_CFG
     from wiw_tpu_torch.models.clip import CLIPVisionConfig
     from wiw_tpu_torch.models.unet import UNetConfig
@@ -127,42 +303,97 @@ def small_reference_phase(dev):
                            cfg=SERVING_CFG)
     cpu = SVDPipeline(unet, vae, clip, device="cpu")
     cpu.init_params(torch.Generator().manual_seed(0))
-    card = SVDPipeline(*(dataclasses.replace(c, dtype="bfloat16")
-                         for c in (unet, vae, clip)), device=dev)
-    card.load_state_dicts(cpu.unet.state_dict(), cpu.vae.state_dict(),
-                          cpu.clip.state_dict())
-    # the CPU reference keeps fp32 compute on the card's bf16-rounded weights
-    for tower, ref in ((card.unet, cpu.unet), (card.vae, cpu.vae),
-                       (card.clip, cpu.clip)):
-        ref.load_state_dict({k: v.float().cpu() for k, v in
-                             tower.state_dict().items()})
+    bf16 = [dataclasses.replace(c, dtype="bfloat16") for c in (unet, vae, clip)]
     rng = np.random.default_rng(0)
     image = torch.from_numpy(rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32))
     noise = torch.from_numpy(rng.standard_normal((1, 3, 32, 32, 4)).astype(np.float32))
     actions = torch.tensor([[4, 2, 1]])
-    before = card_launches()
-    got = card.generate(image, gen, actions, init_latents=noise,
-                        generator=torch.Generator(device=dev).manual_seed(1))
-    ref = cpu.generate(image, gen, actions, init_latents=noise,
-                       generator=torch.Generator().manual_seed(1))
-    diff = (got.float().cpu() - ref).abs()
-    print(f"small input (3f 64x64, 4 steps): card bf16 vs CPU fp32 "
-          f"max|diff| {diff.max().item():.6g} mean|diff| {diff.mean().item():.6g} "
-          f"(tol {SMALL_ATOL} / mean {SMALL_MEAN_ATOL}); K1 launches "
-          f"{card_launches() - before}", flush=True)
-    if not (torch.isfinite(got).all() and diff.max() <= SMALL_ATOL
-            and diff.mean() <= SMALL_MEAN_ATOL):
-        raise RuntimeError("small-input card run disagrees with the CPU reference")
+    ref = None
+    for label, extra in (("default", {}), ("fused", FUSED)):
+        card = SVDPipeline(dataclasses.replace(bf16[0], **extra), bf16[1],
+                           bf16[2], device=dev)
+        card.load_state_dicts(cpu.unet.state_dict(), cpu.vae.state_dict(),
+                              cpu.clip.state_dict())
+        if ref is None:
+            # the CPU reference keeps fp32 compute on the card's bf16-rounded
+            # weights (rounding again for the next card run changes nothing)
+            for tower, cpu_tower in ((card.unet, cpu.unet), (card.vae, cpu.vae),
+                                     (card.clip, cpu.clip)):
+                cpu_tower.load_state_dict({k: v.float().cpu() for k, v in
+                                           tower.state_dict().items()})
+            ref = cpu.generate(image, gen, actions, init_latents=noise,
+                               generator=torch.Generator().manual_seed(1))
+        reset_launches()
+        got = card.generate(image, gen, actions, init_latents=noise,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+        counts = launches()
+        diff = (got.float().cpu() - ref).abs()
+        print(f"small input {label} (3f 64x64, 4 steps): card bf16 vs CPU fp32 "
+              f"max|diff| {diff.max().item():.6g} mean|diff| "
+              f"{diff.mean().item():.6g} (tol {SMALL_ATOL} / mean "
+              f"{SMALL_MEAN_ATOL}); launches {counts}", flush=True)
+        if not (torch.isfinite(got).all() and diff.max() <= SMALL_ATOL
+                and diff.mean() <= SMALL_MEAN_ATOL):
+            raise RuntimeError(f"small-input card run ({label}) disagrees with "
+                               "the CPU reference")
+        took = (counts["K1"] > 0, counts["K4"] > 0, counts["K6"] > 0)
+        if took != (True, label == "fused", label == "fused"):
+            raise RuntimeError(f"small-input {label} run took the wrong kernels: {counts}")
+        del card
 
 
-def card_launches() -> int:
+def _wrappers():
+    from wiw_tpu_torch.ops import fused_mlp as TF
+    from wiw_tpu_torch.ops import temporal_attention as TT
     from wiw_tpu_torch.ops.flash_attention import flash_attention
 
-    return flash_attention.launches
+    return {"K1": flash_attention, "K4": TT.frame_attention,
+            "K5": TF.geglu_ffn, "K6": TF.ln_geglu_ffn_residual}
 
 
-def slice_phase(dev):
-    from wiw_tpu_torch.ops.flash_attention import flash_attention
+def reset_launches():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {k: fn.launches for k, fn in _wrappers().items()}
+
+
+def profile_forward(unet, dev, label):
+    """One 2-row UNet forward at 576x1024 under torch.profiler: device time
+    by op (top 14 by self time), busy time and the forward's event time."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    args = (torch.randn(2, FRAMES, 72, 128, 8, generator=g, device=dev),
+            torch.full((2,), 0.5, device=dev),
+            torch.randn(2, 1, 1024, generator=g, device=dev),
+            torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev),
+            torch.zeros(2, FRAMES, 14, device=dev))
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        unet(*args)
+        fwd_ms = cuda_ms(lambda: unet(*args), 3)
+        with torch.profiler.profile(activities=acts) as prof:
+            unet(*args)
+            torch.cuda.synchronize()
+
+    events = prof.key_averages()
+    kernels = sorted((e for e in events if "CUDA" in str(e.device_type)),
+                     key=self_dev, reverse=True)
+    ops = sorted((e for e in events if "CUDA" not in str(e.device_type)),
+                 key=self_dev, reverse=True)
+    busy = sum(self_dev(e) for e in kernels) / 1e3
+    print(f"profile {label}: 2-row UNet forward {fwd_ms:.2f} ms (CUDA events, "
+          f"mean of 3); device busy {busy:.2f} ms in the profiled forward",
+          flush=True)
+    for what, rows in (("ops", ops), ("kernels", kernels)):
+        print(f"  top {what} by self device time:", flush=True)
+        for e in rows[:12]:
+            print(f"  {self_dev(e) / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:100]}",
+                  flush=True)
+
+
+def slice_phase(dev, label: str, requests: int, **config):
     from wiw_tpu_torch.workers.svd_action import SVDActionWorker
 
     t0 = time.perf_counter()
@@ -170,10 +401,13 @@ def slice_phase(dev):
         width=1024, height=576, num_frames=FRAMES, num_inference_steps=STEPS,
         out_width=480, out_height=480, action_strategy="micro_cond",
         action_input_channel=14, dtype="bfloat16", quantize="bf16",
-        cfg_schedule="serving", device="cuda", seed=0)
+        cfg_schedule="serving", device="cuda", seed=0,
+        **{"fused_ff": False, "temporal_attention": "batched", **config})
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in worker.pipe.unet.parameters())
-    print(f"worker built: UNet {n_params / 1e9:.3f} B params, "
+    print(f"{label} worker built: UNet {n_params / 1e9:.3f} B params, "
+          f"config fused_ff={worker.pipe.unet_config.fused_ff} "
+          f"temporal_attention={worker.pipe.unet_config.temporal_attention}, "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # device-side probes: denoise window (first UNet call -> last), and a
@@ -195,9 +429,9 @@ def slice_phase(dev):
     def decoded(_m, _a, out):  # a hook that returns a value replaces the output
         finite.logical_and_(torch.isfinite(out).all())
 
-    worker.pipe.unet.register_forward_pre_hook(pre)
-    worker.pipe.unet.register_forward_hook(post)
-    worker.pipe.vae.decoder.register_forward_hook(decoded)
+    hooks = [worker.pipe.unet.register_forward_pre_hook(pre),
+             worker.pipe.unet.register_forward_hook(post),
+             worker.pipe.vae.decoder.register_forward_hook(decoded)]
 
     rng = np.random.default_rng(0)
     request = {
@@ -207,31 +441,41 @@ def slice_phase(dev):
         "request_model_name": "igenex",
         "return_objects": [True],
     }
-    per_request = 16 * STEPS
-    flash_attention.launches = 0  # count the main path only
-    for i in range(2):
+    want = PER_REQUEST[label]
+    total = dict.fromkeys(_wrappers(), 0)
+    for i in range(requests):
         marks.clear()
         torch.cuda.reset_peak_memory_stats()
-        before = flash_attention.launches
+        reset_launches()  # count this request of this path only
         t = time.perf_counter()
         out = worker(request)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
+        counts = launches()
         frames = out["pred_frames"]
         denoise_s = marks["start"].elapsed_time(marks["end"]) / 1e3
-        delta = flash_attention.launches - before
-        print(f"request {i}: {secs:.3f} s, denoise {denoise_s:.3f} s = "
+        print(f"{label} request {i}: {secs:.3f} s, denoise {denoise_s:.3f} s = "
               f"{FRAMES / denoise_s:.4f} frames/s, pred_frames {frames.shape} "
-              f"{frames.dtype}, finite {bool(finite)}, "
-              f"std {frames.std():.3f}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
-              f"K1 launches {delta}", flush=True)
+              f"{frames.dtype}, finite {bool(finite)}, std {frames.std():.3f}, "
+              f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+              f"launches {counts}", flush=True)
         if frames.shape != (1, FRAMES, 3, 480, 480) or frames.dtype != np.uint8:
             raise RuntimeError(f"bad pred_frames {frames.shape} {frames.dtype}")
         if not bool(finite) or frames.min() == frames.max():
             raise RuntimeError("non-finite or constant output")
-        if delta != per_request:
-            raise RuntimeError(f"{delta} K1 launches, expected {per_request}")
-    return flash_attention.launches
+        if any(counts[k] != n for k, n in want.items()) or counts["K5"]:
+            raise RuntimeError(f"{label}: launches {counts}, expected {want} "
+                               "and no K5")
+        for k in total:
+            total[k] += counts[k]
+    for h in hooks:
+        h.remove()
+    reset_launches()
+    profile_forward(worker.pipe.unet, dev, label)
+    del worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 def main() -> int:
@@ -239,37 +483,68 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from wiw_tpu_torch.ops import native
-    from wiw_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_plain,
-    )
 
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sdp = torch.backends.cuda
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; allow_tf32: "
           f"matmul {torch.backends.cuda.matmul.allow_tf32}, "
-          f"cudnn {torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn {torch.backends.cudnn.allow_tf32}; SDPA (the library "
+          f"yardstick of K1, K4): flash built {sdp.is_flash_attention_available()}"
+          f", enabled flash {sdp.flash_sdp_enabled()} mem_efficient "
+          f"{sdp.mem_efficient_sdp_enabled()} cudnn {sdp.cudnn_sdp_enabled()}",
+          flush=True)
 
+    libs = ("flash_attn_fwd", "temporal_attn", "geglu_ffn")
     t0 = time.perf_counter()
-    native.load_library("flash_attn_fwd")
-    ptxas = [ln.strip() for ln in native.build_info["flash_attn_fwd"][1].splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"build flash_attn_fwd (sm_90a): {time.perf_counter() - t0:.2f} s; "
-          + "; ".join(ptxas), flush=True)
+    native.load_libraries(*libs)
+    print(f"build (sm_90a, one nvcc per source in parallel): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name in libs:
+        secs, log = native.build_info[name]
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"  {name}: {secs:.2f} s; " + "; ".join(ptxas), flush=True)
 
-    max_err, ms, plain_ms = kernel_phase(flash_attention, flash_attention_plain, dev)
+    rows = {
+        "K1": Row("flash_attn_fwd_d64", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
+                  "wiw_tpu/ops/pallas_attention.py:121",
+                  "one 2-row UNet forward: 16 calls", library=True),
+        "K4": Row("temporal_attn_d64", "wiw_tpu_torch/csrc/temporal_attn.cu",
+                  "wiw_tpu/ops/temporal_attention.py:26",
+                  "one 2-row UNet forward: 15 calls", library=True),
+        "K5": Row("geglu_ffn", "wiw_tpu_torch/csrc/geglu_ffn.cu",
+                  "wiw_tpu/ops/fused_mlp.py:43",
+                  "K6's 30 shapes of one 2-row UNet forward; no model caller, "
+                  "no single PyTorch call", library=False),
+        "K6": Row("ln_geglu_ffn_residual", "wiw_tpu_torch/csrc/geglu_ffn.cu",
+                  "wiw_tpu/ops/fused_mlp.py:169",
+                  "one 2-row UNet forward: 30 calls; no single PyTorch call",
+                  library=False),
+    }
+    g = torch.Generator(device=dev).manual_seed(0)
+    k1_phase(rows["K1"], dev, g)
+    k4_phase(rows["K4"], dev, g)
+    ffn_phase(rows["K5"], rows["K6"], dev, g)
+    for key, row in rows.items():
+        d = row.d
+        print(f"{key} per UNet forward ({d['per']}): kernel {d['ms']:.4f} ms, "
+              f"plain {d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
+              f"({d['bound_by']}), library {d['library_ms']}", flush=True)
+    torch.cuda.empty_cache()
+
     small_reference_phase(dev)
-    launches = slice_phase(dev)
+    by_path = {"default": slice_phase(dev, "default", 1),
+               "fused": slice_phase(dev, "fused", 2, **FUSED)}
+    for key, row in rows.items():
+        row.d["launches"] = sum(p[key] for p in by_path.values())
+        row.d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        row.d["on_main_path"] = key != "K5"
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd_d64", "route": "cuda",
-        "source": "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "wiw_tpu/ops/pallas_attention.py:121",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [r.d for r in rows.values()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,16 +4,21 @@ CPU mode). This file imports no jax, so it also runs where jax is absent:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance for K1: 2e-2 absolute plus 1e-2 relative, i.e. about two bf16
-ulps of the output (bf16 inputs; the kernel rounds P to bf16 before the PV
-product and rounds the output to bf16, the plain version rounds the
-softmax weights to bf16, so the two may land one rounding step apart).
+Tolerance, for every kernel, that of chip_smoke.py, scaled by the plain
+output (K1's shrinks as 1/sqrt(S)): each element within 0.05 rms(ref) plus
+2^-6 |ref| (two bf16 ulps at worst), and a relative Frobenius error within
+5e-3. K1 rounds P to bf16 before the PV product, its plain version rounds
+the softmax weights; K4, K5 and K6 round where their plain versions do, but
+sum in another order, so a bf16 rounding (of the output, or of K5/K6's
+intermediates) may land one step apart.
 """
 
 import pytest
 import torch
 
 from wiw_tpu_torch.ops import attention as TAtt
+from wiw_tpu_torch.ops import fused_mlp as TF
+from wiw_tpu_torch.ops import temporal_attention as TT
 from wiw_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
@@ -27,6 +32,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _close(out, ref):
+    out, ref = out.float(), ref.float()
+    rms = ref.square().mean().sqrt()
+    assert bool(((out - ref).abs() <= 0.05 * rms + 2.0 ** -6 * ref.abs()).all())
+    assert torch.linalg.vector_norm(out - ref) <= 5e-3 * torch.linalg.vector_norm(ref)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("BH,S", [(4, 144), (3, 1000), (2, 2304)])
 def test_kernel_matches_plain_on_card(cuda_device, BH, S):
@@ -38,7 +50,7 @@ def test_kernel_matches_plain_on_card(cuda_device, BH, S):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     ref = flash_attention_plain(q, k, v)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=1e-2)
+    _close(out, ref)
 
 
 @pytest.mark.cuda
@@ -48,9 +60,96 @@ def test_kernel_reads_strided_heads_and_rejects_bad_inputs(cuda_device):
     heads = x.view(2, 144, 3, 64).transpose(1, 2)
     ref = flash_attention_plain(heads, heads, heads).transpose(1, 2).reshape(
         2, 144, 192)
-    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=1e-2)
+    _close(out, ref)
     with pytest.raises(TypeError):
         flash_attention(*(t.float() for t in (heads, heads, heads)))
     d80 = torch.zeros(1, 1, 16, 80, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(d80, d80, d80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,F,S,H", [(2, 14, 64, 5), (1, 14, 144, 2), (3, 3, 65, 1)])
+def test_frame_attention_matches_plain_on_card(cuda_device, B, F, S, H):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(B, F, S, H * 64, generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    before = TT.frame_attention.launches
+    out = TT.frame_attention(q, k, v, H)
+    torch.cuda.synchronize()
+    assert TT.frame_attention.launches == before + 1
+    _close(out, TT.frame_attention_plain(q, k, v, H))
+
+
+@pytest.mark.cuda
+def test_frame_attention_rejects_inputs_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 14, 64, 128, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):
+        TT.frame_attention(x.float(), x.float(), x.float(), 2)
+    with pytest.raises(ValueError):  # head_dim 32
+        TT.frame_attention(x, x, x, 4)
+    with pytest.raises(ValueError):  # not contiguous
+        t = x.transpose(1, 2)
+        TT.frame_attention(t, t, t, 2)
+    big = torch.zeros(1, 17, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # more frames than the kernel holds
+        TT.frame_attention(big, big, big, 1)
+
+
+def _ffn(dev, M, C, c_out=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    inner, c_out = 4 * C, c_out or C
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    return dict(
+        x=r(M, C).bfloat16(), ln_w=1 + r(C, scale=0.1), ln_b=r(C, scale=0.1),
+        w1=r(2 * inner, C, scale=C ** -0.5).bfloat16(),
+        b1=r(2 * inner, scale=0.1).bfloat16(),
+        w2=r(c_out, inner, scale=inner ** -0.5).bfloat16(),
+        b2=r(c_out, scale=0.1).bfloat16())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,C", [(128, 320), (256, 640), (384, 64)])
+def test_ln_geglu_ffn_residual_matches_plain_on_card(cuda_device, M, C):
+    p = _ffn(cuda_device, M, C)
+    args = (p["x"], p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"])
+    before = TF.ln_geglu_ffn_residual.launches
+    out = TF.ln_geglu_ffn_residual(*args)
+    torch.cuda.synchronize()
+    assert TF.ln_geglu_ffn_residual.launches == before + 1
+    _close(out, TF.ln_geglu_ffn_residual_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,C,c_out", [(128, 320, 320), (256, 640, 640), (128, 128, 192)])
+def test_geglu_ffn_matches_plain_on_card(cuda_device, M, C, c_out):
+    p = _ffn(cuda_device, M, C, c_out)
+    args = (p["x"], p["w1"], p["b1"], p["w2"], p["b2"])
+    before = TF.geglu_ffn.launches
+    out = TF.geglu_ffn(*args)
+    torch.cuda.synchronize()
+    assert TF.geglu_ffn.launches == before + 1
+    assert out.shape == (M, c_out)
+    _close(out, TF.geglu_ffn_plain(*args))
+
+
+@pytest.mark.cuda
+def test_ffn_kernels_reject_inputs_they_do_not_take(cuda_device):
+    p = _ffn(cuda_device, 256, 320)
+    ln = (p["ln_w"], p["ln_b"])
+    w = (p["w1"], p["b1"], p["w2"], p["b2"])
+    with pytest.raises(TypeError):  # dtype
+        TF.ln_geglu_ffn_residual(p["x"].float(), *ln, *w)
+    with pytest.raises(ValueError):  # rows not a multiple of 128
+        TF.ln_geglu_ffn_residual(p["x"][:200], *ln, *w)
+    with pytest.raises(ValueError):  # layout
+        TF.geglu_ffn(p["x"], p["w1"].t().contiguous().t(), *w[1:])
+    # C > 640; C = 96, which the reference's rule takes but the kernel not
+    for C in (1280, 96):
+        p = _ffn(cuda_device, 128, C)
+        with pytest.raises(ValueError):
+            TF.ln_geglu_ffn_residual(p["x"], p["ln_w"], p["ln_b"], p["w1"],
+                                     p["b1"], p["w2"], p["b2"])

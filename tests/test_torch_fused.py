@@ -1,0 +1,271 @@
+"""Port parity for kernels K4, K5 and K6: their plain versions against the
+reference's Pallas kernels run in interpret mode on the CPU, and the port's
+dispatch rules against the reference's.
+
+Inputs are made with numpy; the FF inputs are those of the reference's
+tests/test_models.py::TestFusedGEGLU (C = 64, inner = 256). Weights go to
+the port in torch's Linear layout (the transposes of the reference's).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wiw_tpu.ops import fused_mlp as JF
+from wiw_tpu.ops.temporal_attention import temporal_self_attention_pallas
+from wiw_tpu.ops.temporal_attention import temporal_self_attention_xla as J_xla
+from wiw_tpu_torch.ops import fused_mlp as TF
+from wiw_tpu_torch.ops import temporal_attention as TT
+
+torch.set_num_threads(1)
+
+
+def _rand(shape, seed, scale=1.0, shift=0.0):
+    return (np.random.default_rng(seed).standard_normal(shape) * scale
+            + shift).astype(np.float32)
+
+
+def _t(a, bf16=False):
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.bfloat16() if bf16 else t
+
+
+def _j(a, bf16=False):
+    return jnp.asarray(a, jnp.bfloat16) if bf16 else jnp.asarray(a)
+
+
+# ---------------------------------------------------------------- K4
+@pytest.mark.parametrize("bf16", [False, True])
+def test_frame_attention_plain_matches_pallas_kernel(bf16):
+    q, k, v = (_rand((2, 5, 128, 2 * 16), s) for s in (1, 2, 3))  # S % 64 == 0
+    ref = np.asarray(temporal_self_attention_pallas(
+        *(_j(a, bf16) for a in (q, k, v)), heads=2, interpret=True), np.float32)
+    out = TT.frame_attention(*(_t(a, bf16) for a in (q, k, v)), heads=2)
+    assert out.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    if bf16:
+        # both round the fp32 result once; a sum in another order can move
+        # it across one rounding boundary: one bf16 ulp of outputs up to ~3
+        np.testing.assert_allclose(out.float().numpy(), ref, atol=1e-2, rtol=1e-2)
+    else:
+        # fp32 throughout; only the summation order differs
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_xla_formulation_matches_reference(bf16):
+    """The einsum oracle, which WIW_TEMPORAL_ATTN=xla selects."""
+    q, k, v = (_rand((2, 5, 24, 2 * 16), s) for s in (7, 8, 9))
+    ref = np.asarray(J_xla(*(_j(a, bf16) for a in (q, k, v)), heads=2), np.float32)
+    out = TT.temporal_self_attention_xla(*(_t(a, bf16) for a in (q, k, v)), heads=2)
+    assert out.dtype == (torch.bfloat16 if bf16 else torch.float32)
+    if bf16:
+        # the same bf16 weights; the weighted sum is rounded once, in
+        # another order: one bf16 ulp of outputs up to ~3
+        np.testing.assert_allclose(out.float().numpy(), ref, atol=1e-2, rtol=1e-2)
+    else:
+        np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_frame_attention_keeps_softmax_weights_unrounded():
+    """In bf16, K4 rounds only its output; the batched form rounds the
+    weights too, so on the same inputs it is the further from fp32."""
+    q, k, v = (_rand((1, 14, 64, 64), s) for s in (4, 5, 6))
+    tb = [_t(a, True) for a in (q, k, v)]
+    ref32 = TT.frame_attention_plain(*(t.float() for t in tb), heads=1)
+    err_k4 = (TT.frame_attention(*tb, heads=1).float() - ref32).abs().mean()
+    err_batched = (TT.temporal_self_attention_batched(*tb, heads=1).float()
+                   - ref32).abs().mean()
+    assert err_k4 < err_batched
+
+
+# ---------------------------------------------------------------- K5, K6
+C, INNER = 64, 256
+
+
+def _ffn_weights():
+    return dict(w1=_rand((C, 2 * INNER), 11, 0.05), b1=_rand((2 * INNER,), 12, 0.05),
+                w2=_rand((INNER, C), 13, 0.05), b2=_rand((C,), 14, 0.05))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_geglu_ffn_plain_matches_pallas_kernel(bf16):
+    x = _rand((256, C), 10)
+    p = _ffn_weights()
+    ref = np.asarray(JF.geglu_ffn_pallas(
+        _j(x, bf16), _j(p["w1"], bf16), p["b1"], _j(p["w2"], bf16), p["b2"],
+        interpret=True), np.float32)
+    out = TF.geglu_ffn(_t(x, bf16), _t(p["w1"].T, bf16), _t(p["b1"]),
+                       _t(p["w2"].T, bf16), _t(p["b2"])).float().numpy()
+    if bf16:
+        # one rounding of outputs up to ~1.2 may land one bf16 ulp apart
+        # (2^-8 relative; 0.0078 at 1.2): the fp32 sums run in another order
+        np.testing.assert_allclose(out, ref, atol=8e-3, rtol=8e-3)
+    else:
+        # the reference test's own fp32 bound (its erf is a rational
+        # approximation within 1.5e-7)
+        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ln_geglu_ffn_residual_plain_matches_pallas_kernel(bf16):
+    x = _rand((384, C), 20, 1.7, 0.3)
+    s, c = _rand((C,), 21, 0.2, 1.0), _rand((C,), 22, 0.1)
+    p = _ffn_weights()
+    ref = np.asarray(JF.ln_geglu_ffn_residual_pallas(
+        _j(x, bf16), s, c, _j(p["w1"], bf16), p["b1"], _j(p["w2"], bf16),
+        p["b2"], interpret=True), np.float32)
+    args = (_t(x, bf16), _t(s), _t(c), _t(p["w1"].T, bf16), _t(p["b1"]),
+            _t(p["w2"].T, bf16), _t(p["b2"]))
+    out = TF.ln_geglu_ffn_residual(*args).float().numpy()
+    if bf16:
+        # the CPU compiler of the reference rewrites the gate and some bf16
+        # round trips (the next test holds the roundings to the kernel's
+        # source), so an output may land one bf16 ulp apart: at most
+        # 2^-7 |out|, and 2^-7 (a tenth of the mean |h|) below |out| = 1
+        np.testing.assert_array_less(
+            np.abs(out - ref), 2.0 ** -7 * np.maximum(np.abs(ref), 1.0) + 1e-6)
+    else:
+        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+
+
+class _Ref:
+    """A VMEM ref of the reference's kernel body, held as an eager array."""
+
+    def __init__(self, a):
+        self.a = a
+
+    @property
+    def dtype(self):
+        return self.a.dtype
+
+    def __jax_array__(self):  # jnp.zeros_like(ref)
+        return self.a
+
+    def __getitem__(self, i):
+        return self.a[i]
+
+    def __setitem__(self, i, v):
+        self.a = self.a.at[i].set(v)
+
+
+def _lnff_op_by_op(monkeypatch):
+    """K6 in bf16 with weights at 0.15: (the port's output, the output of
+    the reference's `_lnff_kernel` itself run eagerly one jnp op at a time,
+    x). One row block and one inner tile (inner = its block size)."""
+    monkeypatch.delenv("WIW_FUSED_FF_GATE", raising=False)
+    monkeypatch.setattr(JF.pl, "program_id", lambda axis: 0)
+    monkeypatch.setattr(JF.pl, "num_programs", lambda axis: 1)
+    monkeypatch.setattr(JF.pl, "when", lambda c: (lambda f: f() if c else None))
+    x = _rand((384, C), 20, 1.7, 0.3)
+    s, c = _rand((C,), 21, 0.2, 1.0), _rand((C,), 22, 0.1)
+    w1, b1 = _rand((C, 2 * INNER), 11, 0.15), _rand((2 * INNER,), 12, 0.15)
+    w2, b2 = _rand((INNER, C), 13, 0.15), _rand((C,), 14, 0.15)
+    xj, w1j = _j(x, True), _j(w1, True)
+    o_ref = _Ref(jnp.zeros_like(xj))
+    JF._lnff_kernel(1e-5, _Ref(xj), _Ref(_j(s[None])), _Ref(_j(c[None])),
+                    _Ref(w1j[:, :INNER]), _Ref(w1j[:, INNER:]),
+                    _Ref(_j(b1[None, :INNER])), _Ref(_j(b1[None, INNER:])),
+                    _Ref(_j(w2, True)), _Ref(_j(b2[None])), o_ref,
+                    _Ref(jnp.zeros_like(xj)), _Ref(jnp.zeros(x.shape, jnp.float32)))
+    out = TF.ln_geglu_ffn_residual(
+        _t(x, True), _t(s), _t(c), _t(w1.T, True), _t(b1), _t(w2.T, True),
+        _t(b2)).float().numpy()
+    return out, np.asarray(o_ref.a, np.float32), _t(x, True).float().numpy()
+
+
+def test_ln_geglu_ffn_residual_plain_rounds_where_the_kernel_does(monkeypatch):
+    """K6's bf16 roundings (LN rounded; each dot rounded, then a bf16 bias
+    add; the gate rounded; h = rounded acc + b2 in bf16; x + h) against the
+    reference's `_lnff_kernel` run op by op, so that each rounding happens
+    where its source puts it. (Compiled for the CPU, as interpret mode
+    compiles it, XLA rewrites the fp32 gate and the round trips around it,
+    so many rounded gates move one ulp, and the outputs of the test above
+    agree only to one ulp.) Weights at 0.15, so that h is O(1) (mean
+    |h| ~2 beside |x| ~1.7), where a wrong rounding of h or of an
+    intermediate moves a share of the outputs by an ulp."""
+    out, ref, x = _lnff_op_by_op(monkeypatch)
+    assert np.abs(ref - x).mean() > 1.0
+    diff = np.abs(out - ref)
+    # only the fp32 sums' order differs, so a rounding lands one ulp apart
+    # at a few elements (0.008% measured; the next test plants the faults)
+    assert (diff > 0).mean() < K6_MOVED
+    np.testing.assert_array_less(diff, 2.0 ** -7 * np.maximum(np.abs(ref), 1.0) + 1e-6)
+
+
+K6_MOVED = 5e-3  # share of outputs that may move an ulp in the test above
+
+
+def _k6_plain_without(drop):
+    """K6's plain version with the bf16 rounding `drop` left out (None: the
+    plain version itself)."""
+    def plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
+        def rnd(t):
+            return t.to(x.dtype).float()
+
+        def r(step, t):
+            return t if step == drop else rnd(t)
+
+        inner, x2 = w2.shape[1], x.reshape(-1, x.shape[-1])
+        xn = r("ln", TF._ln_rows(x2, ln_w, ln_b, eps))
+        hb = r("bias1", r("dot1", xn @ w1.float().t()) + rnd(b1))
+        a, b = hb[:, :inner], hb[:, inner:]
+        g = r("gate", a * (b * 0.5 * (1.0 + torch.erf(b * 0.7071067811865476))))
+        h = r("h", r("dot2", g @ w2.float().t()) + rnd(b2))
+        return (x2.float() + h).to(x.dtype).reshape(x.shape)
+
+    return plain
+
+
+@pytest.mark.parametrize("drop", [None, "ln", "dot1", "bias1", "gate", "dot2", "h"])
+def test_rounding_check_catches_a_dropped_rounding(monkeypatch, drop):
+    """The test above fails for a plain version that leaves out any one of
+    K6's roundings, and passes for one that keeps them all."""
+    monkeypatch.setattr(TF, "ln_geglu_ffn_residual_plain", _k6_plain_without(drop))
+    out, ref, _ = _lnff_op_by_op(monkeypatch)
+    moved = (np.abs(out - ref) > 0).mean()
+    assert (moved < K6_MOVED) == (drop is None), moved
+
+
+# ---------------------------------------------------------------- dispatch
+@pytest.mark.parametrize("M,C_,inner,int8", [
+    (258048, 320, 1280, False), (64512, 640, 2560, False),
+    (16128, 1280, 5120, False), (4032, 1280, 5120, False),  # C > 640
+    (129024, 320, 1280, False), (384, 32, 128, False), (96, 64, 256, False),
+    (200, 64, 256, False), (128, 64, 192, False), (128, 640, 2560, True),
+    (0, 64, 256, False), (640, 641, 2560, False),
+])
+def test_lnff_eligibility_matches_reference_rule(M, C_, inner, int8):
+    dt = torch.int8 if int8 else torch.bfloat16
+    x = torch.empty(M, C_, device="meta")
+    w1 = torch.empty(2 * inner, C_, dtype=dt, device="meta")
+    w2 = torch.empty(C_, inner, dtype=dt, device="meta")
+    # wiw_tpu/ops/fused_mlp.py _lnff_dispatch, with on_tpu = True
+    ref = bool(C_ <= 640 and not int8 and JF._pick_bm(M, C_)
+               and inner % 128 == 0)
+    assert TF.lnff_eligible(x, w1, w2) == ref
+
+
+@pytest.mark.parametrize("mode", TT.MODES)
+@pytest.mark.parametrize("S", [9216, 2304, 576, 144, 64, 16, 100])
+def test_temporal_dispatch_matches_reference_rule(monkeypatch, mode, S):
+    calls = []
+    for name in ("frame_attention", "temporal_self_attention_batched",
+                 "temporal_self_attention_xla"):
+        monkeypatch.setattr(TT, name, lambda *a, _n=name: calls.append(_n))
+    q = torch.empty(1, 3, S, 64, device="meta")
+    TT.temporal_self_attention(q, q, q, 1, mode)
+    # wiw_tpu/ops/temporal_attention.py temporal_self_attention, on_tpu = True
+    if mode == "pallas" and S % 64 == 0:
+        expect = "frame_attention"
+    elif mode == "xla":
+        expect = "temporal_self_attention_xla"
+    else:
+        expect = "temporal_self_attention_batched"
+    assert calls == [expect]
+
+
+def test_temporal_dispatch_refuses_unknown_mode():
+    q = torch.zeros(1, 2, 64, 64)
+    with pytest.raises(ValueError):
+        TT.temporal_self_attention(q, q, q, 1, "flash")

@@ -99,9 +99,39 @@ class TestUNet:
         assert not torch.allclose(out[0], out2[0])
         torch.testing.assert_close(out[1], out2[1], rtol=0, atol=0)
 
+    def test_tiny_unet_fused_config_matches_reference(self, monkeypatch):
+        """fused_ff + temporal_attention='pallas' against the reference
+        under WIW_FUSED_FF=1 WIW_TEMPORAL_ATTN=pallas. On the CPU the
+        reference takes its XLA formulations there; the port takes K6's and
+        K4's plain versions at level 0 (S = 64, 384 rows) and the unfused
+        formulation and batched form at the mid block (S = 16, 96 rows): the
+        same function, fp32."""
+        inputs = _unet_inputs()
+        jmod = JUNet(MICRO_UNET)
+        params = _np(jax.jit(jmod.init)(jax.random.PRNGKey(0), **inputs)["params"])
+        monkeypatch.setenv("WIW_FUSED_FF", "1")
+        monkeypatch.setenv("WIW_TEMPORAL_ATTN", "pallas")
+        # a new function object, so the switches are read by a new trace
+        ref = np.asarray(jax.jit(lambda p, kw: jmod.apply({"params": p}, **kw))(
+            params, inputs))
+        targs = {k: torch.from_numpy(v) for k, v in inputs.items()}
+        outs = {}
+        for fused in (True, False):
+            tmod = TCV.load_flax_params(TU.UNetSpatioTemporal(port_cfg(
+                TU.UNetConfig, MICRO_UNET, fused_ff=fused,
+                temporal_attention="pallas" if fused else "batched")), params)
+            with torch.no_grad():
+                outs[fused] = tmod(**targs).numpy()
+        # the bound of the default configuration's parity (2e-4)
+        np.testing.assert_allclose(outs[True], ref, atol=2e-4, rtol=2e-4)
+        # against the port's default configuration: fp32 reordering only
+        np.testing.assert_allclose(outs[True], outs[False], atol=1e-4, rtol=1e-4)
+
     def test_port_config_refuses_unported_strategies(self):
         with pytest.raises(NotImplementedError):
             TU.UNetConfig(action_strategy="action_block")
+        with pytest.raises(ValueError):
+            TU.UNetConfig(temporal_attention="flash")
 
 
 class TestVAE:

@@ -23,7 +23,8 @@ from torch import nn
 
 from wiw_tpu_torch.core.schedule import timestep_embedding
 from wiw_tpu_torch.ops.attention import attention_bsd
-from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention_batched
+from wiw_tpu_torch.ops.fused_mlp import ln_geglu_ffn_residual, lnff_eligible
+from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention
 
 
 class Linear(nn.Linear):
@@ -176,19 +177,39 @@ class CrossAttention(nn.Module):
 
 class TemporalSelfAttention(CrossAttention):
     """Self-attention across frames on [B, F, S, C]; same parameters as
-    CrossAttention."""
+    CrossAttention. `mode` is the formulation (ops/temporal_attention.py)."""
+
+    def __init__(self, query_dim: int, heads: int, dim_head: int,
+                 mode: str = "batched"):
+        super().__init__(query_dim, heads, dim_head)
+        self.mode = mode
 
     def forward(self, x):
-        out = temporal_self_attention_batched(
-            self.to_q(x), self.to_k(x), self.to_v(x), self.heads)
+        out = temporal_self_attention(
+            self.to_q(x), self.to_k(x), self.to_v(x), self.heads, self.mode)
         return self.to_out[0](out)
+
+
+def _ln_ff_residual(x, ln: LayerNorm, ff: FeedForward, fused: bool):
+    """x + ff(ln(x)). With `fused`, kernel K6 where `lnff_eligible` (the
+    reference's rule) allows it; elsewhere the unfused modules, the function
+    the reference's unfused oracle computes. The modules keep their
+    parameters either way, so checkpoints map alike. On the card, an
+    eligible C that is not a multiple of 64 raises (see `fused_mlp`)."""
+    proj, out = ff.net[0].proj, ff.net[2]
+    if fused and lnff_eligible(x, proj.weight, out.weight):
+        return ln_geglu_ffn_residual(x, ln.weight, ln.bias, proj.weight,
+                                     proj.bias, out.weight, out.bias, ln.eps)
+    return x + ff(ln(x))
 
 
 class BasicTransformerBlock(nn.Module):
     """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, all residual."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
+                 fused_ff: bool = False):
         super().__init__()
+        self.fused_ff = fused_ff
         self.norm1 = LayerNorm(dim)
         self.attn1 = CrossAttention(dim, heads, dim_head)
         self.norm2 = LayerNorm(dim)
@@ -199,29 +220,32 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context=None):
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        return _ln_ff_residual(x, self.norm3, self.ff, self.fused_ff)
 
 
 class TemporalBasicTransformerBlock(nn.Module):
     """ff_in -> self-attn over frames -> cross-attn -> ff on [B, F, S, C]."""
 
-    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int):
+    def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
+                 fused_ff: bool = False, temporal_attention: str = "batched"):
         super().__init__()
+        self.fused_ff = fused_ff
         self.norm_in = LayerNorm(dim)
         self.ff_in = FeedForward(dim)
         self.norm1 = LayerNorm(dim)
-        self.attn1 = TemporalSelfAttention(dim, heads, dim_head)
+        self.attn1 = TemporalSelfAttention(dim, heads, dim_head,
+                                           temporal_attention)
         self.norm2 = LayerNorm(dim)
         self.attn2 = CrossAttention(dim, heads, dim_head, context_dim)
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForward(dim)
 
     def forward(self, x, context=None):
-        x = x + self.ff_in(self.norm_in(x))
+        x = _ln_ff_residual(x, self.norm_in, self.ff_in, self.fused_ff)
         x = x + self.attn1(self.norm1(x))
         if context is not None:
             x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        return _ln_ff_residual(x, self.norm3, self.ff, self.fused_ff)
 
 
 class AlphaBlender(nn.Module):
@@ -342,16 +366,18 @@ class TransformerSpatioTemporal(nn.Module):
     inside). The action-block branch waits for a later port."""
 
     def __init__(self, ch: int, heads: int, dim_head: int, context_dim: int,
-                 num_layers: int = 1):
+                 num_layers: int = 1, fused_ff: bool = False,
+                 temporal_attention: str = "batched"):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(ch, eps=1e-6)
         self.proj_in = Linear(ch, inner)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, context_dim)
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim, fused_ff)
              for _ in range(num_layers)])
         self.temporal_transformer_blocks = nn.ModuleList(
-            [TemporalBasicTransformerBlock(inner, heads, dim_head, context_dim)
+            [TemporalBasicTransformerBlock(inner, heads, dim_head, context_dim,
+                                           fused_ff, temporal_attention)
              for _ in range(num_layers)])
         self.time_pos_embed = TimestepEmbedding(ch, ch * 4, out_dim=ch)
         self.time_mixer = AlphaBlender(0.5)

@@ -28,6 +28,7 @@ from wiw_tpu_torch.models.layers import (
     TransformerSpatioTemporal,
     Upsample2D,
 )
+from wiw_tpu_torch.ops.temporal_attention import MODES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,11 +49,20 @@ class UNetConfig:
     # micro_cond input channel: 14 (nav idx codec) or 10 (manip pose codec)
     action_input_channel: int = 14
     dtype: str = "float32"
+    # the transformers' LN + GEGLU feed-forward + residual through kernel
+    # K6 where the reference's rule allows it (its WIW_FUSED_FF=1)
+    fused_ff: bool = False
+    # frame attention formulation, as the reference's WIW_TEMPORAL_ATTN:
+    # 'batched' | 'xla' | 'pallas' (kernel K4 where S % 64 == 0)
+    temporal_attention: str = "batched"
 
     def __post_init__(self):
         if self.action_strategy not in (None, "micro_cond"):
             raise NotImplementedError(
                 f"action_strategy {self.action_strategy!r} is not ported yet")
+        if self.temporal_attention not in MODES:
+            raise ValueError(f"temporal_attention {self.temporal_attention!r} "
+                             f"not in {MODES}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -128,7 +138,8 @@ class UNetSpatioTemporal(nn.Module):
             return SpatioTemporalResBlock(cin, cout, eps=1e-5, temb_ch=temb)
 
         def attn(ch, heads):
-            return TransformerSpatioTemporal(ch, heads, ch // heads, ctx, tl)
+            return TransformerSpatioTemporal(ch, heads, ch // heads, ctx, tl,
+                                             cfg.fused_ff, cfg.temporal_attention)
 
         n = len(cfg.block_out_channels)
         skip_ch = [ch0]

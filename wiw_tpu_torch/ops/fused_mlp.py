@@ -1,0 +1,190 @@
+"""Fused GEGLU feed-forward: kernels K5 and K6 and their plain versions.
+
+Port of `wiw_tpu/ops/fused_mlp.py`. Weights are in torch's Linear layout:
+w1 [2*inner, C] (rows: the hidden half, then the gate half, as diffusers'
+GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
+
+- K5 `geglu_ffn` (plain `geglu_ffn_plain`) replaces the TPU kernel `_kernel`
+  (`geglu_ffn_pallas`): x @ W1 + b1 in fp32, rounded to the model dtype;
+  hidden * gelu(gate) in fp32, rounded; @ W2 accumulated in fp32, + b2 in
+  fp32, rounded once. No model caller, as in the reference.
+- K6 `ln_geglu_ffn_residual` (plain `ln_geglu_ffn_residual_plain`) replaces
+  `_lnff_kernel` (`ln_geglu_ffn_residual_pallas`): x + W2 GEGLU(LN(x)),
+  with the unfused pair of Linear layers' roundings: fp32 two-pass LN
+  rounded; each dot rounded, then a model-dtype bias add; the gate in fp32,
+  rounded; h = rounded acc + b2 in the model dtype; x + h.
+- `lnff_eligible` is the reference's rule for taking K6; where it says no
+  (C > 640, rows not a multiple of 128, ...) the model runs its unfused
+  LayerNorm and FeedForward modules, the function of the reference's
+  unfused oracle. A gap: the CUDA kernels take C and C_out only in
+  multiples of `C_STEP`, so a C <= 640 that is not one passes the
+  reference's rule (its Pallas kernel takes it) and then raises on the
+  card. The SVD† widths (320, 640) are multiples; the CPU's plain
+  versions take any C.
+
+Both kernels are one CUDA source, `wiw_tpu_torch/csrc/geglu_ffn.cu`, whose
+header says what bounds them on the H100. The wrappers take CPU tensors to
+the plain versions; on CUDA tensors they launch or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from wiw_tpu_torch.ops import native
+
+MAX_C = 640       # the kernel keeps a [32, C] fp32 accumulator in registers
+C_STEP = 64       # ... and takes C and C_out in multiples of this
+ROW_BLOCK = 128   # rows must come in multiples of this (the reference's rule)
+_LIB = "geglu_ffn"
+_SQRT1_2 = 0.7071067811865476
+
+
+def lnff_eligible(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> bool:
+    """The reference's rule for taking the fused kernel (`_lnff_dispatch`):
+    C <= 640, flattened rows a positive multiple of 128, inner a multiple
+    of 128, weights not int8. It does not ask for C % C_STEP == 0, which
+    the CUDA kernel needs (the module docstring's gap)."""
+    C = x.shape[-1]
+    M = x.numel() // C if C else 0
+    return (C <= MAX_C and M >= ROW_BLOCK and M % ROW_BLOCK == 0
+            and w2.shape[1] % 128 == 0 and w1.dtype != torch.int8)
+
+
+def _ln_rows(x, scale, bias, eps):
+    """Row LayerNorm in fp32 with a two-pass variance (the reference's
+    `_ln_rows`)."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    return (xf - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+
+
+def geglu_ffn_plain(x, w1, b1, w2, b2):
+    """K5's arithmetic in plain PyTorch (model dtype = x's dtype)."""
+    dt = x.dtype
+    inner, c_out = w2.shape[1], w2.shape[0]
+    xf = x.reshape(-1, x.shape[-1]).float()
+    h = (xf @ w1.float().t() + b1.float()).to(dt).float()
+    a, b = h[:, :inner], h[:, inner:]
+    g = a * (b * 0.5 * (1.0 + torch.erf(b * _SQRT1_2)))
+    out = g.to(dt).float() @ w2.float().t() + b2.float()
+    return out.to(dt).reshape(*x.shape[:-1], c_out)
+
+
+def ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2,
+                                eps: float = 1e-5):
+    """K6's arithmetic in plain PyTorch (model dtype = x's dtype)."""
+    dt = x.dtype
+    inner = w2.shape[1]
+    x2 = x.reshape(-1, x.shape[-1])
+    xn = _ln_rows(x2, ln_w, ln_b, eps).to(dt)
+    h = (xn.float() @ w1.float().t()).to(dt) + b1.to(dt)
+    a, b = h[:, :inner].float(), h[:, inner:].float()
+    g = (a * (b * 0.5 * (1.0 + torch.erf(b * _SQRT1_2)))).to(dt)
+    out = (g.float() @ w2.float().t()).to(dt) + b2.to(dt)
+    return (x2 + out).reshape(x.shape)
+
+
+def _check(x, w1, b1, w2, b2, residual: bool, ln=()) -> tuple[int, int, int, int]:
+    name = "ln_geglu_ffn_residual" if residual else "geglu_ffn"
+    for t in (w1, b1, w2, b2, *ln):
+        if t.device != x.device:
+            raise ValueError(f"{name}: operands on {t.device} and {x.device}")
+    for t in (x, w1, w2):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} kernel takes bf16 x and weights, got {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned "
+                             "x and weights")
+    C = x.shape[-1]
+    M = x.numel() // C if C else 0
+    c_out, inner = w2.shape
+    if (w1.shape != (2 * inner, C) or b1.shape != (2 * inner,)
+            or b2.shape != (c_out,)):
+        raise ValueError(f"{name}: shapes w1 {tuple(w1.shape)} b1 {tuple(b1.shape)} "
+                         f"w2 {tuple(w2.shape)} b2 {tuple(b2.shape)} do not fit C={C}")
+    if residual and (c_out != C or any(t.shape != (C,) for t in ln)):
+        raise ValueError(f"{name}: the residual needs C_out == C and [C] norm params")
+    for what, n in (("C", C), ("C_out", c_out)):
+        if n % C_STEP or not 0 < n <= MAX_C:
+            raise ValueError(f"{name} kernel takes {what} a multiple of {C_STEP} up to "
+                             f"{MAX_C}, got {n}")
+    if inner % 64 or inner == 0:
+        raise ValueError(f"{name} kernel takes inner a multiple of 64, got {inner}")
+    if M == 0 or M % ROW_BLOCK:
+        raise ValueError(f"{name} kernel takes a positive multiple of {ROW_BLOCK} "
+                         f"rows, got {M}")
+    return M, C, inner, c_out
+
+
+def _bind(lib: ctypes.CDLL, residual: bool):
+    fn = lib.wiw_ln_geglu_ffn_residual if residual else lib.wiw_geglu_ffn
+    if fn.argtypes is None:
+        if residual:
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                           + [ctypes.c_float, ctypes.c_void_p])
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def _launch(residual: bool, x, args: tuple) -> None:
+    fn = _bind(native.load_library(_LIB), residual)
+    with torch.cuda.device(x.device):
+        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{_LIB} launch failed: cudaError {err}")
+
+
+def geglu_ffn(x, w1, b1, w2, b2):
+    """GEGLU feed-forward x [..., C] -> [..., C_out]. CPU tensors take
+    `geglu_ffn_plain`; CUDA tensors launch K5 (bf16; C and C_out multiples
+    of 64 up to 640, inner a multiple of 64, rows a multiple of 128;
+    anything else raises) and count one launch in `geglu_ffn.launches`."""
+    if _on_cpu(x, w1, b1, w2, b2):
+        return geglu_ffn_plain(x, w1, b1, w2, b2)
+    if x.device.type != "cuda":
+        raise ValueError(f"geglu_ffn: unsupported device {x.device}")
+    M, C, inner, c_out = _check(x, w1, b1, w2, b2, residual=False)
+    # biases go in fp32: K5 adds them in fp32, as the reference does
+    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
+    out = torch.empty(*x.shape[:-1], c_out, dtype=x.dtype, device=x.device)
+    _launch(False, x, (x.data_ptr(), w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(),
+                       b2f.data_ptr(), out.data_ptr(), M, C, inner, c_out))
+    geglu_ffn.launches += 1
+    return out
+
+
+geglu_ffn.launches = 0
+
+
+def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
+    """x + GEGLU_FF(LayerNorm(x)) over x [..., C]. CPU tensors take
+    `ln_geglu_ffn_residual_plain`; CUDA tensors launch K6 (bf16; C a
+    multiple of 64 up to 640, inner a multiple of 64, rows a multiple of
+    128; anything else raises) and count one launch in
+    `ln_geglu_ffn_residual.launches`."""
+    if _on_cpu(x, ln_w, ln_b, w1, b1, w2, b2):
+        return ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_geglu_ffn_residual: unsupported device {x.device}")
+    M, C, inner, _ = _check(x, w1, b1, w2, b2, residual=True, ln=(ln_w, ln_b))
+    # norm params and biases go in fp32; K6 rounds the biases to bf16 itself
+    lw, lb, b1f, b2f = (t.float().contiguous() for t in (ln_w, ln_b, b1, b2))
+    out = torch.empty_like(x)
+    _launch(True, x, (x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w1.data_ptr(),
+                      b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(), out.data_ptr(),
+                      M, C, inner, float(eps)))
+    ln_geglu_ffn_residual.launches += 1
+    return out
+
+
+ln_geglu_ffn_residual.launches = 0

@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled with nvcc
 for sm_90a into `wiw_tpu_torch/_build/<name>-<digest>.so` at first use, then
 loaded with ctypes. The digest covers the source and the flags, so an edited
-kernel rebuilds and a built one is reused. Nothing here runs at import.
+kernel rebuilds and a built one is reused. `load_libraries` runs one nvcc
+per source, all at once. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -44,35 +45,53 @@ def nvcc_path() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Compile `csrc/<name>.cu` if needed and return the loaded library."""
-    lib = _loaded.get(name)
-    if lib is not None:
-        return lib
+def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
-    if out.exists():
-        build_info[name] = (0.0, "")
-    else:
+    return BUILD_DIR / f"{name}-{digest}.so"
+
+
+def load_libraries(*names: str) -> list[ctypes.CDLL]:
+    """Compile each `csrc/<name>.cu` that is not built yet, one nvcc per
+    source, all started together, and return the loaded libraries."""
+    todo = [n for n in dict.fromkeys(names)
+            if n not in _loaded and not _target(n).exists()]
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(src)],
-                capture_output=True, text=True)
+    jobs = {}
+    try:
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            jobs[name] = (tmp, time.perf_counter(), subprocess.Popen(
+                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, t0, proc) in jobs.items():
+            log = proc.communicate()[0]
+            build_info[name] = (time.perf_counter() - t0, log.strip())
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-        finally:
+                failed.append(f"nvcc failed for {name}.cu:\n{log}")
+            else:
+                os.replace(tmp, _target(name))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for tmp, _, proc in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
             if os.path.exists(tmp):
                 os.unlink(tmp)
-        build_info[name] = (time.perf_counter() - t0,
-                            (proc.stdout + proc.stderr).strip())
-    lib = ctypes.CDLL(str(out))
-    _loaded[name] = lib
-    return lib
+    for name in names:
+        if name not in _loaded:
+            build_info.setdefault(name, (0.0, ""))
+            _loaded[name] = ctypes.CDLL(str(_target(name)))
+    return [_loaded[n] for n in names]
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Compile `csrc/<name>.cu` if needed and return the loaded library."""
+    lib = _loaded.get(name)
+    return lib if lib is not None else load_libraries(name)[0]

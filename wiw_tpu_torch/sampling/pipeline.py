@@ -106,7 +106,7 @@ class SVDPipeline:
         unet_config: UNetConfig,
         vae_config: VAEConfig = VAEConfig(dtype="bfloat16"),
         clip_config: CLIPVisionConfig = CLIPVisionConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
         self.unet_config = unet_config
         self.vae_config = vae_config

@@ -6,9 +6,13 @@ Port of `wiw_tpu/workers/svd_action.py`, with the same contract:
   out: {save_dirs, pred_frames? uint8 [B, T, C, H, W]}
 
 Runs in-process (`worker(input_dict)`) or as a subprocess through the
-reference's jax-free worker SDK (`wiw_tpu.serve.worker.main_from_argv`).
-Serving precision is bf16: the reference's W8A8 int8 mode is not ported
-yet (ROADMAP M6/K7) and asking for it raises.
+port's copy of the worker SDK (`wiw_tpu_torch.serve.worker`), whose wire
+format is the reference manager's. Serving precision is bf16: the
+reference's W8A8 int8 mode is not ported yet (ROADMAP M6/K7) and asking
+for it raises. The fused-kernel configuration (K4 frame attention, K6
+LN + GEGLU feed-forward) is selected with `fused_ff=True,
+temporal_attention="pallas"` or the reference's WIW_FUSED_FF=1 and
+WIW_TEMPORAL_ATTN=pallas.
 """
 
 from __future__ import annotations
@@ -21,10 +25,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wiw_tpu_torch.agents.saver import save_video
 from wiw_tpu_torch.core.schedule import SERVING_CFG, CFGSchedule
 from wiw_tpu_torch.models.unet import UNetConfig
 from wiw_tpu_torch.ops.resize import resize_cubic
 from wiw_tpu_torch.sampling.pipeline import GenerationConfig, SVDPipeline
+from wiw_tpu_torch.serve.worker import main_from_argv
+
+QUANTIZE_CHOICES = ("", "bf16", "int8")
+CFG_CHOICES = ("", "serving", "full")
 
 
 def _load_safetensors_dir(path: str) -> dict:
@@ -38,6 +47,42 @@ def _load_safetensors_dir(path: str) -> dict:
     for f in files:
         state.update(load_file(osp.join(path, f)))
     return state
+
+
+def resolve_switches(cfg_schedule: str = "", quantize: str = "",
+                     fused_ff: Optional[bool] = None,
+                     temporal_attention: Optional[str] = None) -> dict:
+    """The deployment switches of the reference worker, resolved as it
+    resolves them: an explicit argument wins, else the environment, else
+    the default.
+
+      WIW_CFG            'serving' (default) -> SERVING_CFG, else full CFG
+      WIW_QUANT          'int8' -> W8A8 (not ported: raises), else bf16
+      WIW_FUSED_FF       '1' -> fused LN + feed-forward (K6), else off
+      WIW_TEMPORAL_ATTN  'pallas' (K4) | 'xla', else 'batched' (default)
+
+    Environment values keep the reference's readings; an explicit
+    `quantize` or `cfg_schedule` outside the CLI's choices raises
+    ValueError rather than serving something else.
+
+    Returns {cfg, fused_ff, temporal_attention}."""
+    if quantize not in QUANTIZE_CHOICES:
+        raise ValueError(f"quantize {quantize!r} not in {QUANTIZE_CHOICES}")
+    if cfg_schedule not in CFG_CHOICES:
+        raise ValueError(f"cfg_schedule {cfg_schedule!r} not in {CFG_CHOICES}")
+    env = os.environ
+    if (quantize or env.get("WIW_QUANT", "")) == "int8":
+        raise NotImplementedError(
+            "W8A8 int8 serving is not ported to the GPU yet (ROADMAP "
+            "M6 / kernel K7); serve with --quantize bf16")
+    cfg = cfg_schedule or env.get("WIW_CFG", "serving")
+    if fused_ff is None:
+        fused_ff = env.get("WIW_FUSED_FF", "0") == "1"
+    if temporal_attention is None:
+        mode = env.get("WIW_TEMPORAL_ATTN", "batched")
+        temporal_attention = mode if mode in ("pallas", "xla") else "batched"
+    return {"cfg": SERVING_CFG if cfg == "serving" else CFGSchedule(),
+            "fused_ff": fused_ff, "temporal_attention": temporal_attention}
 
 
 class SVDActionWorker:
@@ -56,30 +101,29 @@ class SVDActionWorker:
         out_height: int = 480,
         dtype: str = "bfloat16",
         seed: int = 0,
-        quantize: str = "bf16",
-        cfg_schedule: str = "serving",
+        quantize: str = "",
+        cfg_schedule: str = "",
         device: str = "cuda",
+        fused_ff: Optional[bool] = None,
+        temporal_attention: Optional[str] = None,
     ):
-        if quantize == "int8":
-            raise NotImplementedError(
-                "W8A8 int8 serving is not ported to the GPU yet (ROADMAP "
-                "M6 / kernel K7); serve with --quantize bf16")
-        if quantize not in ("", "bf16"):
-            raise ValueError(f"unknown quantize mode {quantize!r}")
-        if cfg_schedule not in ("serving", "full"):
-            raise ValueError(f"unknown cfg_schedule {cfg_schedule!r}")
+        """`quantize`, `cfg_schedule`, `fused_ff` and `temporal_attention`
+        left unset take the environment, as `resolve_switches` says."""
+        sw = resolve_switches(cfg_schedule, quantize, fused_ff,
+                              temporal_attention)
         self.out_size = (out_width, out_height)
         self.device = torch.device(device)
         self.gen = GenerationConfig(
             height=height, width=width, num_frames=num_frames,
             num_inference_steps=num_inference_steps, task_type=task_type,
-            cfg=SERVING_CFG if cfg_schedule == "serving" else CFGSchedule(),
+            cfg=sw["cfg"],
         )
         self.pipe = SVDPipeline(
             UNetConfig(num_frames=num_frames,
                        action_strategy=action_strategy or None,
                        action_input_channel=action_input_channel,
-                       dtype=dtype),
+                       dtype=dtype, fused_ff=sw["fused_ff"],
+                       temporal_attention=sw["temporal_attention"]),
             device=self.device,
         )
         if unet_path:
@@ -135,8 +179,6 @@ class SVDActionWorker:
         if return_objects and any(return_objects):
             result["pred_frames"] = np.transpose(out, (0, 1, 4, 2, 3))  # BTCHW
         else:
-            from wiw_tpu.agents.saver import save_video  # jax-free host module
-
             for b, d in enumerate(save_dirs):
                 save_video(osp.join(d, "pred.mp4"), out[b])
         return result
@@ -158,13 +200,23 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--debug", action="store_true")
     ap.add_argument(
-        "--quantize", default="bf16", choices=["", "bf16", "int8"],
-        help="serving precision of the UNet. bf16 (default); int8 W8A8 is "
-             "not ported yet and raises.")
+        "--quantize", default="", choices=QUANTIZE_CHOICES,
+        help="serving precision of the UNet; unset: $WIW_QUANT, else bf16. "
+             "int8 W8A8 is not ported yet and raises.")
     ap.add_argument(
-        "--cfg_schedule", default="serving", choices=["serving", "full"],
-        help="CFG row schedule: 'serving' = stale-uncond tail below sigma "
-             "0.2; 'full' = both rows every step.")
+        "--cfg_schedule", default="", choices=CFG_CHOICES,
+        help="CFG row schedule; unset: $WIW_CFG, else 'serving' = "
+             "stale-uncond tail below sigma 0.2; 'full' = both rows every "
+             "step.")
+    ap.add_argument(
+        "--fused_ff", default=None, type=int, choices=[0, 1],
+        help="1: LN + GEGLU feed-forward + residual through kernel K6 where "
+             "C <= 640; unset: $WIW_FUSED_FF, else 0.")
+    ap.add_argument(
+        "--temporal_attention", default=None,
+        choices=["batched", "xla", "pallas"],
+        help="frame attention formulation ('pallas' = kernel K4 where "
+             "S % 64 == 0); unset: $WIW_TEMPORAL_ATTN, else 'batched'.")
     args, _unknown = ap.parse_known_args(argv)
 
     worker = SVDActionWorker(
@@ -176,6 +228,8 @@ def main(argv: Optional[list] = None):
         out_width=args.out_width, out_height=args.out_height,
         quantize=args.quantize, cfg_schedule=args.cfg_schedule,
         device=args.device,
+        fused_ff=None if args.fused_ff is None else bool(args.fused_ff),
+        temporal_attention=args.temporal_attention,
     )
     if args.debug:
         out = worker({
@@ -187,8 +241,6 @@ def main(argv: Optional[list] = None):
         })
         print("debug pred_frames:", out["pred_frames"].shape)
         return
-    from wiw_tpu.serve.worker import main_from_argv
-
     main_from_argv(worker)
 
 
