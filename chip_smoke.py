@@ -5,8 +5,9 @@
 
 Phases, each of which raises (and so exits non-zero) on failure:
   1. the card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN
-  2. build: every CUDA kernel of the serving paths, from wiw_tpu_torch/csrc,
-     one nvcc per source, all at once (ptxas registers/spills printed)
+  2. build: every CUDA kernel of the serving and training paths, from
+     wiw_tpu_torch/csrc, one nvcc per source, all at once (ptxas
+     registers/spills printed)
   3. kernels: K1 (flash attention), K4 (frame attention), K5 and K6 (fused
      GEGLU feed-forward) each against its plain PyTorch version on the same
      bf16 inputs at the shapes the serving path gives it (max/mean |error|
@@ -26,6 +27,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      output checks, peak memory and each kernel's launches (counts set to 0
      just before a path and read just after); then one 2-row UNet forward of
      each configuration under torch.profiler (device time by op)
+  6. training: K1 with its LSE output and K3 (flash-attention backward) at
+     the four training shapes against the plain forward, LSE and backward
+     (K1's output bits the same with and without the LSE), K6's gradients
+     against autograd through its plain version, then the training slice:
+     `train_cli.build` with the reference recipe at full width (fp32
+     parameters computing in bf16, remat, grad-accum 2, AdamW, clip 1.0,
+     discrete dropout, EMA), 3 optimizer steps on 576x1024 14-frame clips
+     from an in-memory dataset through the port's PrefetchLoader; per step:
+     seconds, loss, peak memory and the K1/K3 launches, then clips/s and
+     the model-FLOPs utilisation
 Then one JSON line with the kernels, the card line again, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It imports no jax and needs no network.
@@ -61,8 +72,21 @@ K4_SHAPES = [(2, 14, 9216, 5, 5), (2, 14, 2304, 10, 5), (2, 14, 576, 20, 5)]
 # transformers per level, three feed-forwards each
 FF_SHAPES = [(2 * 14 * 9216, 320, 15), (2 * 14 * 2304, 640, 15)]
 # launches per request: 16 / 15 / 30 per UNet forward x 25 forwards
-PER_REQUEST = {"default": {"K1": 400, "K4": 0, "K6": 0},
-               "fused": {"K1": 400, "K4": 375, "K6": 750}}
+PER_REQUEST = {"default": {"K1": 400, "K3": 0, "K4": 0, "K6": 0},
+               "fused": {"K1": 400, "K3": 0, "K4": 375, "K6": 750}}
+# the same attentions when training at batch 1 (one row of 14 frames):
+# (batch = 14 frames, heads, S, calls per UNet forward)
+K3_SHAPES = [(FRAMES, H, S, calls) for _, H, S, calls in K1_SHAPES]
+# K1's LSE is fp32 sums of fp32 exponentials in another order than its plain
+# version's: within 2e-3 of values ~log(S) (a wrong scale or a dropped tile
+# moves it by > 0.1)
+LSE_ATOL = 2e-3
+TRAIN_STEPS, TRAIN_ACCUM = 3, 2
+# launches per optimizer step: each micro-batch runs the 16 spatial
+# attentions forward, and again in the backward pass (remat), then 16
+# backwards
+PER_STEP = {"K1": TRAIN_ACCUM * 2 * 16, "K3": TRAIN_ACCUM * 16, "K4": 0,
+            "K5": 0, "K6": 0}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_S, BF16_FLOPS_S, FP32_FLOPS_S = 3.35e12, 989e12, 67e12
 # small-input phase: frames in [0, 1] from a bf16 card run vs an fp32 CPU
@@ -281,6 +305,238 @@ def ffn_phase(k5: Row, k6: Row, dev, g):
         del x, w1, w2
 
 
+def k3_phase(k1: Row, k3: Row, dev, g):
+    """K1 with its LSE flag and K3 at the training shapes, on head views of
+    [B, S, H*64] projections, against the plain LSE and backward (chunked
+    over the batch: the plain versions hold fp32 [S, S] tensors)."""
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops import flash_attention as TFA
+
+    k1.d["lse_ms"] = k1.d["lse_off_ms"] = 0.0
+    for B, H, S, calls in K3_SHAPES:
+        q, k, v, dout = (torch.randn(B, S, H * 64, generator=g, device=dev,
+                                     dtype=torch.bfloat16).view(B, S, H, 64)
+                         .transpose(1, 2) for _ in range(4))
+        chunk = max(1, int(2e9 // (H * S * S * 4)))
+
+        def chunked(fn, *ts):
+            parts = [fn(*(t[i:i + chunk] for t in ts)) for i in range(0, B, chunk)]
+            if isinstance(parts[0], torch.Tensor):
+                return torch.cat(parts)
+            return [torch.cat(p) for p in zip(*parts)]
+
+        with torch.no_grad():
+            serving = TFA.flash_attention(q, k, v)
+        out, lse = TFA._forward(q, k, v, with_lse=True)
+        if not torch.equal(out, serving):
+            raise RuntimeError(f"K1's output bits change with its LSE flag at S={S}")
+        lse_ref = chunked(TFA.flash_attention_lse_plain, q, k)
+        compare(f"K1 LSE S={S}", lse, lse_ref)
+        lse_err = (lse - lse_ref).abs().max().item()
+        if not lse_err <= LSE_ATOL:
+            raise RuntimeError(f"K1's LSE at S={S}: max|err| {lse_err} > {LSE_ATOL}")
+        off = (cuda_ms(lambda: TFA.flash_attention(q, k, v), 5),
+               cuda_ms(lambda: TFA._forward(q, k, v, True), 5),
+               cuda_ms(lambda: TFA._forward(q, k, v, True), 5),
+               cuda_ms(lambda: TFA.flash_attention(q, k, v), 5))
+        k1.d["lse_off_ms"] += calls * (off[0] + off[3]) / 2
+        k1.d["lse_ms"] += calls * (off[1] + off[2]) / 2
+        print(f"K1 B*H={B * H} S={S}: LSE max|err| {lse_err:.3g} (tol {LSE_ATOL}), "
+              f"output bits equal with and without it; {(off[0] + off[3]) / 2:.4f} "
+              f"ms without, {(off[1] + off[2]) / 2:.4f} ms with", flush=True)
+
+        def plain():
+            return chunked(TFA.flash_attention_bwd_plain, q, k, v, out, lse, dout)
+
+        def kernel():
+            return TFA.flash_attention_bwd(q, k, v, out, lse, dout)
+
+        got, ref = kernel(), plain()
+        errs = [compare(f"K3 d{n} S={S}", a, b) for n, a, b in zip("qkv", got, ref)]
+        del got, ref
+        max_err = max(e for e, _ in errs)
+        # the library yardstick: autograd through SDPA on the same views
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        o_lib = F.scaled_dot_product_attention(*leaves)
+        flops = 10 * B * H * S * S * 64  # dV, dP, dQ, dK and the recomputed S
+        # q, k, v, O, dO read and dq, dk, dv written once; fp32 LSE and Delta
+        nbytes = 8 * B * H * S * 64 * 2 + 3 * B * H * S * 4
+        bound = bound_ms(nbytes, flops, BF16_FLOPS_S)
+        ms, plain_ms, lib = timed(
+            f"K3 B*H={B * H} S={S} D=64 " + " | ".join(
+                f"d{n}: {line}" for n, (_, line) in zip("qkv", errs)),
+            plain, kernel,
+            lambda: torch.autograd.grad(o_lib, leaves, dout, retain_graph=True),
+            max(3, int(1e4 // S)), 2, bound,
+            lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
+        if S == K3_SHAPES[0][2]:
+            print("  its library call's kernels: " + kernel_names(
+                lambda: torch.autograd.grad(o_lib, leaves, dout, retain_graph=True)),
+                flush=True)
+        k3.add(calls, max_err, ms, plain_ms, bound, "operations", lib)
+        del q, k, v, dout, out, lse, leaves, o_lib
+        torch.cuda.empty_cache()
+
+
+def k6_backward_check(dev, g):
+    """K6's autograd Function (K6 forward, backward recomputed through the
+    unfused formulation) against autograd through K6's plain version, at
+    level 0 of one training row: all seven gradients."""
+    from wiw_tpu_torch.ops import fused_mlp as TF
+
+    M, C = FRAMES * 9216, 320
+    inner = 4 * C
+
+    def r(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    args = (r(M, C).bfloat16(), 1 + r(C, scale=0.1), r(C, scale=0.1),
+            r(2 * inner, C, scale=C ** -0.5).bfloat16(),
+            r(2 * inner, scale=0.1).bfloat16(),
+            r(C, inner, scale=inner ** -0.5).bfloat16(), r(C, scale=0.1).bfloat16())
+    dout = r(M, C).bfloat16()
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_() for t in args]
+        fn(*leaves).backward(dout)
+        return [t.grad for t in leaves]
+
+    before = TF.ln_geglu_ffn_residual.launches
+    got = grads(TF.ln_geglu_ffn_residual)
+    if TF.ln_geglu_ffn_residual.launches != before + 1:
+        raise RuntimeError("K6's autograd Function did not launch K6")
+    ref = grads(TF.ln_geglu_ffn_residual_plain)
+    for name, a, b in zip(("x", "ln_w", "ln_b", "w1", "b1", "w2", "b2"), got, ref):
+        _, line = compare(f"K6 d{name}", a, b)
+        print(f"K6 backward M={M} C={C} d{name}: {line}", flush=True)
+
+
+class MemoryClips:
+    """Seeded clips held in memory, as the trajectory dataset yields them:
+    frames [F, H, W, 3] fp32 in [-1, 1] and nav actions [F] in {1, 2, 3}."""
+
+    def __init__(self, n: int, frames: int, height: int, width: int, seed: int):
+        rng = np.random.default_rng(seed)
+        self.items = [{
+            "pixel_values": rng.uniform(-1, 1, (frames, height, width, 3)
+                                        ).astype(np.float32),
+            "actions": rng.integers(1, 4, frames).astype(np.int32)}
+            for _ in range(n)]
+
+    def __getitem__(self, i):
+        return self.items[i % len(self.items)]
+
+
+def unet_forward_flops(unet, dev, height: int, width: int) -> float:
+    """FLOPs of one 1-row UNet forward at the training shape: the aten
+    products counted by FlopCounterMode, plus K1's 4*B*H*S^2*64 per spatial
+    attention (a ctypes call the counter cannot see)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    h, w = height // 8, width // 8
+    args = (torch.zeros(1, FRAMES, h, w, 8, device=dev), torch.full((1,), 0.5, device=dev),
+            torch.zeros(1, 1, 1024, device=dev),
+            torch.tensor([[7.0, 127.0, 0.05]], device=dev),
+            torch.zeros(1, FRAMES, 14, device=dev))
+    counter = FlopCounterMode(display=False)
+    with torch.no_grad(), counter:
+        unet(*args)
+    attn = sum(calls * 4 * B * H * S * S * 64 for B, H, S, calls in K3_SHAPES)
+    return counter.get_total_flops() + attn
+
+
+def train_phase(dev) -> dict:
+    """The training slice at full width: `train_cli.build` with the
+    reference recipe, TRAIN_STEPS optimizer steps through the port's
+    PrefetchLoader. Returns the kernels' launches over the steps."""
+    from wiw_tpu_torch.data.loader import PrefetchLoader
+    from wiw_tpu_torch.train import train_cli
+
+    args = train_cli.parse_args([
+        "--data_root", "in-memory", "--grad_accum", str(TRAIN_ACCUM),
+        "--learning_rate", "2e-5", "--use_ema", "--gradient_checkpointing",
+        "--conditioning_dropout", "discrete", "--seed", "42", "--device", "cuda"])
+    t0 = time.perf_counter()
+    pipe, trainer, state = train_cli.build(args)
+    torch.cuda.synchronize()
+    unet = pipe.unet
+    n_params = sum(p.numel() for p in unet.parameters())
+    n_train = sum(p.numel() for g_ in state.optimizer.param_groups for p in g_["params"])
+    print(f"train built: UNet {n_params / 1e9:.3f} B params ({n_train / 1e9:.3f} B "
+          f"trained, {unet.conv_in.weight.dtype} computing in {unet.dtype}), "
+          f"remat {unet.config.remat}, grad-accum {args.grad_accum}, EMA on, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    fwd_flops = unet_forward_flops(unet, dev, args.height, args.width)
+
+    names = list(state.params)
+    watch = [names.index(n) for n in (
+        "conv_in.weight", "down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_q.weight",
+        "up_blocks.3.resnets.2.spatial_res_block.conv2.weight", "conv_out.weight")]
+    before = [state.params[names[i]].detach().clone() for i in watch]
+    dataset = MemoryClips(2, FRAMES, args.height, args.width, seed=args.seed)
+    loader = PrefetchLoader(
+        dataset, args.per_device_batch, TRAIN_STEPS,
+        transform=train_cli.accum_transform(args.grad_accum),
+        place=trainer.place_batch, num_workers=2, prefetch_batches=2)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    total = dict.fromkeys(_wrappers(), 0)
+    secs_all = []
+    for i, batch in enumerate(loader):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # count this step of this path only
+        t = time.perf_counter()
+        metrics = trainer.train_step(state, batch, generator)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = launches()
+        secs_all.append(secs)
+        print(f"train step {i}: {secs:.3f} s, loss {loss:.6g}, grad norm "
+              f"{float(metrics['grad_norm']):.6g}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{counts}", flush=True)
+        if not np.isfinite(loss):
+            raise RuntimeError(f"train step {i}: loss {loss}")
+        if counts != PER_STEP:
+            raise RuntimeError(f"train step {i}: launches {counts}, expected {PER_STEP}")
+        for k in total:
+            total[k] += counts[k]
+    if len(secs_all) != TRAIN_STEPS or state.step != TRAIN_STEPS:
+        raise RuntimeError(f"ran {len(secs_all)} steps, state at {state.step}")
+    for j, i in enumerate(watch):
+        if torch.equal(state.params[names[i]], before[j]):
+            raise RuntimeError(f"{names[i]} did not change in training")
+        if torch.equal(state.ema[i], before[j]):
+            raise RuntimeError(f"the EMA of {names[i]} did not change in training")
+    # the first step carries cuDNN/cuBLAS plan building; the rate is read
+    # from the later ones
+    step_s = sum(secs_all[1:]) / (len(secs_all) - 1)
+    clips = args.per_device_batch * args.grad_accum
+    mfu = 3 * fwd_flops * clips / step_s / BF16_FLOPS_S
+    print(f"train: {step_s:.3f} s/step (steps 1..{TRAIN_STEPS - 1}), "
+          f"{clips / step_s:.4f} clips/s, UNet forward {fwd_flops / 1e12:.3f} "
+          f"TFLOP a clip (counted), MFU {100 * mfu:.2f}% (3 x forward FLOPs "
+          f"against {BF16_FLOPS_S / 1e12:.0f} TFLOP/s bf16); params and EMA "
+          f"changed", flush=True)
+    # one more step under torch.profiler (outside the counted steps): where
+    # the device time goes, and how much of the step the device is idle
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.train_step(state, batch, generator)
+        torch.cuda.synchronize()
+    busy = busy_ms(prof)
+    print(f"profile train: one optimizer step, device busy {busy:.1f} ms of the "
+          f"unprofiled {1e3 * step_s:.1f} ms step (idle "
+          f"{100 * (1 - busy / (1e3 * step_s)):.1f}%)", flush=True)
+    print_top(prof, 16)
+    del pipe, trainer, state, loader, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def small_reference_phase(dev):
     """Tiny bf16 pipelines on the card (default and fused configurations)
     vs the same weights in fp32 on the CPU (where every kernel wrapper takes
@@ -345,10 +601,14 @@ def small_reference_phase(dev):
 def _wrappers():
     from wiw_tpu_torch.ops import fused_mlp as TF
     from wiw_tpu_torch.ops import temporal_attention as TT
-    from wiw_tpu_torch.ops.flash_attention import flash_attention
+    from wiw_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
 
-    return {"K1": flash_attention, "K4": TT.frame_attention,
-            "K5": TF.geglu_ffn, "K6": TF.ln_geglu_ffn_residual}
+    return {"K1": flash_attention, "K3": flash_attention_bwd,
+            "K4": TT.frame_attention, "K5": TF.geglu_ffn,
+            "K6": TF.ln_geglu_ffn_residual}
 
 
 def reset_launches():
@@ -377,18 +637,28 @@ def profile_forward(unet, dev, label):
             unet(*args)
             torch.cuda.synchronize()
 
+    print(f"profile {label}: 2-row UNet forward {fwd_ms:.2f} ms (CUDA events, "
+          f"mean of 3); device busy {busy_ms(prof):.2f} ms in the profiled "
+          "forward", flush=True)
+    print_top(prof)
+
+
+def busy_ms(prof) -> float:
+    """The device's busy time in a profile: its kernels' self time."""
+    return sum(self_dev(e) for e in prof.key_averages()
+               if "CUDA" in str(e.device_type)) / 1e3
+
+
+def print_top(prof, n: int = 12) -> None:
+    """The top ops and kernels of a profile by self device time."""
     events = prof.key_averages()
     kernels = sorted((e for e in events if "CUDA" in str(e.device_type)),
                      key=self_dev, reverse=True)
     ops = sorted((e for e in events if "CUDA" not in str(e.device_type)),
                  key=self_dev, reverse=True)
-    busy = sum(self_dev(e) for e in kernels) / 1e3
-    print(f"profile {label}: 2-row UNet forward {fwd_ms:.2f} ms (CUDA events, "
-          f"mean of 3); device busy {busy:.2f} ms in the profiled forward",
-          flush=True)
     for what, rows in (("ops", ops), ("kernels", kernels)):
         print(f"  top {what} by self device time:", flush=True)
-        for e in rows[:12]:
+        for e in rows[:n]:
             print(f"  {self_dev(e) / 1e3:9.2f} ms  {e.count:5d}x  {e.key[:100]}",
                   flush=True)
 
@@ -498,7 +768,7 @@ def main() -> int:
           f"{sdp.mem_efficient_sdp_enabled()} cudnn {sdp.cudnn_sdp_enabled()}",
           flush=True)
 
-    libs = ("flash_attn_fwd", "temporal_attn", "geglu_ffn")
+    libs = ("flash_attn_fwd", "flash_attn_bwd", "temporal_attn", "geglu_ffn")
     t0 = time.perf_counter()
     native.load_libraries(*libs)
     print(f"build (sm_90a, one nvcc per source in parallel): "
@@ -513,6 +783,9 @@ def main() -> int:
         "K1": Row("flash_attn_fwd_d64", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
                   "wiw_tpu/ops/pallas_attention.py:121",
                   "one 2-row UNet forward: 16 calls", library=True),
+        "K3": Row("flash_attn_bwd_d64", "wiw_tpu_torch/csrc/flash_attn_bwd.cu",
+                  "wiw_tpu/ops/attention.py:60",
+                  "one 1-row training micro-batch: 16 calls", library=True),
         "K4": Row("temporal_attn_d64", "wiw_tpu_torch/csrc/temporal_attn.cu",
                   "wiw_tpu/ops/temporal_attention.py:26",
                   "one 2-row UNet forward: 15 calls", library=True),
@@ -529,6 +802,8 @@ def main() -> int:
     k1_phase(rows["K1"], dev, g)
     k4_phase(rows["K4"], dev, g)
     ffn_phase(rows["K5"], rows["K6"], dev, g)
+    k3_phase(rows["K1"], rows["K3"], dev, g)
+    k6_backward_check(dev, g)
     for key, row in rows.items():
         d = row.d
         print(f"{key} per UNet forward ({d['per']}): kernel {d['ms']:.4f} ms, "
@@ -538,11 +813,15 @@ def main() -> int:
 
     small_reference_phase(dev)
     by_path = {"default": slice_phase(dev, "default", 1),
-               "fused": slice_phase(dev, "fused", 2, **FUSED)}
+               "fused": slice_phase(dev, "fused", 2, **FUSED),
+               "train": train_phase(dev)}
     for key, row in rows.items():
         row.d["launches"] = sum(p[key] for p in by_path.values())
         row.d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         row.d["on_main_path"] = key != "K5"
+    rows["K1"].d["lse_per"] = ("one 1-row training forward: 16 calls at "
+                               "batch 14, with (lse_ms) and without (lse_off_ms)"
+                               " the LSE output")
 
     print(json.dumps({"kernels": [r.d for r in rows.values()]}))
     print(card_line())

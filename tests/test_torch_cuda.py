@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from wiw_tpu_torch.ops import attention as TAtt
+from wiw_tpu_torch.ops import flash_attention as TFA
 from wiw_tpu_torch.ops import fused_mlp as TF
 from wiw_tpu_torch.ops import temporal_attention as TT
 from wiw_tpu_torch.ops.flash_attention import (
@@ -66,6 +67,59 @@ def test_kernel_reads_strided_heads_and_rejects_bad_inputs(cuda_device):
     d80 = torch.zeros(1, 1, 16, 80, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         flash_attention(d80, d80, d80)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Skv", [(1, 3, 144, 144), (2, 2, 200, 72),
+                                        (1, 2, 1000, 1000)])
+def test_backward_kernel_and_lse_match_plain_on_card(cuda_device, B, H, Sq, Skv):
+    """K1 with its LSE flag, then K3 through the autograd Function, on head
+    views of [B, S, H*64] projections (ragged S), against the plain
+    forward, LSE and backward on the same bf16 inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+
+    def heads(S):
+        return (torch.randn(B, S, H * 64, generator=g, device=cuda_device)
+                .bfloat16().view(B, S, H, 64).transpose(1, 2))
+
+    q, k, v, dout = heads(Sq), heads(Skv), heads(Skv), heads(Sq)
+    out, lse = TFA._forward(q, k, v, with_lse=True)
+    # the LSE sums fp32 exponentials in another order: 2e-3 absolute on
+    # values of ~log(Skv) (a wrong scale or a dropped tile moves it by > 0.1)
+    torch.testing.assert_close(lse, TFA.flash_attention_lse_plain(q, k),
+                               rtol=0, atol=2e-3)
+    fwd, bwd = TFA.flash_attention.launches, TFA.flash_attention_bwd.launches
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = TFA.flash_attention(*leaves)
+    o.backward(dout)
+    torch.cuda.synchronize()
+    assert TFA.flash_attention.launches == fwd + 1
+    assert TFA.flash_attention_bwd.launches == bwd + 1
+    ref = TFA.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    for leaf, r in zip(leaves, ref):
+        assert leaf.grad.shape == r.shape
+        _close(leaf.grad, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [144, 576])
+def test_lse_flag_leaves_output_bits_unchanged(cuda_device, S):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn(2, 3, S, 64, generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    with torch.no_grad():
+        serving = TFA.flash_attention(q, k, v)
+    training, lse = TFA._forward(q, k, v, with_lse=True)
+    assert lse is not None and torch.isfinite(lse).all()
+    assert torch.equal(serving, training)
+
+
+@pytest.mark.cuda
+def test_frame_attention_refuses_grad_on_card(cuda_device):
+    x = torch.zeros(1, 14, 64, 128, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="gradient"):
+        TT.frame_attention(x, x, x, 2)
 
 
 @pytest.mark.cuda
@@ -153,3 +207,75 @@ def test_ffn_kernels_reject_inputs_they_do_not_take(cuda_device):
         with pytest.raises(ValueError):
             TF.ln_geglu_ffn_residual(p["x"], p["ln_w"], p["ln_b"], p["w1"],
                                      p["b1"], p["w2"], p["b2"])
+
+
+def _rel(a, b) -> float:
+    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_matches_the_cpu_step(cuda_device):
+    """One optimizer step of a tiny UNet whose spatial attentions have
+    head_dim 64 (so K1 and K3 carry them on the card): on the card with
+    bf16 compute over fp32 parameters and remat, against the same step in
+    fp32 on the CPU (the plain versions there), from the same weights (the
+    card's bf16-rounded VAE and CLIP for both), batch and draws. bf16
+    rounding through ~40 layers moves the gradients by a few percent; a
+    wrong K3 (a dropped scale, a missing Delta) moves the attention
+    projections' gradients by tens of percent."""
+    import dataclasses
+
+    import numpy as np
+
+    from wiw_tpu_torch.models.clip import CLIPVisionConfig
+    from wiw_tpu_torch.models.unet import UNetConfig
+    from wiw_tpu_torch.models.vae import VAEConfig
+    from wiw_tpu_torch.sampling.pipeline import SVDPipeline
+    from wiw_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    unet = UNetConfig(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+                      layers_per_block=1, cross_attention_dim=32, num_frames=3,
+                      action_strategy="micro_cond", action_input_channel=3,
+                      param_dtype="float32")
+    vae = VAEConfig(block_out_channels=(32, 64), layers_per_block=1)
+    clip = CLIPVisionConfig(hidden_size=64, intermediate_size=128, num_layers=2,
+                            num_heads=2, patch_size=32, projection_dim=32)
+    cpu = SVDPipeline(unet, vae, clip, device="cpu")
+    cpu.init_params(torch.Generator().manual_seed(0))
+    card = SVDPipeline(dataclasses.replace(unet, dtype="bfloat16", remat=True),
+                       dataclasses.replace(vae, dtype="bfloat16"),
+                       dataclasses.replace(clip, dtype="bfloat16"), device=cuda_device)
+    card.load_state_dicts(cpu.unet.state_dict(), cpu.vae.state_dict(),
+                          cpu.clip.state_dict())
+    for tower, cpu_tower in ((card.vae, cpu.vae), (card.clip, cpu.clip)):
+        cpu_tower.load_state_dict({k: v.float().cpu() for k, v in
+                                   tower.state_dict().items()})
+    rng = np.random.default_rng(0)
+    batch = {"pixel_values": torch.from_numpy(
+        rng.uniform(-1, 1, (1, 3, 64, 64, 3)).astype(np.float32)),
+        "actions": torch.tensor([[2, 1, 3]])}
+    trainers = {"cpu": Trainer(cpu, TrainConfig(learning_rate=1e-3)),
+                "card": Trainer(card, TrainConfig(learning_rate=1e-3))}
+    states = {d: t.init_state() for d, t in trainers.items()}
+    draws = trainers["cpu"].sample_draws(batch["pixel_values"].shape, True,
+                                         torch.Generator().manual_seed(1))
+    before = {n: p.detach().clone() for n, p in states["cpu"].params.items()}
+    fwd, bwd = TFA.flash_attention.launches, TFA.flash_attention_bwd.launches
+    loss = {d: float(t.train_step(states[d], batch, draws=[draws])["loss"])
+            for d, t in trainers.items()}
+    torch.cuda.synchronize()
+    n_bwd = TFA.flash_attention_bwd.launches - bwd
+    assert n_bwd > 0 and TFA.flash_attention.launches - fwd == 2 * n_bwd  # remat
+    assert abs(loss["card"] - loss["cpu"]) <= 2e-2 * abs(loss["cpu"])
+    grads = {d: {n: p.grad.float().cpu() for n, p in s.params.items()}
+             for d, s in states.items()}
+    flat = {d: torch.cat([g.flatten() for g in gs.values()]) for d, gs in grads.items()}
+    assert _rel(flat["card"], flat["cpu"]) <= 5e-2
+    attn = [n for n in grads["cpu"] if ".attn1.to_" in n and n.endswith("weight")
+            and "temporal" not in n]
+    assert attn
+    for n in attn:
+        assert _rel(grads["card"][n], grads["cpu"][n]) <= 1e-1, n
+    for d, s in states.items():
+        assert not torch.equal(s.params["conv_in.weight"].detach().cpu(),
+                               before["conv_in.weight"])

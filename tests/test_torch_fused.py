@@ -269,3 +269,77 @@ def test_temporal_dispatch_refuses_unknown_mode():
     q = torch.zeros(1, 2, 64, 64)
     with pytest.raises(ValueError):
         TT.temporal_self_attention(q, q, q, 1, "flash")
+
+
+def test_xla_formulation_gradients_match_reference():
+    """The batched and xla forms train through autograd (K4 has no
+    gradient): the xla form's vjp against the reference's, fp32."""
+    import jax
+
+    q, k, v, g = (_rand((2, 3, 10, 2 * 16), s) for s in (11, 12, 13, 14))
+    _, vjp = jax.vjp(lambda a, b, c: J_xla(a, b, c, heads=2), *map(_j, (q, k, v)))
+    ref = vjp(_j(g))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    TT.temporal_self_attention_xla(*leaves, heads=2).backward(_t(g))
+    for leaf, r in zip(leaves, ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(r),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_frame_attention_refuses_a_gradient_off_the_cpu():
+    m = torch.zeros(1, 14, 64, 128, device="meta", requires_grad=True)
+    with pytest.raises(NotImplementedError, match="gradient"):
+        TT.frame_attention(m, m, m, 2)
+
+
+def test_fused_ff_routes_c_off_the_kernel_step_to_the_unfused_modules(monkeypatch):
+    """C = 96 passes the reference's rule (C <= 640, 384 rows) but not the
+    CUDA kernel's C % 64: the block takes the unfused modules, whose result
+    is the fused path's function, and never calls K6's wrapper."""
+    from wiw_tpu_torch.models import layers as TL
+
+    torch.manual_seed(0)
+    fused = TL.BasicTransformerBlock(96, 2, 48, 16, fused_ff=True)
+    plain = TL.BasicTransformerBlock(96, 2, 48, 16, fused_ff=False)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.from_numpy(_rand((3, 128, 96), 5))
+    ctx = torch.from_numpy(_rand((3, 1, 16), 6))
+    w1 = fused.ff.net[0].proj.weight
+    assert TF.lnff_eligible(x, w1, fused.ff.net[2].weight)
+
+    def refuse(*a, **k):
+        raise AssertionError("K6's wrapper called at C = 96")
+
+    monkeypatch.setattr(TL, "ln_geglu_ffn_residual", refuse)
+    with torch.no_grad():
+        torch.testing.assert_close(fused(x, ctx), plain(x, ctx), rtol=0, atol=0)
+
+
+def test_ln_geglu_ffn_residual_function_gradients_match_reference():
+    """K6's autograd Function (the plain forward here; the backward
+    recomputed through the unfused formulation) against jax.vjp of the
+    reference's custom-VJP `ln_geglu_ffn_residual`, all seven gradients,
+    fp32: relative Frobenius error 1e-5 (summation order only)."""
+    import jax
+
+    x = _rand((384, C), 30, 1.7, 0.3)
+    s, c = _rand((C,), 31, 0.2, 1.0), _rand((C,), 32, 0.1)
+    p = _ffn_weights()
+    g = _rand((384, C), 33)
+    jargs = (x, s, c, p["w1"], p["b1"], p["w2"], p["b2"])
+    out, vjp = jax.vjp(lambda *a: JF.ln_geglu_ffn_residual(*a), *map(_j, jargs))
+    ref = vjp(_j(g))
+    leaves = [_t(a).requires_grad_() for a in
+              (x, s, c, p["w1"].T, p["b1"], p["w2"].T, p["b2"])]
+    before = TF.ln_geglu_ffn_residual.launches
+    tout = TF.ln_geglu_ffn_residual(*leaves)
+    assert tout.grad_fn is not None and "LnGegluFfnResidual" in type(tout.grad_fn).__name__
+    tout.backward(_t(g))
+    assert TF.ln_geglu_ffn_residual.launches == before  # plain on the CPU
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(out), atol=2e-5, rtol=2e-5)
+    for i, (leaf, r) in enumerate(zip(leaves, ref)):
+        got = leaf.grad.numpy()
+        r = np.asarray(r, np.float64)
+        if i in (3, 5):  # the port's weights are the transposes
+            got = got.T
+        assert np.linalg.norm(got - r) <= 1e-5 * np.linalg.norm(r), i

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -21,6 +22,12 @@ class EDMConfig:
     sigma_min: float = 0.002
     sigma_max: float = 700.0
     rho: float = 7.0
+    # training-time sigma ~ logN(p_mean, p_std)
+    p_mean: float = 0.7
+    p_std: float = 1.6
+    # conditioning-image noise sigma ~ logN(cond_p_mean, cond_p_std)
+    cond_p_mean: float = -3.0
+    cond_p_std: float = 0.5
 
 
 def karras_sigmas_np(num_steps: int, cfg: EDMConfig = EDMConfig()) -> np.ndarray:
@@ -106,6 +113,40 @@ def precondition_outputs(model_out: torch.Tensor, noisy: torch.Tensor,
     c_out = -sigma / torch.sqrt(sigma ** 2 + 1.0)
     c_skip = 1.0 / (sigma ** 2 + 1.0)
     return c_out * model_out + c_skip * noisy
+
+
+def edm_loss_weight(sigma: torch.Tensor) -> torch.Tensor:
+    """Per-sample MSE weight (1 + sigma^2) / sigma^2."""
+    return (1.0 + sigma ** 2) / sigma ** 2
+
+
+def _standard_normal(shape, z, generator, device):
+    if z is None:
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=device)
+    if tuple(z.shape) != tuple(shape):
+        raise ValueError(f"draw {tuple(z.shape)} != {tuple(shape)}")
+    return z.to(device=device, dtype=torch.float32)
+
+
+def sample_training_sigmas(batch_size: int, cfg: EDMConfig = EDMConfig(), *,
+                           generator: Optional[torch.Generator] = None,
+                           z: Optional[torch.Tensor] = None,
+                           device=None) -> torch.Tensor:
+    """sigma ~ logNormal(p_mean, p_std), fp32 [B, 1, 1, 1, 1]. The
+    standard-normal draw `z` is injected, or drawn from `generator`."""
+    z = _standard_normal((batch_size, 1, 1, 1, 1), z, generator, device)
+    return torch.exp(cfg.p_mean + cfg.p_std * z)
+
+
+def sample_cond_sigmas(batch_size: int, cfg: EDMConfig = EDMConfig(), *,
+                       generator: Optional[torch.Generator] = None,
+                       z: Optional[torch.Tensor] = None,
+                       device=None) -> torch.Tensor:
+    """Conditioning-image noise scale ~ logNormal(cond_p_mean, cond_p_std),
+    fp32 [B, 1, 1, 1]; `z` as in `sample_training_sigmas`."""
+    z = _standard_normal((batch_size, 1, 1, 1), z, generator, device)
+    return torch.exp(cfg.cond_p_mean + cfg.cond_p_std * z)
 
 
 def euler_step(latents: torch.Tensor, denoised: torch.Tensor,

@@ -27,6 +27,12 @@
 // its logits set to -inf; q rows past S are computed on zeros and not stored.
 // This is the simple first version: no cp.async/TMA pipelining, no wgmma, no
 // warp specialisation.
+//
+// Training: the template flag kLse also stores each q row's log-sum-exp
+// (natural log of sum_j exp(scale * q.k_j), fp32, [B*H, Sq] contiguous),
+// which the backward (flash_attn_bwd.cu, K3) needs to recompute P. With the
+// flag off (serving) the kernel is the same code and writes no LSE; the
+// output bits are the same either way.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,11 +70,13 @@ __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int H, int Sq,
+                          __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ lse, int H, int Sq,
                           int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                           int64_t k_sb, int64_t k_sh, int64_t k_ss,
                           int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -237,26 +245,40 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
           pack_f32(acc[nt][2] * inv1, acc[nt][3] * inv1);
     }
   }
+  if (kLse && t == 0) {
+    // m_run is in the log2 domain: lse = (m + log2 l) * ln 2
+    if (row0 < Sq) {
+      lse[static_cast<int64_t>(bh) * Sq + row0] =
+          (m_run[0] + log2f(l_run[0])) * 0.6931471805599453f;
+    }
+    if (row1 < Sq) {
+      lse[static_cast<int64_t>(bh) * Sq + row1] =
+          (m_run[1] + log2f(l_run[1])) * 0.6931471805599453f;
+    }
+  }
 }
 
 }  // namespace
 
 // C entry, bound with ctypes. Pointers are device pointers of bf16 tensors
 // viewed as [B, H, S, 64] with unit stride on the last dim; strides are in
-// elements. Launches on `stream` and returns cudaGetLastError().
+// elements. `lse` is null (serving) or an fp32 [B*H, Sq] buffer (training).
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int wiw_flash_attn_fwd_d64(
-    const void* q, const void* k, const void* v, void* o, int B, int H,
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H,
     int Sq, int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, void* stream) {
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
-  flash_attn_fwd_d64_kernel<<<grid, kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = lse != nullptr ? flash_attn_fwd_d64_kernel<true>
+                               : flash_attn_fwd_d64_kernel<false>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
-      Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
-      o_sh, o_ss, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), H, Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+      v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,6 +14,7 @@ norm weight/bias <-> scale/bias.
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, Iterable, Mapping
 
@@ -183,3 +184,17 @@ def load_flax_params(module: nn.Module, params_np: Mapping) -> nn.Module:
             f"unexpected {extra[:10]}, shape mismatch {shape[:10]}")
     module.load_state_dict(state, strict=True)
     return module
+
+
+def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of the .safetensors files under `path` (a diffusers or
+    transformers model directory), as one state dict."""
+    from safetensors.torch import load_file
+
+    files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors files under {path}")
+    state = {}
+    for f in files:
+        state.update(load_file(os.path.join(path, f)))
+    return state

@@ -5,10 +5,14 @@ channels-last layouts ([N, H, W, C], [B, F, H, W, C], [N, S, C]); convs
 permute to NCHW views at their edges, which for a contiguous channels-last
 tensor is a channels_last-strided view, so no copy is made.
 
-Precision follows the reference: Linear/Conv weights live in the model
-dtype and their inputs are cast to it; norm parameters stay fp32 and norms
-compute in fp32, returning the input dtype (`cast_matmul_weights` casts only
-Linear/Conv weights, never a norm).
+Precision follows the reference (flax `promote_dtype`): Linear/Conv cast
+their input, weight and bias to the module's compute dtype at use. That is
+the weight dtype unless `set_compute_dtype` says otherwise, so serving
+(bf16 weights) computes in bf16 with no cast, and training keeps fp32
+parameters that compute in bf16. Norm parameters stay fp32 and norms
+compute in fp32, returning the input dtype (`cast_matmul_weights` casts
+only Linear/Conv weights, never a norm). No `torch.autocast`: its per-op
+rules are not the reference's.
 
 Submodule and parameter names are the diffusers ones, so checkpoints load
 with `load_state_dict` and `models/convert.py` maps the reference's flax
@@ -23,18 +27,47 @@ from torch import nn
 
 from wiw_tpu_torch.core.schedule import timestep_embedding
 from wiw_tpu_torch.ops.attention import attention_bsd
-from wiw_tpu_torch.ops.fused_mlp import ln_geglu_ffn_residual, lnff_eligible
+from wiw_tpu_torch.ops.fused_mlp import (
+    C_STEP,
+    ln_geglu_ffn_residual,
+    lnff_eligible,
+)
 from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention
 
 
-class Linear(nn.Linear):
-    """nn.Linear that casts its input to the weight dtype (flax promote)."""
+class _Promote:
+    """Compute dtype of a Linear/Conv: `set_compute_dtype`'s, else the
+    weight's."""
+
+    _compute_dtype = None
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return self._compute_dtype or self.weight.dtype
+
+    def _promoted(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return x.to(dt), self.weight.to(dt), bias
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Make every Linear/Conv of `module` compute in `dtype` whatever its
+    parameters' dtype (flax's `dtype` beside `param_dtype`)."""
+    for m in module.modules():
+        if isinstance(m, _Promote):
+            m._compute_dtype = dtype
+    return module
+
+
+class Linear(_Promote, nn.Linear):
+    """nn.Linear that casts input, weight and bias to its compute dtype."""
 
     def forward(self, x):
-        return F.linear(x.to(self.weight.dtype), self.weight, self.bias)
+        return F.linear(*self._promoted(x))
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(_Promote, nn.Conv2d):
     """3x3/1x1 conv on channels-last [N, H, W, C]; `pad` is
     (left, right, top, bottom) when asymmetric padding is needed."""
 
@@ -45,21 +78,23 @@ class Conv2d(nn.Conv2d):
         self.pad = pad
 
     def forward(self, x):
-        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        x, w, b = self._promoted(x)
+        x = x.permute(0, 3, 1, 2)
         if self.pad is not None:
             x = F.pad(x, self.pad)
-        return self._conv_forward(x, self.weight, self.bias).permute(0, 2, 3, 1)
+        return self._conv_forward(x, w, b).permute(0, 2, 3, 1)
 
 
-class TemporalConv(nn.Conv3d):
+class TemporalConv(_Promote, nn.Conv3d):
     """(3, 1, 1) conv over the frame axis of channels-last [B, F, H, W, C]."""
 
     def __init__(self, in_ch, out_ch):
         super().__init__(in_ch, out_ch, (3, 1, 1), padding=(1, 0, 0))
 
     def forward(self, x):
-        x = x.to(self.weight.dtype).permute(0, 4, 1, 2, 3)
-        return self._conv_forward(x, self.weight, self.bias).permute(0, 2, 3, 4, 1)
+        x, w, b = self._promoted(x)
+        return self._conv_forward(x.permute(0, 4, 1, 2, 3), w, b).permute(
+            0, 2, 3, 4, 1)
 
 
 def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -192,14 +227,19 @@ class TemporalSelfAttention(CrossAttention):
 
 def _ln_ff_residual(x, ln: LayerNorm, ff: FeedForward, fused: bool):
     """x + ff(ln(x)). With `fused`, kernel K6 where `lnff_eligible` (the
-    reference's rule) allows it; elsewhere the unfused modules, the function
-    the reference's unfused oracle computes. The modules keep their
-    parameters either way, so checkpoints map alike. On the card, an
-    eligible C that is not a multiple of 64 raises (see `fused_mlp`)."""
+    reference's rule) allows it and C is a multiple of the kernel's C_STEP;
+    elsewhere the unfused modules, the function the reference's unfused
+    oracle computes (a route by shape, see `fused_mlp`). The modules keep
+    their parameters either way, so checkpoints map alike. The weights and
+    biases go to K6 in the Linear layers' compute dtype, as they would
+    through the modules."""
     proj, out = ff.net[0].proj, ff.net[2]
-    if fused and lnff_eligible(x, proj.weight, out.weight):
-        return ln_geglu_ffn_residual(x, ln.weight, ln.bias, proj.weight,
-                                     proj.bias, out.weight, out.bias, ln.eps)
+    if (fused and x.shape[-1] % C_STEP == 0
+            and lnff_eligible(x, proj.weight, out.weight)):
+        dt = proj.compute_dtype
+        return ln_geglu_ffn_residual(
+            x, ln.weight, ln.bias, proj.weight.to(dt), proj.bias.to(dt),
+            out.weight.to(dt), out.bias.to(dt), ln.eps)
     return x + ff(ln(x))
 
 
@@ -393,7 +433,7 @@ class TransformerSpatioTemporal(nn.Module):
                            if context is not None else None)
         frame_ids = torch.arange(num_frames, dtype=torch.float32,
                                  device=x.device)
-        t_emb = timestep_embedding(frame_ids, C).to(self.proj_in.weight.dtype)
+        t_emb = timestep_embedding(frame_ids, C).to(self.proj_in.compute_dtype)
         pos = self.time_pos_embed(t_emb)  # [F, C]
         for block, tblock in zip(self.transformer_blocks,
                                  self.temporal_transformer_blocks):

@@ -2,7 +2,14 @@
 
 Port of `wiw_tpu/models/unet.py` with the `micro_cond` action strategy
 (Fourier action embedder added to the per-frame time embedding). The
-`action_block` strategies and `remat` wait for a later port.
+`action_block` strategies wait for a later port.
+
+Precision: Linear/Conv compute in `dtype` (the reference's flax `dtype`);
+their parameters are kept in `param_dtype` (None: the same, as in serving;
+"float32" for training, as flax's default `param_dtype`). `remat`
+recomputes each SpatioTemporalResBlock and TransformerSpatioTemporal in the
+backward pass (`torch.utils.checkpoint`, non-reentrant), the reference's
+`nn.remat` granularity for the trunk's blocks.
 
 Layout: latents enter as [B, F, H, W, C]; spatial stages run with frames
 folded into batch ([B*F, H, W, C]).
@@ -16,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from wiw_tpu_torch.core.schedule import timestep_embedding
 from wiw_tpu_torch.models.layers import (
@@ -27,6 +35,7 @@ from wiw_tpu_torch.models.layers import (
     TimestepEmbedding,
     TransformerSpatioTemporal,
     Upsample2D,
+    set_compute_dtype,
 )
 from wiw_tpu_torch.ops.temporal_attention import MODES
 
@@ -49,6 +58,11 @@ class UNetConfig:
     # micro_cond input channel: 14 (nav idx codec) or 10 (manip pose codec)
     action_input_channel: int = 14
     dtype: str = "float32"
+    # parameter dtype of Linear/Conv weights; None = `dtype`
+    param_dtype: Optional[str] = None
+    # recompute block activations in the backward pass (the reference's
+    # remat, its --gradient_checkpointing)
+    remat: bool = False
     # the transformers' LN + GEGLU feed-forward + residual through kernel
     # K6 where the reference's rule allows it (its WIW_FUSED_FF=1)
     fused_ff: bool = False
@@ -67,6 +81,10 @@ class UNetConfig:
     @property
     def torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
+
+    @property
+    def param_torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.param_dtype or self.dtype)
 
 
 class ActionEmbedderFourier(nn.Module):
@@ -179,10 +197,21 @@ class UNetSpatioTemporal(nn.Module):
 
         self.conv_norm_out = GroupNorm(ch0, eps=1e-5)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        if cfg.param_dtype is not None:
+            set_compute_dtype(self, cfg.torch_dtype)
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.conv_in.weight.dtype
+        """The compute dtype."""
+        return self.conv_in.compute_dtype
+
+    def _block(self, module, *args):
+        """A ResBlock or transformer call; recomputed in the backward pass
+        under `remat` (no randomness inside, so no RNG state is kept)."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return module(*args)
 
     def forward(self, sample, timestep, context, added_time_ids,
                 action_ids=None):
@@ -209,25 +238,26 @@ class UNetSpatioTemporal(nn.Module):
 
         x = self.conv_in(sample.to(dt).reshape(B * Fr, H, W, sample.shape[-1]))
         skips = [x]
+        run = self._block
         for block in self.down_blocks:
             for i, resnet in enumerate(block.resnets):
-                x = resnet(x, Fr, emb)
+                x = run(resnet, x, Fr, emb)
                 if block.attention(i) is not None:
-                    x = block.attention(i)(x, Fr, context)
+                    x = run(block.attention(i), x, Fr, context)
                 skips.append(x)
             if hasattr(block, "downsamplers"):
                 x = block.downsamplers[0](x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, Fr, emb)
-        x = self.mid_block.attentions[0](x, Fr, context)
-        x = self.mid_block.resnets[1](x, Fr, emb)
+        x = run(self.mid_block.resnets[0], x, Fr, emb)
+        x = run(self.mid_block.attentions[0], x, Fr, context)
+        x = run(self.mid_block.resnets[1], x, Fr, emb)
 
         for block in self.up_blocks:
             for i, resnet in enumerate(block.resnets):
-                x = resnet(torch.cat([x, skips.pop()], dim=-1), Fr, emb)
+                x = run(resnet, torch.cat([x, skips.pop()], dim=-1), Fr, emb)
                 if block.attention(i) is not None:
-                    x = block.attention(i)(x, Fr, context)
+                    x = run(block.attention(i), x, Fr, context)
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
 

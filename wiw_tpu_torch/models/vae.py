@@ -176,9 +176,19 @@ class AutoencoderKLTemporal(nn.Module):
         """images [N, H, W, 3] in [-1, 1] -> moments [N, h, w, 8]."""
         return self.quant_conv(self.encoder(images))
 
-    def encode(self, images):
-        """Posterior mean (the reference's encode without a key), UNSCALED."""
-        return self.encode_moments(images).chunk(2, dim=-1)[0]
+    def encode(self, images, eps=None, generator=None):
+        """UNSCALED latents: the posterior mean, or with `eps` (a standard-
+        normal draw shaped like the mean) or a `generator` a sample of the
+        posterior, mean + exp(logvar / 2) * eps with logvar clipped to
+        [-30, 20] (the reference's encode with a key)."""
+        mean, logvar = self.encode_moments(images).chunk(2, dim=-1)
+        if eps is None and generator is None:
+            return mean
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator,
+                              device=mean.device)
+        std = torch.exp(0.5 * logvar.clamp(-30.0, 20.0))
+        return mean + std * eps.to(mean.device, mean.dtype)
 
     def decode(self, latents, num_frames: int):
         """latents [B*F, h, w, 4] (un-scaled) -> [B, F, H, W, 3]."""

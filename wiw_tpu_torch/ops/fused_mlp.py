@@ -16,11 +16,18 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
 - `lnff_eligible` is the reference's rule for taking K6; where it says no
   (C > 640, rows not a multiple of 128, ...) the model runs its unfused
   LayerNorm and FeedForward modules, the function of the reference's
-  unfused oracle. A gap: the CUDA kernels take C and C_out only in
-  multiples of `C_STEP`, so a C <= 640 that is not one passes the
-  reference's rule (its Pallas kernel takes it) and then raises on the
-  card. The SVD† widths (320, 640) are multiples; the CPU's plain
-  versions take any C.
+  unfused oracle. The CUDA kernels take C and C_out only in multiples of
+  `C_STEP`, which the reference's rule does not ask for (its Pallas kernel
+  takes any C <= 640), so the model's dispatch (`models/layers.py`,
+  `_ln_ff_residual`) also asks for C % C_STEP == 0 and sends any other C to
+  the unfused modules: a route by shape, as the reference sends C > 640 to
+  XLA, to the same function. A C-tail inside the kernel is ROADMAP work.
+- K6's gradient, as the reference's custom VJP does it: the autograd
+  Function `LnGegluFfnResidual` runs K6 forward and saves only its inputs;
+  its backward recomputes through the unfused differentiable formulation
+  `ln_geglu_ffn_residual_unfused` (the reference's
+  `ln_geglu_ffn_residual_xla`) and returns all seven gradients. There is no
+  backward kernel, as the reference has none.
 
 Both kernels are one CUDA source, `wiw_tpu_torch/csrc/geglu_ffn.cu`, whose
 header says what bounds them on the H100. The wrappers take CPU tensors to
@@ -46,7 +53,8 @@ def lnff_eligible(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> bool:
     """The reference's rule for taking the fused kernel (`_lnff_dispatch`):
     C <= 640, flattened rows a positive multiple of 128, inner a multiple
     of 128, weights not int8. It does not ask for C % C_STEP == 0, which
-    the CUDA kernel needs (the module docstring's gap)."""
+    the CUDA kernel needs; the model's dispatch adds that (see the module
+    docstring)."""
     C = x.shape[-1]
     M = x.numel() // C if C else 0
     return (C <= MAX_C and M >= ROW_BLOCK and M % ROW_BLOCK == 0
@@ -86,6 +94,20 @@ def ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2,
     g = (a * (b * 0.5 * (1.0 + torch.erf(b * _SQRT1_2)))).to(dt)
     out = (g.float() @ w2.float().t()).to(dt) + b2.to(dt)
     return (x2 + out).reshape(x.shape)
+
+
+def ln_geglu_ffn_residual_unfused(x, ln_w, ln_b, w1, b1, w2, b2,
+                                  eps: float = 1e-5):
+    """The reference's unfused oracle `ln_geglu_ffn_residual_xla`, with its
+    dtype rules: LN in fp32 rounded to x's dtype, each product in x's dtype,
+    + bias (a wider bias widens the sum, as in JAX), rounded; exact gelu.
+    Differentiable: K6's backward recomputes through it."""
+    dt = x.dtype
+    inner = w2.shape[1]
+    ln = _ln_rows(x, ln_w, ln_b, eps).to(dt)
+    h = (ln @ w1.to(dt).t() + b1).to(dt)
+    g = h[..., :inner] * torch.nn.functional.gelu(h[..., inner:])
+    return x + (g.to(dt) @ w2.to(dt).t() + b2).to(dt)
 
 
 def _check(x, w1, b1, w2, b2, residual: bool, ln=()) -> tuple[int, int, int, int]:
@@ -166,12 +188,7 @@ def geglu_ffn(x, w1, b1, w2, b2):
 geglu_ffn.launches = 0
 
 
-def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
-    """x + GEGLU_FF(LayerNorm(x)) over x [..., C]. CPU tensors take
-    `ln_geglu_ffn_residual_plain`; CUDA tensors launch K6 (bf16; C a
-    multiple of 64 up to 640, inner a multiple of 64, rows a multiple of
-    128; anything else raises) and count one launch in
-    `ln_geglu_ffn_residual.launches`."""
+def _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     if _on_cpu(x, ln_w, ln_b, w1, b1, w2, b2):
         return ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
     if x.device.type != "cuda":
@@ -185,6 +202,39 @@ def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
                       M, C, inner, float(eps)))
     ln_geglu_ffn_residual.launches += 1
     return out
+
+
+class LnGegluFfnResidual(torch.autograd.Function):
+    """K6 forward; backward recomputed through the unfused formulation."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
+        return _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        with torch.enable_grad():
+            out = ln_geglu_ffn_residual_unfused(*inputs, ctx.eps)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad))
+        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+
+
+def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
+    """x + GEGLU_FF(LayerNorm(x)) over x [..., C]. CPU tensors take
+    `ln_geglu_ffn_residual_plain`; CUDA tensors launch K6 (bf16; C a
+    multiple of 64 up to 640, inner a multiple of 64, rows a multiple of
+    128; anything else raises) and count one launch in
+    `ln_geglu_ffn_residual.launches`. With gradients wanted it goes through
+    `LnGegluFfnResidual` (backward by recomputation)."""
+    args = (x, ln_w, ln_b, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return LnGegluFfnResidual.apply(*args, eps)
+    return _ln_geglu_ffn_residual(*args, eps)
 
 
 ln_geglu_ffn_residual.launches = 0

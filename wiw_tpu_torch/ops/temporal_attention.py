@@ -111,9 +111,17 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over the F frames of [B, F, S, H*D] for each (position,
     head). CPU tensors take `frame_attention_plain`. CUDA tensors launch K4
     (bf16, contiguous, head_dim 64, F <= 16; anything else raises) and
-    count one launch in `frame_attention.launches`."""
+    count one launch in `frame_attention.launches`. K4 has no gradient, as
+    the reference's bare `pallas_call` has none: off the CPU, asking for
+    one raises NotImplementedError (train with the batched or xla form)."""
     if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
         return frame_attention_plain(q, k, v, heads)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "frame attention kernel K4 has no gradient (the reference's "
+            "pallas_call defines none): train with temporal_attention "
+            "'batched' or 'xla'")
     if q.device.type != "cuda":
         raise ValueError(f"frame_attention: unsupported device {q.device}")
     _check(q, k, v, heads)

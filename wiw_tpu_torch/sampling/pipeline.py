@@ -126,8 +126,12 @@ class SVDPipeline:
         return tower.to_empty(device=self.device)
 
     def _finish(self):
+        """Cast each tower's Linear/Conv weights to its parameter dtype (the
+        UNet's `param_dtype`, else the model dtype) and freeze it; a trainer
+        unfreezes the UNet parameters it trains."""
         for tower, cfg in self._towers():
-            cast_matmul_weights(tower, cfg.torch_dtype).eval().requires_grad_(False)
+            dtype = getattr(cfg, "param_torch_dtype", cfg.torch_dtype)
+            cast_matmul_weights(tower, dtype).eval().requires_grad_(False)
 
     def init_params(self, generator: torch.Generator) -> None:
         """Random-init all three towers on the device, from `generator`

@@ -27,6 +27,7 @@ import torch
 
 from wiw_tpu_torch.agents.saver import save_video
 from wiw_tpu_torch.core.schedule import SERVING_CFG, CFGSchedule
+from wiw_tpu_torch.models.convert import load_safetensors_dir
 from wiw_tpu_torch.models.unet import UNetConfig
 from wiw_tpu_torch.ops.resize import resize_cubic
 from wiw_tpu_torch.sampling.pipeline import GenerationConfig, SVDPipeline
@@ -34,19 +35,6 @@ from wiw_tpu_torch.serve.worker import main_from_argv
 
 QUANTIZE_CHOICES = ("", "bf16", "int8")
 CFG_CHOICES = ("", "serving", "full")
-
-
-def _load_safetensors_dir(path: str) -> dict:
-    from safetensors.torch import load_file
-
-    files = sorted(f for f in os.listdir(path)
-                   if f.endswith(".safetensors"))
-    if not files:
-        raise FileNotFoundError(f"no .safetensors files under {path}")
-    state = {}
-    for f in files:
-        state.update(load_file(osp.join(path, f)))
-    return state
 
 
 def resolve_switches(cfg_schedule: str = "", quantize: str = "",
@@ -140,12 +128,12 @@ class SVDActionWorker:
         and image encoder from the SVD base dir."""
         unet_dir = (osp.join(unet_path, "unet")
                     if osp.isdir(osp.join(unet_path, "unet")) else unet_path)
-        clip = {k: v for k, v in _load_safetensors_dir(
+        clip = {k: v for k, v in load_safetensors_dir(
             osp.join(svd_path, "image_encoder")).items()
             if not k.endswith("position_ids")}
         self.pipe.load_state_dicts(
-            _load_safetensors_dir(unet_dir),
-            _load_safetensors_dir(osp.join(svd_path, "vae")), clip)
+            load_safetensors_dir(unet_dir),
+            load_safetensors_dir(osp.join(svd_path, "vae")), clip)
 
     def _load_cond_images(self, input_dict: dict) -> torch.Tensor:
         """[B, H, W, 3] fp32 in [-1, 1] on the device, from b_image or
