@@ -8,25 +8,45 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. build: every CUDA kernel of the serving and training paths, from
      wiw_tpu_torch/csrc, one nvcc per source, all at once (ptxas
      registers/spills printed)
-  3. kernels: K1 (flash attention), K4 (frame attention), K5 and K6 (fused
-     GEGLU feed-forward) each against its plain PyTorch version on the same
-     bf16 inputs at the shapes the serving path gives it (max/mean |error|
-     and relative Frobenius error against the stated tolerance, which
-     scales with the plain output); kernel, plain and library-call ms by
-     CUDA events in turns (plain, kernel, kernel, plain); the least time the
-     card could take (bound) from the bytes and flops of each call; the
-     device kernels the library call ran at the largest shape
+  3. kernels: K1 (flash attention), K2 (the reference's v1 attention, with
+     and without unroll2, at S = 9216 and 144), K4 (frame attention), K5, K6
+     and K6-bf16 (fused GEGLU feed-forward, fp32 and bf16 gate) each against
+     its plain PyTorch version on the same bf16 inputs at the shapes the
+     serving path gives it (max/mean |error| and relative Frobenius error
+     against the stated tolerance, which scales with the plain output;
+     K6-bf16 also differs from K6 and equals its own plain version at more
+     elements than it equals K6's);
+     kernel, plain and library-call ms by CUDA events in turns (plain,
+     kernel, kernel, plain); the least time the card could take (bound) from
+     the bytes and flops of each call; the device kernels the library call
+     ran at the largest shape
   4. small-input reference: a tiny bf16 pipeline on the card, in the default
      and in the fused-kernel configuration, against the same weights run in
      fp32 on the CPU (plain versions there)
   5. slices: the full-width SVDActionWorker (1.5 B-parameter UNet with
      micro_cond, bf16, random weights from a seed) answers 576x1024,
      14-frame, 25-step requests with output 480x480: one request in the
-     default configuration, two in the fused-kernel one (fused_ff,
-     temporal_attention='pallas'); per request: seconds, denoise frames/s,
-     output checks, peak memory and each kernel's launches (counts set to 0
-     just before a path and read just after); then one 2-row UNet forward of
-     each configuration under torch.profiler (device time by op)
+     default configuration, one in the fused-kernel one (fused_ff,
+     temporal_attention='pallas'), one in the fused one with
+     WIW_FUSED_FF_GATE=bf16 (K6-bf16); per request: seconds, denoise
+     frames/s, output checks, peak memory and each kernel's launches (counts
+     set to 0 just before a path and read just after; K8's must equal the
+     GroupNorm calls, counted by hooks); then one 2-row UNet forward of each
+     configuration under torch.profiler (device time by op)
+  5b. K8 (GroupNorm + SiLU), after the default slice: at every distinct
+     GroupNorm shape that slice's request and its profiled 2-row forward
+     ran (collected by hooks), with and without SiLU, against the plain
+     version; kernel, plain and library ms (`F.group_norm` on the
+     [N, C, L] view, its internal layout copy included, then `F.silu`),
+     and the kernel's device time by torch.profiler (`device_ms`: the
+     event-timed loop of a small shape is bound by the host's dispatch),
+     the bound (one read and one write of x where one batch row of x fits
+     in the 50 MB L2, two reads and one write where not) and the copy
+     kernel's GB/s at each shape; sums over a 2-row forward and over a
+     request; a row alone against the same row batched between two rows
+     offset by 1e4 (bit-equal), and in fp32 against float64: |mean|/std ~
+     1200, and rows whose mean and scale change from tile to tile with a
+     partial last tile
   6. training: K1 with its LSE output and K3 (flash-attention backward) at
      the four training shapes against the plain forward, LSE and backward
      (K1's output bits the same with and without the LSE), K6's gradients
@@ -35,7 +55,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
      parameters computing in bf16, remat, grad-accum 2, AdamW, clip 1.0,
      discrete dropout, EMA), 3 optimizer steps on 576x1024 14-frame clips
      from an in-memory dataset through the port's PrefetchLoader; per step:
-     seconds, loss, peak memory and the K1/K3 launches, then clips/s and
+     seconds, loss, peak memory and the K1/K3/K8 launches, then clips/s and
      the model-FLOPs utilisation
 Then one JSON line with the kernels, the card line again, and last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -45,6 +65,7 @@ It imports no jax and needs no network.
 import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -71,9 +92,13 @@ K4_SHAPES = [(2, 14, 9216, 5, 5), (2, 14, 2304, 10, 5), (2, 14, 576, 20, 5)]
 # feed-forwards with C <= 640 (levels 0-1): (rows x 14 x S, C, calls); five
 # transformers per level, three feed-forwards each
 FF_SHAPES = [(2 * 14 * 9216, 320, 15), (2 * 14 * 2304, 640, 15)]
-# launches per request: 16 / 15 / 30 per UNet forward x 25 forwards
-PER_REQUEST = {"default": {"K1": 400, "K3": 0, "K4": 0, "K6": 0},
-               "fused": {"K1": 400, "K3": 0, "K4": 375, "K6": 750}}
+# launches per request: 16 / 15 / 30 per UNet forward x 25 forwards; every
+# other counter 0, but K8's, which must equal the GroupNorm calls
+PER_REQUEST = {"default": {"K1": 400},
+               "fused": {"K1": 400, "K4": 375, "K6": 750},
+               "fused-bf16": {"K1": 400, "K4": 375, "K6-bf16": 750}}
+# K2 (no model caller): the level-0 and level-3 spatial attentions
+K2_SHAPES = [K1_SHAPES[0][:3], K1_SHAPES[3][:3]]
 # the same attentions when training at batch 1 (one row of 14 frames):
 # (batch = 14 frames, heads, S, calls per UNet forward)
 K3_SHAPES = [(FRAMES, H, S, calls) for _, H, S, calls in K1_SHAPES]
@@ -84,9 +109,8 @@ LSE_ATOL = 2e-3
 TRAIN_STEPS, TRAIN_ACCUM = 3, 2
 # launches per optimizer step: each micro-batch runs the 16 spatial
 # attentions forward, and again in the backward pass (remat), then 16
-# backwards
-PER_STEP = {"K1": TRAIN_ACCUM * 2 * 16, "K3": TRAIN_ACCUM * 16, "K4": 0,
-            "K5": 0, "K6": 0}
+# backwards; every other counter 0, but K8's (the GroupNorm calls)
+PER_STEP = {"K1": TRAIN_ACCUM * 2 * 16, "K3": TRAIN_ACCUM * 16}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_S, BF16_FLOPS_S, FP32_FLOPS_S = 3.35e12, 989e12, 67e12
 # small-input phase: frames in [0, 1] from a bf16 card run vs an fp32 CPU
@@ -95,6 +119,11 @@ HBM_BYTES_S, BF16_FLOPS_S, FP32_FLOPS_S = 3.35e12, 989e12, 67e12
 # that, well below the tens-of-percent error of a wrong kernel or layout
 SMALL_ATOL, SMALL_MEAN_ATOL = 0.15, 0.02
 FUSED = dict(fused_ff=True, temporal_attention="pallas")
+# K8 against float64 at |mean|/std ~ 1200 (fp32 input), the CPU test's bound
+ILL_ATOL = 2e-3
+# the H100's L2 (data sheet): K8's floor is one read of x where one batch
+# row (the unit its statistics cover) fits here, two where it does not
+L2_BYTES = 50 * 2 ** 20
 
 
 def card_line() -> str:
@@ -131,6 +160,19 @@ def kernel_names(fn) -> str:
                     key=self_dev, reverse=True)
     return "; ".join(f"{e.key[:70]} {self_dev(e) / 1e3:.2f} ms"
                      for e in events[:3])
+
+
+def device_ms(fn, keys, reps: int) -> float:
+    """Device time of one call of `fn` in the kernels whose names hold one
+    of `keys`, from torch.profiler over `reps` calls: the kernels' own
+    time, whatever the host's dispatch rate."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(self_dev(e) for e in prof.key_averages()
+               if any(k in e.key for k in keys)) / 1e3 / reps
 
 
 def bound_ms(nbytes: float, flops: float, peak: float) -> float:
@@ -239,6 +281,44 @@ def k1_phase(row: Row, dev, g):
         del q, k, v
 
 
+def k2_phase(rows: dict, dev, g):
+    """K2, the reference's v1 attention (`flash_attention(kernel="v1")`),
+    one-tile and with unroll2, at K2_SHAPES on head views of [B, S, H*64]
+    projections, against its plain version (chunked over the batch). At
+    S = 144 (not a multiple of 128) unroll2 takes the one-tile loop, as the
+    reference does."""
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops import flash_attention as TFA
+
+    for B, H, S in K2_SHAPES:
+        q, k, v = (torch.randn(B, S, H * 64, generator=g, device=dev,
+                               dtype=torch.bfloat16).view(B, S, H, 64)
+                   .transpose(1, 2) for _ in range(3))
+        chunk = max(1, int(2e9 // (H * S * S * 4)))
+
+        def plain():
+            return torch.cat([TFA.flash_attention_v1_plain(
+                q[i:i + chunk], k[i:i + chunk], v[i:i + chunk])
+                for i in range(0, B, chunk)])
+
+        ref = plain()
+        flops = 4 * B * H * S * S * 64
+        bound = bound_ms(4 * B * H * S * 64 * 2, flops, BF16_FLOPS_S)
+        for key, unroll2 in (("K2", False), ("K2-unroll2", True)):
+            def kernel(unroll2=unroll2):
+                return TFA.flash_attention(q, k, v, kernel="v1", unroll2=unroll2)
+
+            max_err, err_line = compare(f"{key} S={S}", kernel(), ref)
+            ms, plain_ms, lib = timed(
+                f"{key} B*H={B * H} S={S} D=64 {err_line}", plain, kernel,
+                lambda: F.scaled_dot_product_attention(q, k, v),
+                max(3, int(3e4 // S)), 2, bound,
+                lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
+            rows[key].add(1, max_err, ms, plain_ms, bound, "operations", lib)
+        del q, k, v, ref
+
+
 def k4_phase(row: Row, dev, g):
     import torch.nn.functional as F
 
@@ -272,7 +352,9 @@ def k4_phase(row: Row, dev, g):
         del q, k, v, heads
 
 
-def ffn_phase(k5: Row, k6: Row, dev, g):
+def ffn_phase(k5: Row, k6: Row, k6_bf16: Row, dev, g):
+    from functools import partial
+
     from wiw_tpu_torch.ops import fused_mlp as TF
 
     for M, C, calls in FF_SHAPES:
@@ -290,19 +372,179 @@ def ffn_phase(k5: Row, k6: Row, dev, g):
         flops = 6 * M * C * inner  # two products: 2*M*C*2I + 2*M*I*C
         nbytes = 2 * (2 * M * C + 3 * inner * C)  # x, out; W1, W2 once
         bound = bound_ms(nbytes, flops, BF16_FLOPS_S)
+        lnff = (x, ln_w, ln_b, w1, b1, w2, b2)
+        outs = {}
         for row, kern, plain, args in (
-                (k6, TF.ln_geglu_ffn_residual, TF.ln_geglu_ffn_residual_plain,
-                 (x, ln_w, ln_b, w1, b1, w2, b2)),
+                (k6, TF.ln_geglu_ffn_residual, TF.ln_geglu_ffn_residual_plain, lnff),
+                (k6_bf16, partial(TF.ln_geglu_ffn_residual, gate="bf16"),
+                 partial(TF.ln_geglu_ffn_residual_plain, gate="bf16"), lnff),
                 (k5, TF.geglu_ffn, TF.geglu_ffn_plain, (x, w1, b1, w2, b2))):
             name = row.d["name"]
-            max_err, err_line = compare(f"{name} C={C}", kern(*args),
-                                        plain(*args))
+            outs[name] = out, ref = kern(*args), plain(*args)
+            max_err, err_line = compare(f"{name} C={C}", out, ref)
             ms, plain_ms, _ = timed(
                 f"{name} M={M} C={C} inner={inner} {err_line}",
                 lambda: plain(*args), lambda: kern(*args), None, 5, 3, bound,
                 lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
             row.add(calls, max_err, ms, plain_ms, bound, "operations")
-        del x, w1, w2
+        gate_check(outs[k6.d["name"]], outs[k6_bf16.d["name"]], M, C)
+        del x, w1, w2, outs
+
+
+def gate_check(k6, k6_bf16, M, C):
+    """K6-bf16 ran its bf16-gate template: (kernel, plain) outputs of K6
+    and K6-bf16 on the same inputs. The two gates move outputs by about an
+    ulp, inside `compare`'s slack, so K6-bf16 must also differ from K6 and
+    equal its own plain version at more elements than it equals K6's (a
+    lost gate flag gives K6's bits, and so fails both)."""
+    out, ref = k6_bf16
+    same_own = (out == ref).float().mean().item()
+    same_f32 = (out == k6[1]).float().mean().item()
+    print(f"K6-bf16 M={M} C={C}: equal to its plain version at {same_own:.6g} "
+          f"of elements, to K6's plain version at {same_f32:.6g}", flush=True)
+    if torch.equal(out, k6[0]) or not same_own > same_f32:
+        raise RuntimeError(f"K6-bf16 at C={C} did not compute the bf16 gate")
+
+
+def k8_phase(row: Row, forward: dict, request: dict, dev, g):
+    """K8 at every distinct GroupNorm shape of `request` (a default
+    request's calls, every tower) and `forward` (a 2-row UNet forward's):
+    {(shape, dtype, groups, eps, silu): calls} (`count_group_norms`). Each
+    shape is checked with and without SiLU against the plain version and
+    timed with the path's flag; the row sums one 2-row forward,
+    `request_ms` one request."""
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops import group_norm as TG
+
+    d = row.d
+    d["request_ms"] = d["request_plain_ms"] = d["request_bound_ms"] = 0.0
+    d["request_library_ms"] = d["device_ms"] = d["request_device_ms"] = 0.0
+    copy_gb_s = []
+    print("K8: library = F.group_norm on the [N, C, L] view of x (its internal "
+          "copy to its layout included), then F.silu where the path has it; "
+          "bound = x read once (twice where one batch row of x exceeds the "
+          "50 MB L2) and y written once, over 3.35 TB/s", flush=True)
+    for key in sorted(set(forward) | set(request),
+                      key=lambda k: -int(np.prod(k[0]))):
+        shape, dtype, groups, eps, silu = key
+        N, C = shape[0], shape[-1]
+        x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
+        w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
+        b = 0.3 * torch.randn(C, generator=g, device=dev)
+        errs = {}
+        for flag in (silu, not silu):
+            errs[flag] = compare(f"K8 {shape} {dtype} silu={flag}",
+                                 TG.group_norm(x, w, b, groups, eps, flag),
+                                 TG.group_norm_plain(x, w, b, groups, eps, flag))
+        max_err = max(e for e, _ in errs.values())
+        nbytes = x.numel() * x.element_size()
+        # a row's statistics precede its normalisation: a row held in L2 is
+        # read once from HBM, a larger one twice
+        passes = 2 if nbytes // N <= L2_BYTES else 3
+        bound = bound_ms(passes * nbytes, 0, BF16_FLOPS_S)
+        # the library call on the [N, C, L] view it wants, weights in x's
+        # dtype (its kernel's rule); F.group_norm copies to its layout inside
+        xt = x.reshape(N, -1, C).transpose(1, 2)
+        wl, bl = w.to(dtype), b.to(dtype)
+
+        def library():
+            y = F.group_norm(xt, groups, wl, bl, eps)
+            return F.silu(y) if silu else y
+
+        reps = min(200, max(5, int(4e9 // nbytes)))
+        copy = ""
+        if dtype == torch.bfloat16 and x.numel() % 8 == 0:
+            if not torch.equal(TG.copy_plus_one(x), x + 1):
+                raise RuntimeError(f"copy_plus_one disagrees with x + 1 at {shape}")
+            gb_s = 2 * nbytes / cuda_ms(lambda: TG.copy_plus_one(x), reps) / 1e6
+            copy_gb_s.append(gb_s)
+            copy = f", copy kernel {gb_s:.0f} GB/s"
+        fwd, req = forward.get(key, 0), request.get(key, 0)
+        ms, plain_ms, lib = timed(
+            f"K8 {list(shape)} {str(dtype)[6:]} G={groups} silu={silu} "
+            f"({fwd} a 2-row forward, {req} a request) "
+            + errs[silu][1] + f" | other flag: max|err| {errs[not silu][0]:.6g}",
+            lambda: TG.group_norm_plain(x, w, b, groups, eps, silu),
+            lambda: TG.group_norm(x, w, b, groups, eps, silu), library,
+            reps, 3, bound,
+            lambda ms: f"{passes * nbytes / ms / 1e6:.0f} GB/s of its floor's "
+                       f"{passes} passes{copy}")
+        dev_ms = device_ms(lambda: TG.group_norm(x, w, b, groups, eps, silu),
+                           KERNEL_CLASSES[0][1], min(reps, 20))
+        print(f"  its device time (torch.profiler): {dev_ms:.4f} ms a call", flush=True)
+        row.add(fwd, max_err, ms, plain_ms, bound, "bytes", lib)
+        d["device_ms"] += fwd * dev_ms
+        d["request_device_ms"] += req * dev_ms
+        d["request_ms"] += req * ms
+        d["request_plain_ms"] += req * plain_ms
+        d["request_bound_ms"] += req * bound
+        d["request_library_ms"] += req * lib
+        del x, xt
+    torch.cuda.empty_cache()
+    d["copy_gb_s_max"] = max(copy_gb_s)
+    print(f"K8 copy kernel (x + 1, bf16): {max(copy_gb_s):.0f} GB/s at best over "
+          f"the shapes above, against the 3350 GB/s data-sheet rate", flush=True)
+    print(f"K8 per request ({sum(request.values())} calls): kernel "
+          f"{d['request_ms']:.4f} ms (device {d['request_device_ms']:.4f} ms), "
+          f"plain {d['request_plain_ms']:.4f} ms, bound "
+          f"{d['request_bound_ms']:.4f} ms, library "
+          f"{d['request_library_ms']:.4f} ms", flush=True)
+
+
+def k8_checks(dev, g):
+    """K8's row independence, bit for bit (a row alone against the same row
+    between two rows offset by 1e4), and its statistics in fp32 against
+    float64: at |mean|/std ~ 1200 (the CPU test's case, and at level 0),
+    and on rows whose mean and scale change from one 256-row tile to the
+    next, with a partial last tile (a tile merged with the wrong weight or
+    dropped moves the mean by about one tile's offset step)."""
+    from wiw_tpu_torch.ops import group_norm as TG
+
+    C = 320
+    w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
+    b = 0.3 * torch.randn(C, generator=g, device=dev)
+    good = torch.randn(1, 9216, C, generator=g, device=dev).bfloat16()
+    bad = (torch.randn(1, 9216, C, generator=g, device=dev) + 1e4).bfloat16()
+    alone = TG.group_norm(good, w, b, 32, 1e-5, True)
+    batched = TG.group_norm(torch.cat([bad, good, bad]), w, b, 32, 1e-5, True)
+    if not torch.equal(batched[1], alone[0]):
+        raise RuntimeError("K8: a co-batched row changed another row's bits")
+    worst = {}
+    for what, shape, groups in (("|mean|/std ~ 1200", (1, 64, 16), 4),
+                                ("|mean|/std ~ 1200", (2, 9216, 320), 4),
+                                ("tile-varying rows", (2, 9253, 320), 32),
+                                ("tile-varying rows", (3, 2, 2, 75, 96), 32)):
+        x = torch.randn(*shape, generator=g, device=dev)
+        Cx = shape[-1]
+        if what.startswith("tile"):
+            x = tile_varying(x)
+        else:
+            x[..., :Cx // 4] += 1200.0
+        out = TG.group_norm(x, torch.ones(Cx, device=dev), torch.zeros(Cx, device=dev),
+                            groups, 1e-5)
+        g64 = x.double().reshape(shape[0], -1, groups, Cx // groups)
+        ref = ((g64 - g64.mean(dim=(1, 3), keepdim=True)) / torch.sqrt(
+            g64.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5)).reshape(shape)
+        err = ((out.double() - ref).abs() / (ILL_ATOL + ILL_ATOL * ref.abs())).max().item()
+        worst[what] = max(worst.get(what, 0.0), (out.double() - ref).abs().max().item())
+        if err > 1:
+            raise RuntimeError(f"K8 on {what} {shape}: beyond {ILL_ATOL} against "
+                               f"float64 (ratio {err:.3g})")
+    print("K8 checks: a row's bits equal alone and between rows offset by 1e4; "
+          "fp32 vs float64 " + ", ".join(f"{w} max|err| {e:.3g}" for w, e in worst.items())
+          + f" (tol {ILL_ATOL} + {ILL_ATOL}*|ref|)", flush=True)
+
+
+def tile_varying(x):
+    """x [N, ..., C] with every batch row's mean and scale changed from one
+    256-row tile of its [L, C] view to the next (K8's stats tile), each row
+    by another ramp: offset 4 * tile * (n + 1) - 9 n, scale 1 + tile / 8."""
+    N, C = x.shape[0], x.shape[-1]
+    flat = x.reshape(N, -1, C)
+    tile = (torch.arange(flat.shape[1], device=x.device) // 256).float()[None, :, None]
+    n = torch.arange(N, device=x.device).float()[:, None, None]
+    return (flat * (1 + tile / 8) + 4 * tile * (n + 1) - 9 * n).reshape(x.shape)
 
 
 def k3_phase(k1: Row, k3: Row, dev, g):
@@ -480,11 +722,13 @@ def train_phase(dev) -> dict:
         transform=train_cli.accum_transform(args.grad_accum),
         place=trainer.place_batch, num_workers=2, prefetch_batches=2)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
-    total = dict.fromkeys(_wrappers(), 0)
+    total = dict.fromkeys(_counters(), 0)
     secs_all = []
+    norms, hooks = count_group_norms(unet, pipe.vae)
     for i, batch in enumerate(loader):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        norms.clear()
         reset_launches()  # count this step of this path only
         t = time.perf_counter()
         metrics = trainer.train_step(state, batch, generator)
@@ -492,6 +736,7 @@ def train_phase(dev) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = launches()
+        want = expected(PER_STEP, sum(norms.values()))
         secs_all.append(secs)
         print(f"train step {i}: {secs:.3f} s, loss {loss:.6g}, grad norm "
               f"{float(metrics['grad_norm']):.6g}, peak "
@@ -499,10 +744,12 @@ def train_phase(dev) -> dict:
               f"{counts}", flush=True)
         if not np.isfinite(loss):
             raise RuntimeError(f"train step {i}: loss {loss}")
-        if counts != PER_STEP:
-            raise RuntimeError(f"train step {i}: launches {counts}, expected {PER_STEP}")
+        if counts != want or not counts["K8"]:
+            raise RuntimeError(f"train step {i}: launches {counts}, expected {want}")
         for k in total:
             total[k] += counts[k]
+    for h in hooks:
+        h.remove()
     if len(secs_all) != TRAIN_STEPS or state.step != TRAIN_STEPS:
         raise RuntimeError(f"ran {len(secs_all)} steps, state at {state.step}")
     for j, i in enumerate(watch):
@@ -592,37 +839,67 @@ def small_reference_phase(dev):
                 and diff.mean() <= SMALL_MEAN_ATOL):
             raise RuntimeError(f"small-input card run ({label}) disagrees with "
                                "the CPU reference")
-        took = (counts["K1"] > 0, counts["K4"] > 0, counts["K6"] > 0)
-        if took != (True, label == "fused", label == "fused"):
+        took = (counts["K1"] > 0, counts["K4"] > 0, counts["K6"] > 0,
+                counts["K8"] > 0)
+        if took != (True, label == "fused", label == "fused", True):
             raise RuntimeError(f"small-input {label} run took the wrong kernels: {counts}")
         del card
 
 
-def _wrappers():
+def _counters() -> dict:
+    """Each kernel's launch count: (wrapper, attribute)."""
+    from wiw_tpu_torch.ops import flash_attention as TFA
     from wiw_tpu_torch.ops import fused_mlp as TF
+    from wiw_tpu_torch.ops import group_norm as TG
     from wiw_tpu_torch.ops import temporal_attention as TT
-    from wiw_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_bwd,
-    )
 
-    return {"K1": flash_attention, "K3": flash_attention_bwd,
-            "K4": TT.frame_attention, "K5": TF.geglu_ffn,
-            "K6": TF.ln_geglu_ffn_residual}
+    return {"K1": (TFA.flash_attention, "launches"),
+            "K2": (TFA.flash_attention_v1, "launches"),
+            "K2-unroll2": (TFA.flash_attention_v1, "launches_unroll2"),
+            "K3": (TFA.flash_attention_bwd, "launches"),
+            "K4": (TT.frame_attention, "launches"),
+            "K5": (TF.geglu_ffn, "launches"),
+            "K6": (TF.ln_geglu_ffn_residual, "launches"),
+            "K6-bf16": (TF.ln_geglu_ffn_residual, "launches_bf16_gate"),
+            "K8": (TG.group_norm, "launches")}
 
 
 def reset_launches():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def launches() -> dict:
-    return {k: fn.launches for k, fn in _wrappers().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+def expected(fixed: dict, group_norms: int) -> dict:
+    """The launches a path must show: `fixed`, K8 once per GroupNorm call,
+    every other kernel 0."""
+    return {**dict.fromkeys(_counters(), 0), **fixed, "K8": group_norms}
+
+
+def count_group_norms(*towers):
+    """Forward pre-hooks on every GroupNorm of `towers`: returns (a Counter
+    of the calls by (shape, dtype, groups, eps, silu), the hook handles)."""
+    from collections import Counter
+
+    from wiw_tpu_torch.models.layers import GroupNorm
+
+    seen = Counter()
+
+    def pre(m, args):
+        seen[(tuple(args[0].shape), args[0].dtype, m.groups, m.eps, m.silu)] += 1
+
+    handles = [m.register_forward_pre_hook(pre) for tower in towers
+               for m in tower.modules() if isinstance(m, GroupNorm)]
+    return seen, handles
 
 
 def profile_forward(unet, dev, label):
     """One 2-row UNet forward at 576x1024 under torch.profiler: device time
-    by op (top 14 by self time), busy time and the forward's event time."""
+    by op (top 14 by self time), busy time and the forward's event time.
+    Returns the GroupNorm calls of one such forward (`count_group_norms`)."""
     g = torch.Generator(device=dev).manual_seed(2)
     args = (torch.randn(2, FRAMES, 72, 128, 8, generator=g, device=dev),
             torch.full((2,), 0.5, device=dev),
@@ -630,8 +907,11 @@ def profile_forward(unet, dev, label):
             torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev),
             torch.zeros(2, FRAMES, 14, device=dev))
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    norms, hooks = count_group_norms(unet)
     with torch.inference_mode():
         unet(*args)
+        for h in hooks:
+            h.remove()
         fwd_ms = cuda_ms(lambda: unet(*args), 3)
         with torch.profiler.profile(activities=acts) as prof:
             unet(*args)
@@ -641,6 +921,7 @@ def profile_forward(unet, dev, label):
           f"mean of 3); device busy {busy_ms(prof):.2f} ms in the profiled "
           "forward", flush=True)
     print_top(prof)
+    return norms
 
 
 def busy_ms(prof) -> float:
@@ -649,11 +930,40 @@ def busy_ms(prof) -> float:
                if "CUDA" in str(e.device_type)) / 1e3
 
 
+# device kernels by class, matched on the kernel's name in this order: the
+# port's hand-written kernels, products (cuBLAS, cuDNN, CUTLASS), norms,
+# and the rest (elementwise, copies, reductions)
+KERNEL_CLASSES = (
+    ("K8 GroupNorm", ("gn_stats", "gn_finalize", "gn_apply")),
+    ("port attention and feed-forward kernels",
+     ("flash_attn", "temporal_attn", "geglu_ffn")),
+    ("GEMM and conv", ("gemm", "xmma", "nvjet", "cutlass", "cudnn", "conv",
+                       "wgmma", "sm80_", "sm90_")),
+    ("LayerNorm", ("layer_norm",)),
+)
+
+
+def kernel_class(name: str) -> str:
+    for label, keys in KERNEL_CLASSES:
+        if any(k in name for k in keys):
+            return label
+    return "elementwise, copies and reductions"
+
+
 def print_top(prof, n: int = 12) -> None:
-    """The top ops and kernels of a profile by self device time."""
+    """The top ops and kernels of a profile by self device time, and the
+    device time by kernel class (KERNEL_CLASSES)."""
     events = prof.key_averages()
     kernels = sorted((e for e in events if "CUDA" in str(e.device_type)),
                      key=self_dev, reverse=True)
+    by_class = {}
+    for e in kernels:
+        c = kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + self_dev(e) / 1e3
+    busy = sum(by_class.values())
+    print("  device time by kernel class: " + "; ".join(
+        f"{c} {ms:.2f} ms ({100 * ms / busy:.1f}%)"
+        for c, ms in sorted(by_class.items(), key=lambda kv: -kv[1])), flush=True)
     ops = sorted((e for e in events if "CUDA" not in str(e.device_type)),
                  key=self_dev, reverse=True)
     for what, rows in (("ops", ops), ("kernels", kernels)):
@@ -664,6 +974,8 @@ def print_top(prof, n: int = 12) -> None:
 
 
 def slice_phase(dev, label: str, requests: int, **config):
+    """`requests` full-width requests of one configuration (K6's gate from
+    the environment, WIW_FUSED_FF_GATE, as the worker reads it)."""
     from wiw_tpu_torch.workers.svd_action import SVDActionWorker
 
     t0 = time.perf_counter()
@@ -702,6 +1014,7 @@ def slice_phase(dev, label: str, requests: int, **config):
     hooks = [worker.pipe.unet.register_forward_pre_hook(pre),
              worker.pipe.unet.register_forward_hook(post),
              worker.pipe.vae.decoder.register_forward_hook(decoded)]
+    norms, norm_hooks = count_group_norms(worker.pipe.unet, worker.pipe.vae)
 
     rng = np.random.default_rng(0)
     request = {
@@ -711,10 +1024,10 @@ def slice_phase(dev, label: str, requests: int, **config):
         "request_model_name": "igenex",
         "return_objects": [True],
     }
-    want = PER_REQUEST[label]
-    total = dict.fromkeys(_wrappers(), 0)
+    total = dict.fromkeys(_counters(), 0)
     for i in range(requests):
         marks.clear()
+        norms.clear()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()  # count this request of this path only
         t = time.perf_counter()
@@ -722,6 +1035,7 @@ def slice_phase(dev, label: str, requests: int, **config):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = launches()
+        want = expected(PER_REQUEST[label], sum(norms.values()))
         frames = out["pred_frames"]
         denoise_s = marks["start"].elapsed_time(marks["end"]) / 1e3
         print(f"{label} request {i}: {secs:.3f} s, denoise {denoise_s:.3f} s = "
@@ -733,19 +1047,20 @@ def slice_phase(dev, label: str, requests: int, **config):
             raise RuntimeError(f"bad pred_frames {frames.shape} {frames.dtype}")
         if not bool(finite) or frames.min() == frames.max():
             raise RuntimeError("non-finite or constant output")
-        if any(counts[k] != n for k, n in want.items()) or counts["K5"]:
-            raise RuntimeError(f"{label}: launches {counts}, expected {want} "
-                               "and no K5")
+        if counts != want or not counts["K8"]:
+            raise RuntimeError(f"{label}: launches {counts}, expected {want}")
         for k in total:
             total[k] += counts[k]
-    for h in hooks:
+    for h in hooks + norm_hooks:
         h.remove()
     reset_launches()
-    profile_forward(worker.pipe.unet, dev, label)
+    forward_norms = profile_forward(worker.pipe.unet, dev, label)
     del worker
     gc.collect()
     torch.cuda.empty_cache()
-    return total
+    # the GroupNorm calls of the last request and of one 2-row forward, for
+    # K8's phase
+    return total, {"request": norms, "forward": forward_norms}
 
 
 def main() -> int:
@@ -754,6 +1069,7 @@ def main() -> int:
         return 2
     from wiw_tpu_torch.ops import native
 
+    os.environ.pop("WIW_FUSED_FF_GATE", None)  # the fp32 gate but where set below
     dev = torch.device("cuda")
     card = card_line()
     print(card, flush=True)
@@ -768,7 +1084,8 @@ def main() -> int:
           f"{sdp.mem_efficient_sdp_enabled()} cudnn {sdp.cudnn_sdp_enabled()}",
           flush=True)
 
-    libs = ("flash_attn_fwd", "flash_attn_bwd", "temporal_attn", "geglu_ffn")
+    libs = ("flash_attn_fwd", "flash_attn_bwd", "temporal_attn", "geglu_ffn",
+            "group_norm")
     t0 = time.perf_counter()
     native.load_libraries(*libs)
     print(f"build (sm_90a, one nvcc per source in parallel): "
@@ -783,6 +1100,15 @@ def main() -> int:
         "K1": Row("flash_attn_fwd_d64", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
                   "wiw_tpu/ops/pallas_attention.py:121",
                   "one 2-row UNet forward: 16 calls", library=True),
+        "K2": Row("flash_attn_fwd_d64_v1", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
+                  "wiw_tpu/ops/pallas_attention.py:40",
+                  "one call at S = 9216 (B*H = 140) and one at S = 144 (B*H = "
+                  "560); no model caller", library=True),
+        "K2-unroll2": Row("flash_attn_fwd_d64_v1_unroll2",
+                          "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
+                          "wiw_tpu/ops/pallas_attention.py:77",
+                          "as K2; at S = 144 (not a multiple of 128) the one-tile "
+                          "loop, as the reference; no model caller", library=True),
         "K3": Row("flash_attn_bwd_d64", "wiw_tpu_torch/csrc/flash_attn_bwd.cu",
                   "wiw_tpu/ops/attention.py:60",
                   "one 1-row training micro-batch: 16 calls", library=True),
@@ -797,28 +1123,47 @@ def main() -> int:
                   "wiw_tpu/ops/fused_mlp.py:169",
                   "one 2-row UNet forward: 30 calls; no single PyTorch call",
                   library=False),
+        "K6-bf16": Row("ln_geglu_ffn_residual_bf16_gate",
+                       "wiw_tpu_torch/csrc/geglu_ffn.cu", "wiw_tpu/ops/fused_mlp.py:192",
+                       "one 2-row UNet forward with WIW_FUSED_FF_GATE=bf16: 30 "
+                       "calls; no single PyTorch call", library=False),
+        "K8": Row("group_norm_silu", "wiw_tpu_torch/csrc/group_norm.cu",
+                  "scripts/tune_temporal3.py:74",
+                  "one 2-row UNet forward (request_*: one default request, all "
+                  "towers); library: F.group_norm (+ F.silu) on the [N, C, L] view",
+                  library=True),
     }
     g = torch.Generator(device=dev).manual_seed(0)
     k1_phase(rows["K1"], dev, g)
+    k2_phase(rows, dev, g)
     k4_phase(rows["K4"], dev, g)
-    ffn_phase(rows["K5"], rows["K6"], dev, g)
+    ffn_phase(rows["K5"], rows["K6"], rows["K6-bf16"], dev, g)
     k3_phase(rows["K1"], rows["K3"], dev, g)
     k6_backward_check(dev, g)
+    k8_checks(dev, g)
+    torch.cuda.empty_cache()
+
+    small_reference_phase(dev)
+    by_path = {}
+    by_path["default"], norms = slice_phase(dev, "default", 1)
+    k8_phase(rows["K8"], norms["forward"], norms["request"], dev, g)
+    by_path["fused"], _ = slice_phase(dev, "fused", 1, **FUSED)
+    os.environ["WIW_FUSED_FF_GATE"] = "bf16"  # read by the worker, as the reference's
+    try:
+        by_path["fused-bf16"], _ = slice_phase(dev, "fused-bf16", 1, **FUSED)
+    finally:
+        del os.environ["WIW_FUSED_FF_GATE"]
+    by_path["train"] = train_phase(dev)
     for key, row in rows.items():
         d = row.d
         print(f"{key} per UNet forward ({d['per']}): kernel {d['ms']:.4f} ms, "
               f"plain {d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
               f"({d['bound_by']}), library {d['library_ms']}", flush=True)
-    torch.cuda.empty_cache()
-
-    small_reference_phase(dev)
-    by_path = {"default": slice_phase(dev, "default", 1),
-               "fused": slice_phase(dev, "fused", 2, **FUSED),
-               "train": train_phase(dev)}
-    for key, row in rows.items():
-        row.d["launches"] = sum(p[key] for p in by_path.values())
-        row.d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
-        row.d["on_main_path"] = key != "K5"
+        d["launches"] = sum(p[key] for p in by_path.values())
+        d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        d["on_main_path"] = key not in ("K2", "K2-unroll2", "K5")
+        if d["on_main_path"] and not d["launches"]:
+            raise RuntimeError(f"{key} was not launched on any path")
     rows["K1"].d["lse_per"] = ("one 1-row training forward: 16 calls at "
                                "batch 14, with (lse_ms) and without (lse_off_ms)"
                                " the LSE output")

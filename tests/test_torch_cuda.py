@@ -8,9 +8,10 @@ Tolerance, for every kernel, that of chip_smoke.py, scaled by the plain
 output (K1's shrinks as 1/sqrt(S)): each element within 0.05 rms(ref) plus
 2^-6 |ref| (two bf16 ulps at worst), and a relative Frobenius error within
 5e-3. K1 rounds P to bf16 before the PV product, its plain version rounds
-the softmax weights; K4, K5 and K6 round where their plain versions do, but
-sum in another order, so a bf16 rounding (of the output, or of K5/K6's
-intermediates) may land one step apart.
+the softmax weights; K2 rounds P against a running max, its plain version
+against the row max; K4, K5, K6, K6-bf16 and K8 round where their plain
+versions do, but sum in another order, so a bf16 rounding (of the output,
+or of K5/K6's intermediates) may land one step apart.
 """
 
 import pytest
@@ -19,6 +20,7 @@ import torch
 from wiw_tpu_torch.ops import attention as TAtt
 from wiw_tpu_torch.ops import flash_attention as TFA
 from wiw_tpu_torch.ops import fused_mlp as TF
+from wiw_tpu_torch.ops import group_norm as TG
 from wiw_tpu_torch.ops import temporal_attention as TT
 from wiw_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -207,6 +209,183 @@ def test_ffn_kernels_reject_inputs_they_do_not_take(cuda_device):
         with pytest.raises(ValueError):
             TF.ln_geglu_ffn_residual(p["x"], p["ln_w"], p["ln_b"], p["w1"],
                                      p["b1"], p["w2"], p["b2"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,C", [(128, 320), (256, 640)])
+def test_bf16_gate_kernel_matches_plain_on_card(cuda_device, M, C):
+    p = _ffn(cuda_device, M, C, seed=3)
+    args = (p["x"], p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"])
+    before = (TF.ln_geglu_ffn_residual.launches,
+              TF.ln_geglu_ffn_residual.launches_bf16_gate)
+    out = TF.ln_geglu_ffn_residual(*args, gate="bf16")
+    torch.cuda.synchronize()
+    assert (TF.ln_geglu_ffn_residual.launches,
+            TF.ln_geglu_ffn_residual.launches_bf16_gate) == (before[0], before[1] + 1)
+    ref = TF.ln_geglu_ffn_residual_plain(*args, gate="bf16")
+    _close(out, ref)
+    assert not torch.equal(out, TF.ln_geglu_ffn_residual(*args))
+    # the gates differ by about an ulp, inside _close: the kernel must sit
+    # with its own plain version, not with the fp32 gate's
+    same_f32 = (out == TF.ln_geglu_ffn_residual_plain(*args)).float().mean()
+    assert (out == ref).float().mean() > same_f32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll2", [False, True])
+@pytest.mark.parametrize("BH,S", [(4, 144), (3, 256), (2, 2304), (2, 200)])
+def test_v1_kernel_matches_plain_on_card(cuda_device, BH, S, unroll2):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (torch.randn(1, BH, S, 64, generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    before = (TFA.flash_attention_v1.launches,
+              TFA.flash_attention_v1.launches_unroll2)
+    out = flash_attention(q, k, v, kernel="v1", unroll2=unroll2)
+    torch.cuda.synchronize()
+    pair = unroll2 and S % 128 == 0
+    assert (TFA.flash_attention_v1.launches,
+            TFA.flash_attention_v1.launches_unroll2) == (before[0] + (not pair),
+                                                         before[1] + pair)
+    _close(out, TFA.flash_attention_v1_plain(q, k, v))
+    if not unroll2:  # v1 is K1's arithmetic: the same bits
+        assert torch.equal(out, flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_v1_kernel_refuses_a_gradient_on_card(cuda_device):
+    x = torch.zeros(1, 1, 128, 64, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="gradient"):
+        flash_attention(x, x, x, kernel="v1")
+
+
+def _gn_inputs(dev, shape, dtype, seed=0, shift=0.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = shape[-1]
+    x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + shift).to(dtype)
+    w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
+    b = 0.3 * torch.randn(C, generator=g, device=dev)
+    return x, w, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("silu", [False, True])
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 9, 16, 320), 32), ((2, 3, 9, 16, 640), 32), ((3, 300, 2560), 32),
+    ((2, 7, 24), 24), ((1, 1000, 96), 32), ((5, 1, 128), 32)])
+def test_group_norm_kernel_matches_plain_on_card(cuda_device, shape, groups,
+                                                 dtype, silu):
+    x, w, b = _gn_inputs(cuda_device, shape, dtype)
+    before = TG.group_norm.launches
+    out = TG.group_norm(x, w, b, groups, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert TG.group_norm.launches == before + 1
+    assert out.dtype == dtype and out.shape == x.shape
+    _close(out, TG.group_norm_plain(x, w, b, groups, 1e-6, silu))
+
+
+@pytest.mark.cuda
+def test_group_norm_kernel_rows_are_independent_bit_for_bit(cuda_device):
+    good, w, b = _gn_inputs(cuda_device, (1, 4000, 320), torch.bfloat16, 1)
+    bad = _gn_inputs(cuda_device, (1, 4000, 320), torch.bfloat16, 2, 1e4)[0]
+    alone = TG.group_norm(good, w, b, 32, 1e-5, True)
+    batched = TG.group_norm(torch.cat([bad, good, bad]), w, b, 32, 1e-5, True)
+    assert torch.equal(batched[1], alone[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((1, 64, 16), 1200.0), ((2, 9216, 320), 1200.0),
+                                          ((1, 64, 16), 500.0)])
+def test_group_norm_kernel_ill_conditioned_matches_float64(cuda_device, shape, offset):
+    """|mean|/std ~ 1e3 in fp32, the CPU test's bounds against float64 (a
+    raw sum/sum-of-squares variance is wrong here)."""
+    x, _, _ = _gn_inputs(cuda_device, shape, torch.float32, 3)
+    x = x / 1.5
+    x[..., :shape[-1] // 4] += offset
+    C, groups = shape[-1], 4
+    ones, zeros = torch.ones(C, device=cuda_device), torch.zeros(C, device=cuda_device)
+    out = TG.group_norm(x, ones, zeros, groups, 1e-5)
+    g = x.double().reshape(shape[0], -1, groups, C // groups)
+    ref = ((g - g.mean(dim=(1, 3), keepdim=True))
+           / torch.sqrt(g.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5)
+           ).reshape(shape)
+    atol = 2e-3 if offset > 1000 else 1e-3
+    torch.testing.assert_close(out.double(), ref, atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((2, 9253, 320), 32), ((3, 2, 2, 75, 96), 32),
+                                          ((1, 300, 64), 8)])
+def test_group_norm_kernel_merges_tiles_whose_statistics_differ(cuda_device, shape,
+                                                                groups):
+    """Rows whose mean and scale change from one 256-row stats tile to the
+    next, each row by another ramp, with a partial last tile (L = 9253,
+    300, 300), in fp32 against float64: a tile merged with the wrong row
+    count or dropped moves the group mean by about a tile's offset step,
+    far beyond the bound."""
+    x, _, _ = _gn_inputs(cuda_device, shape, torch.float32, 5)
+    N, C = shape[0], shape[-1]
+    flat = x.reshape(N, -1, C)
+    tile = (torch.arange(flat.shape[1], device=cuda_device) // 256).float()[None, :, None]
+    n = torch.arange(N, device=cuda_device).float()[:, None, None]
+    x = (flat * (1 + tile / 8) + 4 * tile * (n + 1) - 9 * n).reshape(shape)
+    ones, zeros = torch.ones(C, device=cuda_device), torch.zeros(C, device=cuda_device)
+    out = TG.group_norm(x, ones, zeros, groups, 1e-5)
+    g = x.double().reshape(N, -1, groups, C // groups)
+    ref = ((g - g.mean(dim=(1, 3), keepdim=True))
+           / torch.sqrt(g.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5)
+           ).reshape(shape)
+    torch.testing.assert_close(out.double(), ref, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_group_norm_function_gradients_on_card(cuda_device):
+    """K8 forward through the autograd Function, backward recomputed through
+    the plain version: the same gradients as autograd through the plain
+    version (the recomputation is that very graph), the output K8's."""
+    x, w, b = _gn_inputs(cuda_device, (2, 3, 8, 8, 64), torch.bfloat16, 4)
+    dy = torch.randn(x.shape, device=cuda_device).bfloat16()
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+        out = fn(*leaves, 32, 1e-6, True)
+        out.backward(dy)
+        return out.detach(), [t.grad for t in leaves]
+
+    before = TG.group_norm.launches
+    out, got = grads(TG.group_norm)
+    assert TG.group_norm.launches == before + 1
+    ref_out, ref = grads(TG.group_norm_plain)
+    _close(out, ref_out)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+def test_group_norm_kernel_rejects_inputs_it_does_not_take(cuda_device):
+    x, w, b = _gn_inputs(cuda_device, (2, 64, 36), torch.bfloat16)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        TG.group_norm(x, w, b, 36, 1e-6)
+    x, w, b = _gn_inputs(cuda_device, (2, 64, 64), torch.bfloat16)
+    with pytest.raises(TypeError):
+        TG.group_norm(x.half(), w, b, 32, 1e-6)
+    with pytest.raises(ValueError):  # parameters on another device
+        TG.group_norm(x, w.cpu(), b.cpu(), 32, 1e-6)
+    with pytest.raises(ValueError):  # C not a multiple of the groups
+        TG.group_norm(x, w, b, 24, 1e-6)
+    strided = x.transpose(1, 2).contiguous().transpose(1, 2)  # made contiguous
+    _close(TG.group_norm(strided, w, b, 32, 1e-6), TG.group_norm_plain(x, w, b, 32, 1e-6))
+
+
+@pytest.mark.cuda
+def test_copy_plus_one_on_card(cuda_device):
+    x = torch.randn(3, 1000, 64, device=cuda_device).bfloat16()
+    before = TG.copy_plus_one.launches
+    assert torch.equal(TG.copy_plus_one(x), x + 1)
+    assert TG.copy_plus_one.launches == before + 1
+    with pytest.raises(ValueError):
+        TG.copy_plus_one(x.float())
 
 
 def _rel(a, b) -> float:

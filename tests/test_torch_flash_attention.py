@@ -1,4 +1,5 @@
-"""Kernel K1 (flash-attention forward): plain version against the reference.
+"""Kernels K1 (flash-attention forward) and K2 (the reference's v1 forward):
+plain versions against the reference.
 
 On the CPU the port's wrapper computes `flash_attention_plain`; it is held
 against the reference's Pallas v2 kernel run in interpret mode (as
@@ -7,8 +8,15 @@ does not tile, against the reference's plain XLA form. Tolerance 2e-5: all
 fp32, only the summation order differs (the reference's own kernel tests
 use the same bound).
 
-The kernel itself only runs on the card: tests/test_torch_cuda.py holds it
-against this plain version there.
+K2's plain version (`flash_attention_v1_plain`, reached through
+`flash_attention(kernel="v1")`) is held against the reference's v1 kernels
+(`_attn_kernel`, and `_attn_kernel_unroll2` with `unroll2`) in interpret
+mode: fp32 at 2e-5, and in bf16, where both round P to bf16 before the PV
+product but against another running max, within 1e-2 on outputs of
+magnitude up to ~2 (one bf16 ulp).
+
+The kernels themselves only run on the card: tests/test_torch_cuda.py holds
+them against these plain versions there.
 """
 
 import numpy as np
@@ -21,6 +29,8 @@ from wiw_tpu_torch.ops import attention as TAtt
 from wiw_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_plain,
+    flash_attention_v1,
+    flash_attention_v1_plain,
 )
 
 torch.set_num_threads(1)
@@ -76,3 +86,46 @@ def test_wrapper_counts_no_cpu_launch_and_refuses_other_devices():
     m = torch.zeros(1, 1, 16, 64, device="meta")
     with pytest.raises(ValueError):
         flash_attention(m, m, m)
+
+
+@pytest.mark.parametrize("unroll2", [False, True])
+@pytest.mark.parametrize("B,H,S,D,bq,bkv", [
+    (1, 2, 256, 64, 128, 64),   # unroll2 takes two 64-row kv blocks a step
+    (2, 1, 192, 16, 64, 64),    # 192 % 128 != 0: unroll2 falls to one block
+])
+def test_v1_plain_matches_pallas_v1_interpret(B, H, S, D, bq, bkv, unroll2):
+    q, k, v = _qkv(B, H, S, D, seed=3)
+    ref = np.asarray(flash_attention_bhsd(q, k, v, bq=bq, bkv=bkv, interpret=True,
+                                          kernel="v1", unroll2=unroll2))
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          kernel="v1", unroll2=unroll2)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("unroll2", [False, True])
+def test_v1_plain_matches_pallas_v1_interpret_bf16(unroll2):
+    import jax.numpy as jnp
+
+    q, k, v = _qkv(1, 2, 256, 64, seed=4)
+    ref = np.asarray(flash_attention_bhsd(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), bq=128, bkv=64,
+        interpret=True, kernel="v1", unroll2=unroll2), np.float32)
+    out = flash_attention_v1_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
+    assert out.dtype == torch.bfloat16
+    np.testing.assert_allclose(out.float().numpy(), ref, atol=1e-2, rtol=1e-2)
+
+
+def test_kernel_choice_follows_the_reference():
+    q = torch.from_numpy(_qkv(1, 1, 32, 64, seed=5)[0])
+    with pytest.raises(ValueError, match="unroll2"):
+        flash_attention(q, q, q, kernel="v2", unroll2=True)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, kernel="v3")
+    before = flash_attention_v1.launches, flash_attention_v1.launches_unroll2
+    torch.testing.assert_close(flash_attention(q, q, q, kernel="v1", unroll2=True),
+                               flash_attention_plain(q, q, q), atol=2e-6, rtol=2e-6)
+    assert (flash_attention_v1.launches,
+            flash_attention_v1.launches_unroll2) == before  # plain on the CPU
+    m = torch.zeros(1, 1, 16, 64, device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(m, m, m, kernel="v1")

@@ -1,6 +1,6 @@
-"""Port parity for kernels K4, K5 and K6: their plain versions against the
-reference's Pallas kernels run in interpret mode on the CPU, and the port's
-dispatch rules against the reference's.
+"""Port parity for kernels K4, K5, K6 and K6-bf16: their plain versions
+against the reference's Pallas kernels run in interpret mode on the CPU, and
+the port's dispatch rules against the reference's.
 
 Inputs are made with numpy; the FF inputs are those of the reference's
 tests/test_models.py::TestFusedGEGLU (C = 64, inner = 256). Weights go to
@@ -149,11 +149,15 @@ class _Ref:
         self.a = self.a.at[i].set(v)
 
 
-def _lnff_op_by_op(monkeypatch):
-    """K6 in bf16 with weights at 0.15: (the port's output, the output of
-    the reference's `_lnff_kernel` itself run eagerly one jnp op at a time,
-    x). One row block and one inner tile (inner = its block size)."""
-    monkeypatch.delenv("WIW_FUSED_FF_GATE", raising=False)
+def _lnff_op_by_op(monkeypatch, gate="f32"):
+    """K6 (K6-bf16 with `gate="bf16"`) in bf16 with weights at 0.15: (the
+    port's output, the output of the reference's `_lnff_kernel` itself run
+    eagerly one jnp op at a time under the matching WIW_FUSED_FF_GATE, x).
+    One row block and one inner tile (inner = its block size)."""
+    if gate == "bf16":
+        monkeypatch.setenv("WIW_FUSED_FF_GATE", "bf16")
+    else:
+        monkeypatch.delenv("WIW_FUSED_FF_GATE", raising=False)
     monkeypatch.setattr(JF.pl, "program_id", lambda axis: 0)
     monkeypatch.setattr(JF.pl, "num_programs", lambda axis: 1)
     monkeypatch.setattr(JF.pl, "when", lambda c: (lambda f: f() if c else None))
@@ -170,7 +174,7 @@ def _lnff_op_by_op(monkeypatch):
                     _Ref(jnp.zeros_like(xj)), _Ref(jnp.zeros(x.shape, jnp.float32)))
     out = TF.ln_geglu_ffn_residual(
         _t(x, True), _t(s), _t(c), _t(w1.T, True), _t(b1), _t(w2.T, True),
-        _t(b2)).float().numpy()
+        _t(b2), gate=gate).float().numpy()
     return out, np.asarray(o_ref.a, np.float32), _t(x, True).float().numpy()
 
 
@@ -199,7 +203,9 @@ K6_MOVED = 5e-3  # share of outputs that may move an ulp in the test above
 def _k6_plain_without(drop):
     """K6's plain version with the bf16 rounding `drop` left out (None: the
     plain version itself)."""
-    def plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
+    def plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5, gate="f32"):
+        assert gate == "f32"
+
         def rnd(t):
             return t.to(x.dtype).float()
 
@@ -225,6 +231,142 @@ def test_rounding_check_catches_a_dropped_rounding(monkeypatch, drop):
     out, ref, _ = _lnff_op_by_op(monkeypatch)
     moved = (np.abs(out - ref) > 0).mean()
     assert (moved < K6_MOVED) == (drop is None), moved
+
+
+# ---------------------------------------------------------------- K6-bf16
+def test_bf16_gate_plain_rounds_where_the_kernel_does(monkeypatch):
+    """K6-bf16's plain version against the reference's `_lnff_kernel` run op
+    by op under WIW_FUSED_FF_GATE=bf16, so that every bf16 rounding of the
+    gate's erf polynomial happens where its source puts it: the same bound
+    as K6's test above (a rounding may land one ulp apart at a few outputs,
+    from the fp32 sums' order)."""
+    out, ref, _ = _lnff_op_by_op(monkeypatch, gate="bf16")
+    diff = np.abs(out - ref)
+    assert (diff > 0).mean() < K6_MOVED
+    np.testing.assert_array_less(diff, 2.0 ** -7 * np.maximum(np.abs(ref), 1.0) + 1e-6)
+    # and the switch matters: the fp32 gate moves many more outputs
+    monkeypatch.undo()
+    f32, _, _ = _lnff_op_by_op(monkeypatch, gate="f32")
+    assert (np.abs(f32 - ref) > 0).mean() > 10 * K6_MOVED
+
+
+def test_bf16_gate_plain_matches_pallas_kernel_interpret(monkeypatch):
+    """K6-bf16's plain version against `ln_geglu_ffn_residual_pallas` in
+    interpret mode under WIW_FUSED_FF_GATE=bf16. The kernel reads the switch
+    when it is traced, so the jit cache is cleared before and after. The
+    CPU compiler may evaluate bf16 chains with excess precision, so an
+    output may land one bf16 ulp apart (the bound of the fp32-gate test)."""
+    x = _rand((384, C), 20, 1.7, 0.3)
+    s, c = _rand((C,), 21, 0.2, 1.0), _rand((C,), 22, 0.1)
+    p = _ffn_weights()
+    monkeypatch.setenv("WIW_FUSED_FF_GATE", "bf16")
+    JF.ln_geglu_ffn_residual_pallas.clear_cache()
+    try:
+        ref = np.asarray(JF.ln_geglu_ffn_residual_pallas(
+            _j(x, True), s, c, _j(p["w1"], True), p["b1"], _j(p["w2"], True),
+            p["b2"], interpret=True), np.float32)
+    finally:
+        JF.ln_geglu_ffn_residual_pallas.clear_cache()
+    out = TF.ln_geglu_ffn_residual(
+        _t(x, True), _t(s), _t(c), _t(p["w1"].T, True), _t(p["b1"]),
+        _t(p["w2"].T, True), _t(p["b2"]), gate="bf16").float().numpy()
+    np.testing.assert_array_less(
+        np.abs(out - ref), 2.0 ** -7 * np.maximum(np.abs(ref), 1.0) + 1e-6)
+
+
+def test_bf16_gate_matches_the_gelu_gate_to_its_resolution():
+    """The bf16 erf polynomial is a coarser GELU (the reference: phi error
+    ~5e-3); held against the exact gate in fp32 on the same bf16 inputs."""
+    rng = np.random.default_rng(40)
+    a, b = (torch.from_numpy(rng.standard_normal(4096).astype(np.float32) * 2)
+            .bfloat16() for _ in range(2))
+    got = TF._gate_bf16(a, b).float()
+    exact = a.float() * torch.nn.functional.gelu(b.float())
+    assert (got - exact).abs().max() <= 0.03 * exact.abs().max()
+    assert not torch.equal(got, exact)
+
+
+def test_bf16_gate_function_backward_takes_the_exact_gate():
+    """The autograd Function with gate="bf16": its forward is the bf16-gate
+    plain version on the CPU, and its backward recomputes through the
+    unfused formulation with the exact GELU, as the reference's VJP does
+    whatever the forward's gate, so its gradients are the fp32 gate's bit
+    for bit (fp32 params, bf16 activations)."""
+    x = torch.from_numpy(_rand((128, C), 41)).bfloat16()
+    s, c = (torch.from_numpy(a) for a in (_rand((C,), 42, 0.2, 1.0), _rand((C,), 43, 0.1)))
+    p = {k: torch.from_numpy(v) for k, v in _ffn_weights().items()}
+    args = (x, s, c, p["w1"].T.contiguous().bfloat16(), p["b1"].bfloat16(),
+            p["w2"].T.contiguous().bfloat16(), p["b2"].bfloat16())
+    g = torch.from_numpy(_rand((128, C), 44)).bfloat16()
+
+    def grads(fn, **kw):
+        leaves = [t.detach().requires_grad_() for t in args]
+        out = fn(*leaves, **kw)
+        out.backward(g)
+        return out.detach(), [t.grad for t in leaves]
+
+    out, got = grads(TF.ln_geglu_ffn_residual, gate="bf16")
+    out_f32, f32 = grads(TF.ln_geglu_ffn_residual)
+    _, unfused = grads(TF.ln_geglu_ffn_residual_unfused)
+    assert torch.equal(out, TF.ln_geglu_ffn_residual_plain(*args, gate="bf16"))
+    assert not torch.equal(out, out_f32)
+    for a, b, u in zip(got, f32, unfused):
+        assert torch.equal(a, b) and torch.equal(a, u)
+
+
+def test_bf16_gate_function_gradients_match_reference(monkeypatch):
+    """K6-bf16's autograd Function against jax.vjp of the reference's
+    custom-VJP `ln_geglu_ffn_residual` under WIW_FUSED_FF_GATE=bf16, all
+    seven gradients, fp32: relative Frobenius error 1e-5 (summation order
+    only). The switch is set as the reference reads it, with the fused
+    kernel's jit cache cleared before and after."""
+    import jax
+
+    x = _rand((384, C), 45, 1.7, 0.3)
+    s, c = _rand((C,), 46, 0.2, 1.0), _rand((C,), 47, 0.1)
+    p = _ffn_weights()
+    g = _rand((384, C), 48)
+    jargs = (x, s, c, p["w1"], p["b1"], p["w2"], p["b2"])
+    monkeypatch.setenv("WIW_FUSED_FF_GATE", "bf16")
+    JF.ln_geglu_ffn_residual_pallas.clear_cache()
+    try:
+        _, vjp = jax.vjp(lambda *a: JF.ln_geglu_ffn_residual(*a), *map(_j, jargs))
+        ref = vjp(_j(g))
+    finally:
+        JF.ln_geglu_ffn_residual_pallas.clear_cache()
+    leaves = [_t(a).requires_grad_() for a in
+              (x, s, c, p["w1"].T, p["b1"], p["w2"].T, p["b2"])]
+    TF.ln_geglu_ffn_residual(*leaves, gate="bf16").backward(_t(g))
+    for i, (leaf, r) in enumerate(zip(leaves, ref)):
+        got = leaf.grad.numpy()
+        r = np.asarray(r, np.float64)
+        if i in (3, 5):  # the port's weights are the transposes
+            got = got.T
+        assert np.linalg.norm(got - r) <= 1e-5 * np.linalg.norm(r), i
+
+
+def test_transformer_blocks_pass_the_gate_to_k6(monkeypatch):
+    """`fused_ff_gate` reaches K6's wrapper from the UNet config's blocks;
+    an unknown gate raises."""
+    from wiw_tpu_torch.models import layers as TL
+    from wiw_tpu_torch.models.unet import UNetConfig
+
+    seen = []
+
+    def record(x, *a):
+        seen.append(a[-1])
+        return x
+
+    monkeypatch.setattr(TL, "ln_geglu_ffn_residual", record)
+    block = TL.TemporalBasicTransformerBlock(64, 1, 64, 16, fused_ff=True,
+                                             fused_ff_gate="bf16")
+    with torch.no_grad():
+        block(torch.zeros(1, 2, 64, 64), None)
+    assert seen == ["bf16", "bf16"]
+    with pytest.raises(ValueError):
+        UNetConfig(fused_ff_gate="fp16")
+    with pytest.raises(ValueError):
+        TF.ln_geglu_ffn_residual_plain(*(torch.zeros(1),) * 7, gate="fp16")
 
 
 # ---------------------------------------------------------------- dispatch

@@ -1,7 +1,8 @@
 """The port's worker side against the reference's: the wire protocol both
 ways, the worker SDK driven by the reference's framing, the deployment
-switches (WIW_CFG, WIW_QUANT, WIW_FUSED_FF, WIW_TEMPORAL_ATTN) resolved as
-the reference worker resolves them, and the entry points' default device.
+switches (WIW_CFG, WIW_QUANT, WIW_FUSED_FF, WIW_TEMPORAL_ATTN,
+WIW_FUSED_FF_GATE) resolved as the reference resolves them, and the entry
+points' default device.
 """
 
 import inspect
@@ -126,6 +127,23 @@ def test_switches_resolve_as_the_reference(monkeypatch, env, args, cfg, fused, m
         assert sw["fused_ff"] == JL._fused_ff_on()
 
 
+# K6's gate: the reference's `_lnff_kernel` (ops/fused_mlp.py:192) reads
+#   os.environ.get("WIW_FUSED_FF_GATE", "f32") == "bf16"  -> bf16 gate
+@pytest.mark.parametrize("env,gate", [
+    (None, "f32"), ("bf16", "bf16"), ("f32", "f32"), ("BF16", "f32"),
+    ("1", "f32"), ("", "f32"),
+])
+def test_fused_ff_gate_resolves_as_the_reference(monkeypatch, env, gate):
+    monkeypatch.delenv("WIW_QUANT", raising=False)
+    if env is None:
+        monkeypatch.delenv("WIW_FUSED_FF_GATE", raising=False)
+    else:
+        monkeypatch.setenv("WIW_FUSED_FF_GATE", env)
+    assert W.resolve_switches()["fused_ff_gate"] == gate
+    reference = os.environ.get("WIW_FUSED_FF_GATE", "f32") == "bf16"
+    assert (gate == "bf16") == reference
+
+
 @pytest.mark.parametrize("env,args", [({"WIW_QUANT": "int8"}, {}),
                                       ({}, {"quantize": "int8"})])
 def test_int8_raises_from_either_source(monkeypatch, env, args):
@@ -165,8 +183,10 @@ def test_worker_reads_switches_into_unet_config(monkeypatch):
     monkeypatch.setenv("WIW_FUSED_FF", "1")
     monkeypatch.setenv("WIW_TEMPORAL_ATTN", "pallas")
     monkeypatch.setenv("WIW_CFG", "full")
+    monkeypatch.setenv("WIW_FUSED_FF_GATE", "bf16")
     worker = W.SVDActionWorker(device="cpu")
     assert seen["unet"].fused_ff and seen["unet"].temporal_attention == "pallas"
+    assert seen["unet"].fused_ff_gate == "bf16"
     assert worker.gen.cfg == CFGSchedule() and seen["init"]
     W.SVDActionWorker(device="cpu", fused_ff=False, temporal_attention="xla",
                       cfg_schedule="serving")

@@ -33,6 +33,20 @@
 // which the backward (flash_attn_bwd.cu, K3) needs to recompute P. With the
 // flag off (serving) the kernel is the same code and writes no LSE; the
 // output bits are the same either way.
+//
+// K2: the reference's v1 kernels, `_attn_kernel` and `_attn_kernel_unroll2`
+// (pallas_attention.py:40-118, `flash_attention_bhsd(kernel="v1")`). v1's
+// arithmetic (the scale applied to the fp32 logits, P rounded to bf16 for
+// the PV product, the denominator the fp32 sum of the unrounded P) is
+// already what this kernel does for K1: the TPU's v2 moved the scale onto
+// q in bf16 and the denominator into the PV product only to save VPU work.
+// So v1 without unroll2 is this kernel as it stands, and `unroll2` is the
+// template parameter kTiles = 2: each iteration stages two 64-row k/v tiles
+// and takes one running max over both before their exponentials and PV
+// products, as `_attn_kernel_unroll2` does with its two kv blocks (the
+// independent products and exponentials of two tiles give the scheduler
+// more to overlap). It needs Skv a multiple of 128, as the reference needs
+// Skv % (2 * bkv) == 0; the wrapper takes the one-tile loop otherwise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,7 +84,7 @@ __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-template <bool kLse>
+template <bool kLse, int kTiles>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -82,8 +96,8 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
                           int64_t v_sb, int64_t v_sh, int64_t v_ss,
                           int64_t o_sb, int64_t o_sh, int64_t o_ss,
                           float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockN * kLd];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockN * kLd];
+  __shared__ __align__(16) __nv_bfloat16 ks[kTiles * kBlockN * kLd];
+  __shared__ __align__(16) __nv_bfloat16 vs[kTiles * kBlockN * kLd];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -127,11 +141,11 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
   float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g+8 (log2 domain)
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
 
-  for (int kv0 = 0; kv0 < Skv; kv0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous tile
-    // stage the k and v tiles: 64 rows x 8 chunks of 16 bytes each
+  for (int kv0 = 0; kv0 < Skv; kv0 += kTiles * kBlockN) {
+    __syncthreads();  // every warp is done with the previous tiles
+    // stage the k and v tiles: kTiles x 64 rows x 8 chunks of 16 bytes each
 #pragma unroll
-    for (int i = 0; i < (kBlockN * kD / 8) / kThreads; ++i) {
+    for (int i = 0; i < (kTiles * kBlockN * kD / 8) / kThreads; ++i) {
       const int c = tid + i * kThreads;
       const int row = c >> 3;
       const int col = (c & 7) * 8;
@@ -146,40 +160,48 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
-    // S = q k^T for this warp's 16 rows x 64 tile columns
-    float s[kBlockN / 8][4];
+    // S = q k^T for this warp's 16 rows x 64 columns of each tile
+    float s[kTiles][kBlockN / 8][4];
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc) {
+    for (int u = 0; u < kTiles; ++u) {
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const __nv_bfloat16* kr = ks + (nt * 8 + g) * kLd + kc * 16 + 2 * t;
-        mma_16816(s[nt], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
+        s[u][nt][0] = s[u][nt][1] = s[u][nt][2] = s[u][nt][3] = 0.f;
+      }
+#pragma unroll
+      for (int kc = 0; kc < kD / 16; ++kc) {
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt) {
+          const __nv_bfloat16* kr =
+              ks + (u * kBlockN + nt * 8 + g) * kLd + kc * 16 + 2 * t;
+          mma_16816(s[u][nt], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
+                    *reinterpret_cast<const uint32_t*>(kr + 8));
+        }
       }
     }
 
-    // scale into the log2 domain, mask the ragged tail, row max
+    // scale into the log2 domain, mask the ragged tail, one row max over
+    // the iteration's tiles
     float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+    for (int u = 0; u < kTiles; ++u) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kv0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = col < Skv ? s[nt][e] * scale_log2 : -INFINITY;
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = kv0 + u * kBlockN + nt * 8 + 2 * t + (e & 1);
+          s[u][nt][e] = col < Skv ? s[u][nt][e] * scale_log2 : -INFINITY;
+        }
+        mx[0] = fmaxf(mx[0], fmaxf(s[u][nt][0], s[u][nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[u][nt][2], s[u][nt][3]));
       }
-      mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-      mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
     }
     float alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // every tile holds at least one unmasked column, so mx is finite
+      // every iteration holds at least one unmasked column, so mx is finite
       alpha[r] = exp2f(m_run[r] - mx[r]);
       m_run[r] = mx[r];
     }
@@ -187,13 +209,16 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
     // P = exp2(S - m); partial row sums; rescale the running output
     float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - mx[0]);
-      s[nt][1] = exp2f(s[nt][1] - mx[0]);
-      s[nt][2] = exp2f(s[nt][2] - mx[1]);
-      s[nt][3] = exp2f(s[nt][3] - mx[1]);
-      rs[0] += s[nt][0] + s[nt][1];
-      rs[1] += s[nt][2] + s[nt][3];
+    for (int u = 0; u < kTiles; ++u) {
+#pragma unroll
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        s[u][nt][0] = exp2f(s[u][nt][0] - mx[0]);
+        s[u][nt][1] = exp2f(s[u][nt][1] - mx[0]);
+        s[u][nt][2] = exp2f(s[u][nt][2] - mx[1]);
+        s[u][nt][3] = exp2f(s[u][nt][3] - mx[1]);
+        rs[0] += s[u][nt][0] + s[u][nt][1];
+        rs[1] += s[u][nt][2] + s[u][nt][3];
+      }
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
@@ -208,17 +233,21 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
     // O += P v: the S accumulator of tiles (2kc, 2kc+1) is the A fragment
     // of k-chunk kc; v's B fragment is gathered from row-major shared memory
 #pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = pack_f32(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = pack_f32(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+    for (int u = 0; u < kTiles; ++u) {
 #pragma unroll
-      for (int nt = 0; nt < kD / 8; ++nt) {
-        const __nv_bfloat16* vc = vs + (kc * 16 + 2 * t) * kLd + nt * 8 + g;
-        mma_16816(acc[nt], pa, pack_bf16(vc[0], vc[kLd]),
-                  pack_bf16(vc[8 * kLd], vc[9 * kLd]));
+      for (int kc = 0; kc < kBlockN / 16; ++kc) {
+        uint32_t pa[4];
+        pa[0] = pack_f32(s[u][2 * kc][0], s[u][2 * kc][1]);
+        pa[1] = pack_f32(s[u][2 * kc][2], s[u][2 * kc][3]);
+        pa[2] = pack_f32(s[u][2 * kc + 1][0], s[u][2 * kc + 1][1]);
+        pa[3] = pack_f32(s[u][2 * kc + 1][2], s[u][2 * kc + 1][3]);
+#pragma unroll
+        for (int nt = 0; nt < kD / 8; ++nt) {
+          const __nv_bfloat16* vc =
+              vs + (u * kBlockN + kc * 16 + 2 * t) * kLd + nt * 8 + g;
+          mma_16816(acc[nt], pa, pack_bf16(vc[0], vc[kLd]),
+                    pack_bf16(vc[8 * kLd], vc[9 * kLd]));
+        }
       }
     }
   }
@@ -263,17 +292,24 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
 // C entry, bound with ctypes. Pointers are device pointers of bf16 tensors
 // viewed as [B, H, S, 64] with unit stride on the last dim; strides are in
 // elements. `lse` is null (serving) or an fp32 [B*H, Sq] buffer (training).
-// Launches on `stream` and returns cudaGetLastError().
+// `tiles` is 1 (K1, K2's v1) or 2 (K2's unroll2: Skv a multiple of 128, no
+// LSE). Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for what it refuses).
 extern "C" int wiw_flash_attn_fwd_d64(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H,
     int Sq, int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
-    int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, void* stream) {
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int tiles,
+    void* stream) {
+  if (tiles != 1 && (tiles != 2 || Skv % (2 * kBlockN) || lse != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
-  auto kernel = lse != nullptr ? flash_attn_fwd_d64_kernel<true>
-                               : flash_attn_fwd_d64_kernel<false>;
+  auto kernel = tiles == 2 ? flash_attn_fwd_d64_kernel<false, 2>
+                : lse != nullptr ? flash_attn_fwd_d64_kernel<true, 1>
+                                 : flash_attn_fwd_d64_kernel<false, 1>;
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),

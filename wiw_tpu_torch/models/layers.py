@@ -32,6 +32,7 @@ from wiw_tpu_torch.ops.fused_mlp import (
     ln_geglu_ffn_residual,
     lnff_eligible,
 )
+from wiw_tpu_torch.ops.group_norm import group_norm
 from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention
 
 
@@ -108,25 +109,23 @@ def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 class GroupNorm(nn.Module):
     """GroupNorm over the last (channel) axis in fp32, exact two-pass
-    statistics, each batch row on its own. Channel grouping matches torch's
-    (contiguous chunks)."""
+    statistics, each batch row on its own, then SiLU when `silu` (the
+    reference's `silu(norm(x))`). Channel grouping matches torch's
+    (contiguous chunks). Kernel K8 on a CUDA tensor (`ops/group_norm.py`)."""
 
     def __init__(self, num_channels: int, num_groups: int = 32,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5, silu: bool = False):
         super().__init__()
         self.groups = (num_groups if num_channels % num_groups == 0
                        and num_channels >= num_groups else num_channels)
         self.eps = eps
+        self.silu = silu
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x):
-        N, C = x.shape[0], x.shape[-1]
-        g = x.float().reshape(N, -1, self.groups, C // self.groups)
-        d = g - g.mean(dim=(1, 3), keepdim=True)
-        var = (d * d).mean(dim=(1, 3), keepdim=True)
-        out = (d * torch.rsqrt(var + self.eps)).reshape(x.shape)
-        return (out * self.weight + self.bias).to(x.dtype)
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps,
+                          self.silu)
 
 
 class LayerNorm(nn.Module):
@@ -225,21 +224,23 @@ class TemporalSelfAttention(CrossAttention):
         return self.to_out[0](out)
 
 
-def _ln_ff_residual(x, ln: LayerNorm, ff: FeedForward, fused: bool):
-    """x + ff(ln(x)). With `fused`, kernel K6 where `lnff_eligible` (the
-    reference's rule) allows it and C is a multiple of the kernel's C_STEP;
-    elsewhere the unfused modules, the function the reference's unfused
-    oracle computes (a route by shape, see `fused_mlp`). The modules keep
-    their parameters either way, so checkpoints map alike. The weights and
-    biases go to K6 in the Linear layers' compute dtype, as they would
-    through the modules."""
+def _ln_ff_residual(x, ln: LayerNorm, ff: FeedForward, fused: bool,
+                    gate: str = "f32"):
+    """x + ff(ln(x)). With `fused`, kernel K6 (its gate in `gate`: K6-bf16
+    for "bf16") where `lnff_eligible` (the reference's rule) allows it and C
+    is a multiple of the kernel's C_STEP; elsewhere the unfused modules, the
+    function the reference's unfused oracle computes (a route by shape, see
+    `fused_mlp`; the reference's gate switch acts only inside its kernel).
+    The modules keep their parameters either way, so checkpoints map alike.
+    The weights and biases go to K6 in the Linear layers' compute dtype, as
+    they would through the modules."""
     proj, out = ff.net[0].proj, ff.net[2]
     if (fused and x.shape[-1] % C_STEP == 0
             and lnff_eligible(x, proj.weight, out.weight)):
         dt = proj.compute_dtype
         return ln_geglu_ffn_residual(
             x, ln.weight, ln.bias, proj.weight.to(dt), proj.bias.to(dt),
-            out.weight.to(dt), out.bias.to(dt), ln.eps)
+            out.weight.to(dt), out.bias.to(dt), ln.eps, gate)
     return x + ff(ln(x))
 
 
@@ -247,9 +248,10 @@ class BasicTransformerBlock(nn.Module):
     """LN -> self-attn -> LN -> cross-attn -> LN -> GEGLU FF, all residual."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
-                 fused_ff: bool = False):
+                 fused_ff: bool = False, fused_ff_gate: str = "f32"):
         super().__init__()
         self.fused_ff = fused_ff
+        self.fused_ff_gate = fused_ff_gate
         self.norm1 = LayerNorm(dim)
         self.attn1 = CrossAttention(dim, heads, dim_head)
         self.norm2 = LayerNorm(dim)
@@ -260,16 +262,19 @@ class BasicTransformerBlock(nn.Module):
     def forward(self, x, context=None):
         x = x + self.attn1(self.norm1(x))
         x = x + self.attn2(self.norm2(x), context)
-        return _ln_ff_residual(x, self.norm3, self.ff, self.fused_ff)
+        return _ln_ff_residual(x, self.norm3, self.ff, self.fused_ff,
+                               self.fused_ff_gate)
 
 
 class TemporalBasicTransformerBlock(nn.Module):
     """ff_in -> self-attn over frames -> cross-attn -> ff on [B, F, S, C]."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, context_dim: int,
-                 fused_ff: bool = False, temporal_attention: str = "batched"):
+                 fused_ff: bool = False, temporal_attention: str = "batched",
+                 fused_ff_gate: str = "f32"):
         super().__init__()
         self.fused_ff = fused_ff
+        self.fused_ff_gate = fused_ff_gate
         self.norm_in = LayerNorm(dim)
         self.ff_in = FeedForward(dim)
         self.norm1 = LayerNorm(dim)
@@ -281,11 +286,13 @@ class TemporalBasicTransformerBlock(nn.Module):
         self.ff = FeedForward(dim)
 
     def forward(self, x, context=None):
-        x = _ln_ff_residual(x, self.norm_in, self.ff_in, self.fused_ff)
+        x = _ln_ff_residual(x, self.norm_in, self.ff_in, self.fused_ff,
+                            self.fused_ff_gate)
         x = x + self.attn1(self.norm1(x))
         if context is not None:
             x = x + self.attn2(self.norm2(x), context)
-        return _ln_ff_residual(x, self.norm3, self.ff, self.fused_ff)
+        return _ln_ff_residual(x, self.norm3, self.ff, self.fused_ff,
+                               self.fused_ff_gate)
 
 
 class AlphaBlender(nn.Module):
@@ -311,20 +318,20 @@ class ResnetBlock2D(nn.Module):
     def __init__(self, in_ch: int, out_ch: int, eps: float = 1e-6,
                  temb_ch: int | None = None):
         super().__init__()
-        self.norm1 = GroupNorm(in_ch, eps=eps)
+        self.norm1 = GroupNorm(in_ch, eps=eps, silu=True)
         self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
         if temb_ch is not None:
             self.time_emb_proj = Linear(temb_ch, out_ch)
-        self.norm2 = GroupNorm(out_ch, eps=eps)
+        self.norm2 = GroupNorm(out_ch, eps=eps, silu=True)
         self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
         if in_ch != out_ch:
             self.conv_shortcut = Conv2d(in_ch, out_ch, 1)
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x))
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         if hasattr(self, "conv_shortcut"):
             x = self.conv_shortcut(x)
         return x + h
@@ -336,18 +343,18 @@ class TemporalResnetBlock(nn.Module):
 
     def __init__(self, ch: int, eps: float = 1e-6, temb_ch: int | None = None):
         super().__init__()
-        self.norm1 = GroupNorm(ch, eps=eps)
+        self.norm1 = GroupNorm(ch, eps=eps, silu=True)
         self.conv1 = TemporalConv(ch, ch)
         if temb_ch is not None:
             self.time_emb_proj = Linear(temb_ch, ch)
-        self.norm2 = GroupNorm(ch, eps=eps)
+        self.norm2 = GroupNorm(ch, eps=eps, silu=True)
         self.conv2 = TemporalConv(ch, ch)
 
     def forward(self, x, temb=None):
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(self.norm1(x))
         if temb is not None and hasattr(self, "time_emb_proj"):
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(self.norm2(h))
         return x + h
 
 
@@ -407,17 +414,19 @@ class TransformerSpatioTemporal(nn.Module):
 
     def __init__(self, ch: int, heads: int, dim_head: int, context_dim: int,
                  num_layers: int = 1, fused_ff: bool = False,
-                 temporal_attention: str = "batched"):
+                 temporal_attention: str = "batched", fused_ff_gate: str = "f32"):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(ch, eps=1e-6)
         self.proj_in = Linear(ch, inner)
         self.transformer_blocks = nn.ModuleList(
-            [BasicTransformerBlock(inner, heads, dim_head, context_dim, fused_ff)
+            [BasicTransformerBlock(inner, heads, dim_head, context_dim, fused_ff,
+                                   fused_ff_gate)
              for _ in range(num_layers)])
         self.temporal_transformer_blocks = nn.ModuleList(
             [TemporalBasicTransformerBlock(inner, heads, dim_head, context_dim,
-                                           fused_ff, temporal_attention)
+                                           fused_ff, temporal_attention,
+                                           fused_ff_gate)
              for _ in range(num_layers)])
         self.time_pos_embed = TimestepEmbedding(ch, ch * 4, out_dim=ch)
         self.time_mixer = AlphaBlender(0.5)

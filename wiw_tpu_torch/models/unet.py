@@ -21,7 +21,6 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -37,6 +36,7 @@ from wiw_tpu_torch.models.layers import (
     Upsample2D,
     set_compute_dtype,
 )
+from wiw_tpu_torch.ops.fused_mlp import GATES
 from wiw_tpu_torch.ops.temporal_attention import MODES
 
 
@@ -66,6 +66,9 @@ class UNetConfig:
     # the transformers' LN + GEGLU feed-forward + residual through kernel
     # K6 where the reference's rule allows it (its WIW_FUSED_FF=1)
     fused_ff: bool = False
+    # K6's gate: 'f32', or 'bf16' for K6-bf16 (the reference's
+    # WIW_FUSED_FF_GATE=bf16); acts only where K6 runs
+    fused_ff_gate: str = "f32"
     # frame attention formulation, as the reference's WIW_TEMPORAL_ATTN:
     # 'batched' | 'xla' | 'pallas' (kernel K4 where S % 64 == 0)
     temporal_attention: str = "batched"
@@ -77,6 +80,8 @@ class UNetConfig:
         if self.temporal_attention not in MODES:
             raise ValueError(f"temporal_attention {self.temporal_attention!r} "
                              f"not in {MODES}")
+        if self.fused_ff_gate not in GATES:
+            raise ValueError(f"fused_ff_gate {self.fused_ff_gate!r} not in {GATES}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -157,7 +162,8 @@ class UNetSpatioTemporal(nn.Module):
 
         def attn(ch, heads):
             return TransformerSpatioTemporal(ch, heads, ch // heads, ctx, tl,
-                                             cfg.fused_ff, cfg.temporal_attention)
+                                             cfg.fused_ff, cfg.temporal_attention,
+                                             cfg.fused_ff_gate)
 
         n = len(cfg.block_out_channels)
         skip_ch = [ch0]
@@ -195,7 +201,7 @@ class UNetSpatioTemporal(nn.Module):
             up = Upsample2D(ch) if i != n - 1 else None
             self.up_blocks.append(_Block(resnets, attns, upsample=up))
 
-        self.conv_norm_out = GroupNorm(ch0, eps=1e-5)
+        self.conv_norm_out = GroupNorm(ch0, eps=1e-5, silu=True)
         self.conv_out = Conv2d(ch0, cfg.out_channels, 3, padding=1)
         if cfg.param_dtype is not None:
             set_compute_dtype(self, cfg.torch_dtype)
@@ -261,5 +267,5 @@ class UNetSpatioTemporal(nn.Module):
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
 
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(self.conv_norm_out(x))
         return x.reshape(B, Fr, H, W, cfg.out_channels).float()

@@ -12,7 +12,6 @@ import dataclasses
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from wiw_tpu_torch.models.layers import (
@@ -101,7 +100,7 @@ class Encoder(nn.Module):
         self.mid_block = _Level(
             [ResnetBlock2D(ch, ch, eps=1e-6), ResnetBlock2D(ch, ch, eps=1e-6)],
             [VAEAttention(ch)])
-        self.conv_norm_out = GroupNorm(ch, eps=1e-6)
+        self.conv_norm_out = GroupNorm(ch, eps=1e-6, silu=True)
         self.conv_out = Conv2d(ch, 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x):
@@ -114,7 +113,7 @@ class Encoder(nn.Module):
         x = self.mid_block.resnets[0](x)
         x = self.mid_block.attentions[0](x)
         x = self.mid_block.resnets[1](x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x))
 
 
 class TemporalDecoder(nn.Module):
@@ -141,7 +140,7 @@ class TemporalDecoder(nn.Module):
                 ch = out_ch
             up = Upsample2D(ch) if i != len(chans) - 1 else None
             self.up_blocks.append(_Level(resnets, upsample=up))
-        self.conv_norm_out = GroupNorm(ch, eps=1e-6)
+        self.conv_norm_out = GroupNorm(ch, eps=1e-6, silu=True)
         self.conv_out = Conv2d(ch, cfg.in_channels, 3, padding=1)
         self.time_conv_out = TemporalConv(cfg.in_channels, cfg.in_channels)
 
@@ -155,7 +154,7 @@ class TemporalDecoder(nn.Module):
                 x = resnet(x, num_frames)
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
-        x = self.conv_out(F.silu(self.conv_norm_out(x)))
+        x = self.conv_out(self.conv_norm_out(x))
         BF, H, W, C = x.shape
         x = x.reshape(BF // num_frames, num_frames, H, W, C)
         return self.time_conv_out(x).float()

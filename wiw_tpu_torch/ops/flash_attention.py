@@ -1,5 +1,6 @@
-"""Kernels K1 (flash-attention forward) and K3 (its backward), with their
-plain PyTorch versions and the autograd Function that joins them.
+"""Kernels K1 (flash-attention forward), K2 (the reference's v1 forward)
+and K3 (K1's backward), with their plain PyTorch versions and the autograd
+Function that joins K1 and K3.
 
 K1 replaces the TPU kernel `_attn_kernel_v2` (wiw_tpu/ops/pallas_attention.py,
 called through `flash_attention_bhsd(kernel="v2")`); its CUDA source is
@@ -7,7 +8,13 @@ called through `flash_attention_bhsd(kernel="v2")`); its CUDA source is
 stock Pallas TPU flash attention that the reference's custom VJP calls
 (`_flash_attention_fn` in wiw_tpu/ops/attention.py); its CUDA source is
 `wiw_tpu_torch/csrc/flash_attn_bwd.cu`. Each header says what bounds the
-kernel on the H100 and how the design answers that.
+kernel on the H100 and how the design answers that. K2 replaces the TPU
+kernels `_attn_kernel` and `_attn_kernel_unroll2` (`flash_attention_bhsd(
+kernel="v1", unroll2=...)`): the same source as K1, whose arithmetic is
+already v1's, with `unroll2` a template parameter (two k/v tiles an
+iteration, one running max over both); `flash_attention(kernel="v1")`
+reaches it through `flash_attention_v1`. No model caller uses K2, as none
+uses v1 in the reference.
 
 `flash_attention(q, k, v)` takes [B, H, S, D] tensors (any strides with a
 unit stride on D, e.g. head views of [B, S, H*D] projections). On CPU
@@ -30,6 +37,8 @@ import torch
 from wiw_tpu_torch.ops import native
 
 HEAD_DIM = 64  # the kernels' template constant
+KV_TILE = 64  # k/v rows a kernel tile; unroll2 takes two an iteration
+KERNELS = ("v2", "v1")
 _LIB = "flash_attn_fwd"
 _BWD_LIB = "flash_attn_bwd"
 
@@ -42,6 +51,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     weights = torch.softmax(logits, dim=-1).to(v.dtype)
     return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+
+
+def flash_attention_v1_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor) -> torch.Tensor:
+    """K2's arithmetic, the reference's v1 kernels (`_attn_kernel`, and
+    `_attn_kernel_unroll2`, which differs only in the order it takes the k/v
+    blocks): logits in fp32 scaled in fp32, P = exp(logits - row max)
+    rounded to v's dtype for the PV product, the denominator the fp32 sum of
+    the unrounded P, out = (P v) / denominator rounded once. The kernels
+    take the max block by block and rescale; this takes it once per row,
+    which moves only where P's rounding falls."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    acc = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), v.float())
+    return (acc / p.sum(dim=-1, keepdim=True)).to(q.dtype)
 
 
 def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -107,7 +132,8 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.wiw_flash_attn_fwd_d64
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_int64] * 12 + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_int64] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -121,16 +147,9 @@ def _bind_bwd(lib: ctypes.CDLL):
     return fn
 
 
-def _on_cpu(*ts) -> bool:
-    return all(t.device.type == "cpu" for t in ts)
-
-
-def _forward(q, k, v, with_lse: bool):
-    """(out, lse or None): the plain versions on CPU tensors, K1 on CUDA
-    tensors (counted in `flash_attention.launches`)."""
-    if _on_cpu(q, k, v):
-        out = flash_attention_plain(q, k, v)
-        return out, flash_attention_lse_plain(q, k) if with_lse else None
+def _launch_fwd(q, k, v, with_lse: bool, tiles: int):
+    """The forward kernel on CUDA tensors: (out, lse or None); `tiles` k/v
+    tiles an iteration (2: unroll2)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -145,9 +164,19 @@ def _forward(q, k, v, with_lse: bool):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2],
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], D ** -0.5, stream)
+                 *out.stride()[:3], D ** -0.5, tiles, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
+    return out, lse
+
+
+def _forward(q, k, v, with_lse: bool):
+    """(out, lse or None): the plain versions on CPU tensors, K1 on CUDA
+    tensors (counted in `flash_attention.launches`)."""
+    if native.on_cpu(q, k, v):
+        out = flash_attention_plain(q, k, v)
+        return out, flash_attention_lse_plain(q, k) if with_lse else None
+    out, lse = _launch_fwd(q, k, v, with_lse, tiles=1)
     flash_attention.launches += 1
     return out, lse
 
@@ -159,7 +188,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout):
     place is made contiguous first; anything else raises) and count one
     launch in `flash_attention_bwd.launches`. dq, dk and dv are [B, H, S, D]
     views of contiguous [B, S, H, D] tensors, as K1 writes its output."""
-    if _on_cpu(q, k, v, out, lse, dout):
+    if native.on_cpu(q, k, v, out, lse, dout):
         return flash_attention_bwd_plain(q, k, v, out, lse, dout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
@@ -213,16 +242,53 @@ class FlashAttention(torch.autograd.Function):
         return flash_attention_bwd(*ctx.saved_tensors, dout)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Non-causal softmax(q k^T / sqrt(D)) v over [B, H, S, D] tensors.
+def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       unroll2: bool = False) -> torch.Tensor:
+    """K2, the reference's v1 forward, over [B, H, S, D] tensors. CPU tensors
+    take `flash_attention_v1_plain`. CUDA tensors launch K2 (what K1 takes;
+    no gradient, as the reference's v1 has none: an input that needs one
+    raises) and count one launch in `flash_attention_v1.launches`, or, with
+    `unroll2` and Skv a multiple of 128 (the reference's Skv % (2 * bkv)),
+    the two-tile loop in `flash_attention_v1.launches_unroll2`; with
+    `unroll2` and another Skv, the one-tile loop, as the reference does."""
+    if native.on_cpu(q, k, v):
+        return flash_attention_v1_plain(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention(kernel='v1') has no gradient; use kernel='v2'")
+    pair = unroll2 and k.shape[2] % (2 * KV_TILE) == 0
+    out = _launch_fwd(q, k, v, with_lse=False, tiles=2 if pair else 1)[0]
+    if pair:
+        flash_attention_v1.launches_unroll2 += 1
+    else:
+        flash_attention_v1.launches += 1
+    return out
 
-    CPU tensors take the plain versions. CUDA tensors launch K1 (bf16,
-    D = 64; anything else raises) and count one launch in
+
+flash_attention_v1.launches = 0
+flash_attention_v1.launches_unroll2 = 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kernel: str = "v2", unroll2: bool = False) -> torch.Tensor:
+    """Non-causal softmax(q k^T / sqrt(D)) v over [B, H, S, D] tensors;
+    `kernel` and `unroll2` as the reference's `flash_attention_bhsd`
+    ("v1" takes `flash_attention_v1`, K2; unroll2 with "v2" raises, as
+    there).
+
+    With "v2", CPU tensors take the plain versions. CUDA tensors launch K1
+    (bf16, D = 64; anything else raises) and count one launch in
     `flash_attention.launches`; with gradients wanted, the backward
     launches K3. The output is a [B, H, Sq, D] view of a contiguous
     [B, Sq, H, D] tensor, so merging heads back is free.
     """
+    if kernel not in KERNELS:
+        raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
+    if kernel == "v1":
+        return flash_attention_v1(q, k, v, unroll2)
+    if unroll2:
+        raise ValueError("unroll2 only applies to kernel='v1' (the v2 kernel "
+                         "has no unrolled variant)")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttention.apply(q, k, v)

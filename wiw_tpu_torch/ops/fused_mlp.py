@@ -13,6 +13,13 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
   with the unfused pair of Linear layers' roundings: fp32 two-pass LN
   rounded; each dot rounded, then a model-dtype bias add; the gate in fp32,
   rounded; h = rounded acc + b2 in the model dtype; x + h.
+- K6-bf16, the same entry with `gate="bf16"` (the reference's
+  WIW_FUSED_FF_GATE=bf16, read there inside `_lnff_kernel`): the gate in
+  the model dtype's arithmetic (bf16 wherever the kernel runs), the
+  reference's Abramowitz-Stegun erf with every constant, product and sum
+  rounded to that dtype (`_gate_bf16`); counted in
+  `ln_geglu_ffn_residual.launches_bf16_gate`. The ops read no environment:
+  the worker resolves the switch into `UNetConfig.fused_ff_gate`.
 - `lnff_eligible` is the reference's rule for taking K6; where it says no
   (C > 640, rows not a multiple of 128, ...) the model runs its unfused
   LayerNorm and FeedForward modules, the function of the reference's
@@ -27,7 +34,9 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
   its backward recomputes through the unfused differentiable formulation
   `ln_geglu_ffn_residual_unfused` (the reference's
   `ln_geglu_ffn_residual_xla`) and returns all seven gradients. There is no
-  backward kernel, as the reference has none.
+  backward kernel, as the reference has none. The recomputation takes the
+  exact GELU whatever the forward's gate, as the reference's VJP does: with
+  the bf16 gate the gradient is the fp32 gate's.
 
 Both kernels are one CUDA source, `wiw_tpu_torch/csrc/geglu_ffn.cu`, whose
 header says what bounds them on the H100. The wrappers take CPU tensors to
@@ -47,6 +56,40 @@ C_STEP = 64       # ... and takes C and C_out in multiples of this
 ROW_BLOCK = 128   # rows must come in multiples of this (the reference's rule)
 _LIB = "geglu_ffn"
 _SQRT1_2 = 0.7071067811865476
+GATES = ("f32", "bf16")
+# `_erf`'s Abramowitz-Stegun 7.1.26 constants a1..a5, p
+_AS_ERF = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429,
+           0.3275911)
+
+
+def _consts(dtype: torch.dtype, *cs: float):
+    """Python constants as the reference's arithmetic in `dtype` sees them
+    (weak-typed scalars there: rounded to the array's dtype)."""
+    return (torch.tensor(c, dtype=dtype) for c in cs)
+
+
+def _erf_as(x: torch.Tensor) -> torch.Tensor:
+    """The reference's `_erf` in x's dtype, one op at a time: the sign taken
+    in fp32, each constant, product, sum, quotient and exp rounded."""
+    a1, a2, a3, a4, a5, p = _consts(x.dtype, *_AS_ERF)
+    s = torch.sign(x.float()).to(x.dtype)
+    ax = x * s
+    t = 1.0 / (1.0 + p * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    return s * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def _gate_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K6-bf16's gate: a * (b * 0.5 * (1 + erf(b / sqrt 2))) in the model
+    dtype's ops (a's and b's: bf16 wherever the kernel runs), as
+    `_lnff_kernel` computes it under WIW_FUSED_FF_GATE=bf16."""
+    half, one, r2 = _consts(b.dtype, 0.5, 1.0, _SQRT1_2)
+    return a * (b * half * (one + _erf_as(b * r2)))
+
+
+def _check_gate(gate: str) -> None:
+    if gate not in GATES:
+        raise ValueError(f"gate {gate!r} not in {GATES}")
 
 
 def lnff_eligible(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> bool:
@@ -83,15 +126,20 @@ def geglu_ffn_plain(x, w1, b1, w2, b2):
 
 
 def ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2,
-                                eps: float = 1e-5):
-    """K6's arithmetic in plain PyTorch (model dtype = x's dtype)."""
+                                eps: float = 1e-5, gate: str = "f32"):
+    """K6's arithmetic in plain PyTorch (model dtype = x's dtype); with
+    `gate="bf16"`, K6-bf16's."""
+    _check_gate(gate)
     dt = x.dtype
     inner = w2.shape[1]
     x2 = x.reshape(-1, x.shape[-1])
     xn = _ln_rows(x2, ln_w, ln_b, eps).to(dt)
     h = (xn.float() @ w1.float().t()).to(dt) + b1.to(dt)
-    a, b = h[:, :inner].float(), h[:, inner:].float()
-    g = (a * (b * 0.5 * (1.0 + torch.erf(b * _SQRT1_2)))).to(dt)
+    if gate == "bf16":
+        g = _gate_bf16(h[:, :inner], h[:, inner:]).to(dt)
+    else:
+        a, b = h[:, :inner].float(), h[:, inner:].float()
+        g = (a * (b * 0.5 * (1.0 + torch.erf(b * _SQRT1_2)))).to(dt)
     out = (g.float() @ w2.float().t()).to(dt) + b2.to(dt)
     return (x2 + out).reshape(x.shape)
 
@@ -101,7 +149,7 @@ def ln_geglu_ffn_residual_unfused(x, ln_w, ln_b, w1, b1, w2, b2,
     """The reference's unfused oracle `ln_geglu_ffn_residual_xla`, with its
     dtype rules: LN in fp32 rounded to x's dtype, each product in x's dtype,
     + bias (a wider bias widens the sum, as in JAX), rounded; exact gelu.
-    Differentiable: K6's backward recomputes through it."""
+    Differentiable: K6's backward recomputes through it, for either gate."""
     dt = x.dtype
     inner = w2.shape[1]
     ln = _ln_rows(x, ln_w, ln_b, eps).to(dt)
@@ -147,15 +195,11 @@ def _bind(lib: ctypes.CDLL, residual: bool):
     if fn.argtypes is None:
         if residual:
             fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                           + [ctypes.c_float, ctypes.c_void_p])
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         else:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _on_cpu(*ts) -> bool:
-    return all(t.device.type == "cpu" for t in ts)
 
 
 def _launch(residual: bool, x, args: tuple) -> None:
@@ -171,7 +215,7 @@ def geglu_ffn(x, w1, b1, w2, b2):
     `geglu_ffn_plain`; CUDA tensors launch K5 (bf16; C and C_out multiples
     of 64 up to 640, inner a multiple of 64, rows a multiple of 128;
     anything else raises) and count one launch in `geglu_ffn.launches`."""
-    if _on_cpu(x, w1, b1, w2, b2):
+    if native.on_cpu(x, w1, b1, w2, b2):
         return geglu_ffn_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"geglu_ffn: unsupported device {x.device}")
@@ -188,9 +232,11 @@ def geglu_ffn(x, w1, b1, w2, b2):
 geglu_ffn.launches = 0
 
 
-def _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps):
-    if _on_cpu(x, ln_w, ln_b, w1, b1, w2, b2):
-        return ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+def _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps, gate):
+    _check_gate(gate)
+    if native.on_cpu(x, ln_w, ln_b, w1, b1, w2, b2):
+        return ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps,
+                                           gate)
     if x.device.type != "cuda":
         raise ValueError(f"ln_geglu_ffn_residual: unsupported device {x.device}")
     M, C, inner, _ = _check(x, w1, b1, w2, b2, residual=True, ln=(ln_w, ln_b))
@@ -199,42 +245,45 @@ def _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps):
     out = torch.empty_like(x)
     _launch(True, x, (x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w1.data_ptr(),
                       b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(), out.data_ptr(),
-                      M, C, inner, float(eps)))
-    ln_geglu_ffn_residual.launches += 1
+                      M, C, inner, float(eps), int(gate == "bf16")))
+    if gate == "bf16":
+        ln_geglu_ffn_residual.launches_bf16_gate += 1
+    else:
+        ln_geglu_ffn_residual.launches += 1
     return out
 
 
 class LnGegluFfnResidual(torch.autograd.Function):
-    """K6 forward; backward recomputed through the unfused formulation."""
+    """K6 or K6-bf16 forward; backward recomputed through the unfused
+    formulation (exact GELU, as the reference's VJP)."""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps, gate):
         ctx.eps = eps
         ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
-        return _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+        return _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps, gate)
 
     @staticmethod
     def backward(ctx, grad):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        with torch.enable_grad():
-            out = ln_geglu_ffn_residual_unfused(*inputs, ctx.eps)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(out, wanted, grad))
-        return (*(next(grads) if t.requires_grad else None for t in inputs), None)
+        return (*native.recompute_backward(ctx, ln_geglu_ffn_residual_unfused,
+                                           grad, ctx.eps), None, None)
 
 
-def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5):
-    """x + GEGLU_FF(LayerNorm(x)) over x [..., C]. CPU tensors take
-    `ln_geglu_ffn_residual_plain`; CUDA tensors launch K6 (bf16; C a
+def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
+                          gate: str = "f32"):
+    """x + GEGLU_FF(LayerNorm(x)) over x [..., C], the gate in fp32 (K6) or,
+    with `gate="bf16"`, in bf16 arithmetic (K6-bf16). CPU tensors take
+    `ln_geglu_ffn_residual_plain`; CUDA tensors launch the kernel (bf16; C a
     multiple of 64 up to 640, inner a multiple of 64, rows a multiple of
     128; anything else raises) and count one launch in
-    `ln_geglu_ffn_residual.launches`. With gradients wanted it goes through
-    `LnGegluFfnResidual` (backward by recomputation)."""
+    `ln_geglu_ffn_residual.launches` (K6) or `.launches_bf16_gate`
+    (K6-bf16). With gradients wanted it goes through `LnGegluFfnResidual`
+    (backward by recomputation with the exact gate, as the reference's)."""
     args = (x, ln_w, ln_b, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return LnGegluFfnResidual.apply(*args, eps)
-    return _ln_geglu_ffn_residual(*args, eps)
+        return LnGegluFfnResidual.apply(*args, eps, gate)
+    return _ln_geglu_ffn_residual(*args, eps, gate)
 
 
 ln_geglu_ffn_residual.launches = 0
+ln_geglu_ffn_residual.launches_bf16_gate = 0

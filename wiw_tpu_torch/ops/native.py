@@ -5,6 +5,10 @@ for sm_90a into `wiw_tpu_torch/_build/<name>-<digest>.so` at first use, then
 loaded with ctypes. The digest covers the source and the flags, so an edited
 kernel rebuilds and a built one is reused. `load_libraries` runs one nvcc
 per source, all at once. Nothing here runs at import.
+
+Two rules every kernel wrapper shares live here too: `on_cpu` (CPU tensors
+take the plain version) and `recompute_backward` (a kernel without a
+backward kernel is differentiated through its plain version).
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -95,3 +101,23 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if needed and return the loaded library."""
     lib = _loaded.get(name)
     return lib if lib is not None else load_libraries(name)[0]
+
+
+def on_cpu(*ts: torch.Tensor) -> bool:
+    """Whether every operand lies on the CPU, where a wrapper computes its
+    kernel's plain version."""
+    return all(t.device.type == "cpu" for t in ts)
+
+
+def recompute_backward(ctx, plain, grad: torch.Tensor, *args) -> list:
+    """The backward of an autograd Function whose forward ran a kernel and
+    saved only its tensor inputs: recompute `plain(*saved, *args)` with
+    autograd and return the gradient of each saved input that needs one
+    (None for the others)."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = plain(*inputs, *args)
+    wanted = [t for t in inputs if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, grad))
+    return [next(grads) if t.requires_grad else None for t in inputs]

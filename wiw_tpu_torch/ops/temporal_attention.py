@@ -114,7 +114,7 @@ def frame_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     count one launch in `frame_attention.launches`. K4 has no gradient, as
     the reference's bare `pallas_call` has none: off the CPU, asking for
     one raises NotImplementedError (train with the batched or xla form)."""
-    if q.device.type == "cpu" and k.device.type == "cpu" and v.device.type == "cpu":
+    if native.on_cpu(q, k, v):
         return frame_attention_plain(q, k, v, heads)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):

@@ -12,7 +12,8 @@ reference's W8A8 int8 mode is not ported yet (ROADMAP M6/K7) and asking
 for it raises. The fused-kernel configuration (K4 frame attention, K6
 LN + GEGLU feed-forward) is selected with `fused_ff=True,
 temporal_attention="pallas"` or the reference's WIW_FUSED_FF=1 and
-WIW_TEMPORAL_ATTN=pallas.
+WIW_TEMPORAL_ATTN=pallas; WIW_FUSED_FF_GATE=bf16 takes K6's bf16 gate
+(K6-bf16) there.
 """
 
 from __future__ import annotations
@@ -48,12 +49,14 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
       WIW_QUANT          'int8' -> W8A8 (not ported: raises), else bf16
       WIW_FUSED_FF       '1' -> fused LN + feed-forward (K6), else off
       WIW_TEMPORAL_ATTN  'pallas' (K4) | 'xla', else 'batched' (default)
+      WIW_FUSED_FF_GATE  'bf16' -> K6's gate in bf16 (K6-bf16), else 'f32'
+                         (the environment only, as in the reference)
 
     Environment values keep the reference's readings; an explicit
     `quantize` or `cfg_schedule` outside the CLI's choices raises
     ValueError rather than serving something else.
 
-    Returns {cfg, fused_ff, temporal_attention}."""
+    Returns {cfg, fused_ff, temporal_attention, fused_ff_gate}."""
     if quantize not in QUANTIZE_CHOICES:
         raise ValueError(f"quantize {quantize!r} not in {QUANTIZE_CHOICES}")
     if cfg_schedule not in CFG_CHOICES:
@@ -69,8 +72,10 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
     if temporal_attention is None:
         mode = env.get("WIW_TEMPORAL_ATTN", "batched")
         temporal_attention = mode if mode in ("pallas", "xla") else "batched"
+    gate = "bf16" if env.get("WIW_FUSED_FF_GATE", "f32") == "bf16" else "f32"
     return {"cfg": SERVING_CFG if cfg == "serving" else CFGSchedule(),
-            "fused_ff": fused_ff, "temporal_attention": temporal_attention}
+            "fused_ff": fused_ff, "temporal_attention": temporal_attention,
+            "fused_ff_gate": gate}
 
 
 class SVDActionWorker:
@@ -111,7 +116,8 @@ class SVDActionWorker:
                        action_strategy=action_strategy or None,
                        action_input_channel=action_input_channel,
                        dtype=dtype, fused_ff=sw["fused_ff"],
-                       temporal_attention=sw["temporal_attention"]),
+                       temporal_attention=sw["temporal_attention"],
+                       fused_ff_gate=sw["fused_ff_gate"]),
             device=self.device,
         )
         if unet_path:
