@@ -20,9 +20,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      kernel, kernel, plain); the least time the card could take (bound) from
      the bytes and flops of each call; the device kernels the library call
      ran at the largest shape
-  4. small-input reference: a tiny bf16 pipeline on the card, in the default
-     and in the fused-kernel configuration, against the same weights run in
-     fp32 on the CPU (plain versions there)
+  4. small-input reference: a tiny bf16 pipeline on the card, in the default,
+     the fused-kernel and the W8A8 configuration, against the same weights
+     run in fp32 on the CPU (plain versions there; W8A8 with the same int8
+     weights)
   5. slices: the full-width SVDActionWorker (1.5 B-parameter UNet with
      micro_cond, bf16, random weights from a seed) answers 576x1024,
      14-frame, 25-step requests with output 480x480: one request in the
@@ -47,6 +48,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
      offset by 1e4 (bit-equal), and in fp32 against float64: |mean|/std ~
      1200, and rows whose mean and scale change from tile to tile with a
      partial last tile
+  5c. W8A8 int8 (`SVDActionWorker(quantize="int8")`): one full-width
+     request through K7 (the int8 kernel count, seconds, denoise frames/s,
+     peak, launches: K7's must equal the int8 layers' calls, counted by
+     hooks; the decoded frames' PSNR against the default request's, same
+     seed and weights: random weights, so no quality figure), a profiled
+     2-row forward, the feed-forwards where K6 steps aside for int8, then
+     K7 (dense and conv) at every int8 shape of that request and forward
+     and at the VAE decoder's largest conv (`quantize_vae`), against its
+     plain version (exact int32 sums in float64: the bits must be equal),
+     with `torch._int_mm` on the same int8 operands as the dense library
+     call (the product alone)
+  5d. K9 (the attention ablations floor, noexp, v2) and K10 (int8 q k^T,
+     bf16 and int8 PV) at the reference probes' shape, B*H 140, S 9216,
+     against their plain versions at the kernels' kv block width (64)
   6. training: K1 with its LSE output and K3 (flash-attention backward) at
      the four training shapes against the plain forward, LSE and backward
      (K1's output bits the same with and without the LSE), K6's gradients
@@ -93,10 +108,12 @@ K4_SHAPES = [(2, 14, 9216, 5, 5), (2, 14, 2304, 10, 5), (2, 14, 576, 20, 5)]
 # transformers per level, three feed-forwards each
 FF_SHAPES = [(2 * 14 * 9216, 320, 15), (2 * 14 * 2304, 640, 15)]
 # launches per request: 16 / 15 / 30 per UNet forward x 25 forwards; every
-# other counter 0, but K8's, which must equal the GroupNorm calls
+# other counter 0, but K8's, which must equal the GroupNorm calls, and K7's,
+# which must equal the int8 layers' calls
 PER_REQUEST = {"default": {"K1": 400},
                "fused": {"K1": 400, "K4": 375, "K6": 750},
-               "fused-bf16": {"K1": 400, "K4": 375, "K6-bf16": 750}}
+               "fused-bf16": {"K1": 400, "K4": 375, "K6-bf16": 750},
+               "int8": {"K1": 400}}
 # K2 (no model caller): the level-0 and level-3 spatial attentions
 K2_SHAPES = [K1_SHAPES[0][:3], K1_SHAPES[3][:3]]
 # the same attentions when training at batch 1 (one row of 14 frames):
@@ -113,12 +130,24 @@ TRAIN_STEPS, TRAIN_ACCUM = 3, 2
 PER_STEP = {"K1": TRAIN_ACCUM * 2 * 16, "K3": TRAIN_ACCUM * 16}
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_S, BF16_FLOPS_S, FP32_FLOPS_S = 3.35e12, 989e12, 67e12
+INT8_OPS_S = 1979e12
+# K9 and K10 at the reference probes' shape (scripts/tune_attention2.py,
+# scripts/probe_int8_attention.py): B, H, S; K10's qk_scale as the probe's
+K9_SHAPE = (28, 5, 9216)
+K10_QK_SCALE = 1e-3
 # small-input phase: frames in [0, 1] from a bf16 card run vs an fp32 CPU
 # run. bf16 alone drifts this tiny random-weight pipeline by max 0.045 /
 # mean 0.0057 (the CPU's own bf16 path against fp32); the bounds are ~3x
 # that, well below the tens-of-percent error of a wrong kernel or layout
 SMALL_ATOL, SMALL_MEAN_ATOL = 0.15, 0.02
 FUSED = dict(fused_ff=True, temporal_attention="pallas")
+INT8 = dict(quantize="int8")
+# the small-input phase in W8A8: the int8 forward is chaotic at the level of
+# activation codes (a ~1e-7 difference moves a code by one step of
+# amax/127 and the next int8 layers carry it on; between two fp32
+# implementations at this size the CPU tests measure max 0.1 / mean 0.009),
+# on top of bf16's drift: twice the bf16 bounds
+INT8_SMALL_ATOL, INT8_SMALL_MEAN_ATOL = 0.3, 0.04
 # K8 against float64 at |mean|/std ~ 1200 (fp32 input), the CPU test's bound
 ILL_ATOL = 2e-3
 # the H100's L2 (data sheet): K8's floor is one read of x where one batch
@@ -785,10 +814,12 @@ def train_phase(dev) -> dict:
 
 
 def small_reference_phase(dev):
-    """Tiny bf16 pipelines on the card (default and fused configurations)
-    vs the same weights in fp32 on the CPU (where every kernel wrapper takes
-    its plain version). Sized so that K4 and K6 launch at both levels:
-    head_dim 64, S = 1024 and 256, rows of 3072..6144."""
+    """Tiny bf16 pipelines on the card (default, fused and W8A8
+    configurations) vs the same weights in fp32 on the CPU (where every
+    kernel wrapper takes its plain version; W8A8 with the same int8
+    weights). Sized so that K4 and K6 launch at both levels: head_dim 64,
+    S = 1024 and 256, rows of 3072..6144; channels 64 and 128, which K7
+    takes."""
     from wiw_tpu_torch.core.schedule import SERVING_CFG
     from wiw_tpu_torch.models.clip import CLIPVisionConfig
     from wiw_tpu_torch.models.unet import UNetConfig
@@ -812,9 +843,20 @@ def small_reference_phase(dev):
     noise = torch.from_numpy(rng.standard_normal((1, 3, 32, 32, 4)).astype(np.float32))
     actions = torch.tensor([[4, 2, 1]])
     ref = None
-    for label, extra in (("default", {}), ("fused", FUSED)):
+    for label, extra in (("default", {}), ("fused", FUSED), ("int8", {})):
         card = SVDPipeline(dataclasses.replace(bf16[0], **extra), bf16[1],
                            bf16[2], device=dev)
+        want = ref
+        if label == "int8":
+            # both sides quantise the same fp32 (bf16-rounded) weights to
+            # the same codes: the CPU side with K7's plain versions
+            card.quantize_unet()
+            cpu8 = SVDPipeline(unet, vae, clip, device="cpu")
+            cpu8.quantize_unet()
+            cpu8.load_state_dicts(cpu.unet.state_dict(), cpu.vae.state_dict(),
+                                  cpu.clip.state_dict())
+            want = cpu8.generate(image, gen, actions, init_latents=noise,
+                                 generator=torch.Generator().manual_seed(1))
         card.load_state_dicts(cpu.unet.state_dict(), cpu.vae.state_dict(),
                               cpu.clip.state_dict())
         if ref is None:
@@ -824,26 +866,348 @@ def small_reference_phase(dev):
                                      (card.clip, cpu.clip)):
                 cpu_tower.load_state_dict({k: v.float().cpu() for k, v in
                                            tower.state_dict().items()})
-            ref = cpu.generate(image, gen, actions, init_latents=noise,
-                               generator=torch.Generator().manual_seed(1))
+            ref = want = cpu.generate(image, gen, actions, init_latents=noise,
+                                      generator=torch.Generator().manual_seed(1))
         reset_launches()
         got = card.generate(image, gen, actions, init_latents=noise,
                             generator=torch.Generator(device=dev).manual_seed(1))
         counts = launches()
-        diff = (got.float().cpu() - ref).abs()
+        diff = (got.float().cpu() - want).abs()
+        atol, mean_atol = ((INT8_SMALL_ATOL, INT8_SMALL_MEAN_ATOL) if label == "int8"
+                           else (SMALL_ATOL, SMALL_MEAN_ATOL))
         print(f"small input {label} (3f 64x64, 4 steps): card bf16 vs CPU fp32 "
               f"max|diff| {diff.max().item():.6g} mean|diff| "
-              f"{diff.mean().item():.6g} (tol {SMALL_ATOL} / mean "
-              f"{SMALL_MEAN_ATOL}); launches {counts}", flush=True)
-        if not (torch.isfinite(got).all() and diff.max() <= SMALL_ATOL
-                and diff.mean() <= SMALL_MEAN_ATOL):
+              f"{diff.mean().item():.6g} (tol {atol} / mean {mean_atol}); "
+              f"launches {counts}", flush=True)
+        if not (torch.isfinite(got).all() and diff.max() <= atol
+                and diff.mean() <= mean_atol):
             raise RuntimeError(f"small-input card run ({label}) disagrees with "
                                "the CPU reference")
         took = (counts["K1"] > 0, counts["K4"] > 0, counts["K6"] > 0,
-                counts["K8"] > 0)
-        if took != (True, label == "fused", label == "fused", True):
+                counts["K7-dense"] > 0 and counts["K7-conv"] > 0, counts["K8"] > 0)
+        if took != (True, label == "fused", label == "fused", label == "int8", True):
             raise RuntimeError(f"small-input {label} run took the wrong kernels: {counts}")
         del card
+
+
+def count_int8_calls(*towers):
+    """Forward pre-hooks on every int8 Linear/Conv2d of `towers`: returns (a
+    Counter of the calls by (kind, x shape, x dtype, weight shape, stride,
+    padding, bias, output dtype), the hook handles)."""
+    from collections import Counter
+
+    from wiw_tpu_torch.models.layers import Conv2d, Linear
+
+    seen = Counter()
+
+    def pre(m, args):
+        x = args[0]
+        conv = isinstance(m, Conv2d)
+        seen[("conv" if conv else "dense", tuple(x.shape), x.dtype,
+              tuple(m.weight.shape), m.stride[0] if conv else 1,
+              m.padding[0] if conv else 0, m.bias is not None,
+              m.compute_dtype)] += 1
+
+    handles = [m.register_forward_pre_hook(pre) for tower in towers
+               for m in tower.modules()
+               if isinstance(m, (Linear, Conv2d)) and m.int8]
+    return seen, handles
+
+
+def k7_ops_bytes(key) -> tuple[int, int, int]:
+    """(int8 ops, bytes: x read once, w8 and the output written once,
+    output elements) of one K7 call."""
+    kind, xshape, xdtype, wshape, stride, pad, _, odt = key
+    xbytes = int(np.prod(xshape)) * xdtype.itemsize
+    if kind == "dense":
+        N, K = wshape
+        M = int(np.prod(xshape[:-1]))
+    else:
+        N, kh, kw, C = wshape
+        Nb, H, W, _ = xshape
+        M = Nb * ((H + 2 * pad - kh) // stride + 1) * ((W + 2 * pad - kw) // stride + 1)
+        K = kh * kw * C
+    return 2 * M * N * K, xbytes + N * K + M * N * odt.itemsize, M * N
+
+
+def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
+             dev, g):
+    """K7 at every distinct int8 call of `request` (one int8 request) and
+    `forward` (a 2-row UNet forward) and at the largest int8 conv of a VAE
+    decode (`vae`): {key: calls} (`count_int8_calls`). Each against its
+    plain version (exact int32 sums in float64, the same dequantisation
+    order): the bits must be equal, and the phase fails where one element
+    differs (the tolerance line is printed too), timed in turns; the
+    rows sum one 2-row forward (request_*: one request; vae_*: the VAE
+    conv). Library: `torch._int_mm` on the same int8 operands for dense
+    (the int8 product alone: no quantisation, no epilogue); none for the
+    conv (PyTorch has no int8 conv on CUDA)."""
+    from wiw_tpu_torch.ops import quant as TQ
+
+    vae_key = max(vae, key=lambda k: k7_ops_bytes(k)[0])
+    for row in (dense, conv):
+        for f in ("request_ms", "request_plain_ms", "request_bound_ms",
+                  "request_library_ms"):
+            row.d[f] = 0.0 if (f != "request_library_ms" or row is dense) else None
+    print("K7: bound = max(x read once + w8 + output written once over 3.35 "
+          "TB/s, 2*M*N*K int8 ops over 1979 TOPS)", flush=True)
+    for key in sorted(set(forward) | set(request) | {vae_key},
+                      key=lambda k: -k7_ops_bytes(k)[0]):
+        kind, xshape, xdtype, wshape, stride, pad, has_bias, odt = key
+        x = (torch.randn(*xshape, generator=g, device=dev) * 2).to(xdtype)
+        w8, ws = TQ.quantize_kernel(
+            torch.randn(*wshape, generator=g, device=dev) * 0.05)
+        b = torch.randn(wshape[0], generator=g, device=dev) if has_bias else None
+        lib = None
+        if kind == "dense":
+            def kern():
+                return TQ.w8a8_dense(x, w8, ws, b, odt)
+
+            def plain():
+                return TQ.w8a8_dense_plain(x, w8, ws, b, odt)
+
+            x8 = TQ._quant_rows(x.reshape(-1, x.shape[-1]))[0]
+            w8t = w8.t()
+
+            def lib():
+                return torch._int_mm(x8, w8t)
+
+            try:  # the yardstick only: its own shape rules (M > 16, ...)
+                lib()
+            except RuntimeError as e:
+                print(f"  torch._int_mm refuses {tuple(x8.shape)}: {e}", flush=True)
+                lib = None
+        else:
+            def kern():
+                return TQ.w8a8_conv(x, w8, ws, b, stride=stride, padding=pad,
+                                    dtype=odt)
+
+            def plain():
+                return TQ.w8a8_conv_plain(x, w8, ws, b, stride=stride,
+                                          padding=pad, dtype=odt)
+        out, ref = kern(), plain()
+        same = (out == ref).float().mean().item()
+        max_err, line = compare(f"K7-{kind} {xshape} {tuple(wshape)}", out, ref)
+        if not torch.equal(out, ref):
+            raise RuntimeError(
+                f"K7-{kind} x {list(xshape)} w8 {list(wshape)}: bits equal at "
+                f"only {same:.9g} of elements; the kernel must equal its plain "
+                "version bit for bit")
+        del out, ref
+        ops, nbytes, _ = k7_ops_bytes(key)
+        bound = bound_ms(nbytes, ops, INT8_OPS_S)
+        fwd, req = forward.get(key, 0), request.get(key, 0)
+        where = "VAE decoder's largest int8 conv" if key == vae_key else (
+            f"{fwd} a 2-row forward, {req} a request")
+        ms, plain_ms, lib_ms = timed(
+            f"K7-{kind} x {list(xshape)} {str(xdtype)[6:]} w8 {list(wshape)} "
+            f"stride {stride} -> {str(odt)[6:]} ({where}) {line}; bits equal "
+            f"at {same:.6g} of elements", plain, kern, lib,
+            max(3, min(50, int(2e11 // ops))), 1, bound,
+            lambda ms: f"{ops / ms / 1e9:.1f} TOPS, {nbytes / ms / 1e6:.0f} GB/s")
+        row = dense if kind == "dense" else conv
+        by = "operations" if ops / INT8_OPS_S > nbytes / HBM_BYTES_S else "bytes"
+        row.add(fwd, max_err, ms, plain_ms, bound, by,
+                lib_ms if lib_ms is not None else 0.0)
+        d = row.d
+        # the row's bound_by: what bounds most of a forward's bound time
+        d.setdefault("bound_ms_by", {"operations": 0.0, "bytes": 0.0})[by] += fwd * bound
+        d["bound_by"] = max(d["bound_ms_by"], key=d["bound_ms_by"].get)
+        d["request_ms"] += req * ms
+        d["request_plain_ms"] += req * plain_ms
+        d["request_bound_ms"] += req * bound
+        if d["request_library_ms"] is not None:
+            d["request_library_ms"] += req * lib_ms
+        if key == vae_key:
+            conv.d["vae_conv"] = {"x": list(xshape), "w8": list(wshape),
+                                  "ms": ms, "plain_ms": plain_ms,
+                                  "bound_ms": bound, "max_abs_err": max_err}
+        del x, w8, ws, b
+        if kind == "dense":
+            del x8, w8t
+        torch.cuda.empty_cache()
+    for row in (dense, conv):
+        d = row.d
+        print(f"{d['name']} per request: kernel {d['request_ms']:.4f} ms, plain "
+              f"{d['request_plain_ms']:.4f} ms, bound {d['request_bound_ms']:.4f}"
+              f" ms, library {d['request_library_ms']}", flush=True)
+
+
+def vae_int8_calls(dev):
+    """The VAE decoder in W8A8 (`SVDPipeline.quantize_vae`) decoding one
+    4-frame chunk at 576x1024 (the bf16 decode's chunk): its int8 conv
+    calls ({key: calls}), the decode checked finite. The pipeline's other
+    towers are tiny: only the VAE runs."""
+    from wiw_tpu_torch.models.clip import CLIPVisionConfig
+    from wiw_tpu_torch.models.unet import UNetConfig
+    from wiw_tpu_torch.models.vae import VAEConfig
+    from wiw_tpu_torch.ops import quant as TQ
+    from wiw_tpu_torch.sampling.pipeline import SVDPipeline
+
+    pipe = SVDPipeline(
+        UNetConfig(block_out_channels=(64, 128), num_attention_heads=(1, 2),
+                   layers_per_block=1, cross_attention_dim=32, num_frames=4),
+        VAEConfig(dtype="bfloat16"),
+        CLIPVisionConfig(hidden_size=64, intermediate_size=128, num_layers=2,
+                         num_heads=2, patch_size=32, projection_dim=32),
+        device=dev)
+    n = pipe.quantize_vae()
+    pipe.init_params(torch.Generator(device=dev).manual_seed(0))
+    calls, hooks = count_int8_calls(pipe.vae)
+    before = TQ.w8a8_conv.launches
+    with torch.inference_mode():
+        z = torch.randn(4, 72, 128, 4, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(3))
+        video = pipe.vae.decode(z, 4)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    launched = TQ.w8a8_conv.launches - before
+    print(f"VAE decoder in W8A8: {n} int8 convs (count_quantized "
+          f"{TQ.count_quantized(pipe.vae)}), one 4-frame 576x1024 decode: "
+          f"{launched} K7-conv launches, output {tuple(video.shape)} finite "
+          f"{bool(torch.isfinite(video).all())}", flush=True)
+    if (n != TQ.count_quantized(pipe.vae) or launched != sum(calls.values())
+            or not launched or not torch.isfinite(video).all()):
+        raise RuntimeError("the W8A8 VAE decode did not run as expected")
+    del pipe, video
+    torch.cuda.empty_cache()
+    return calls
+
+
+def k6_bypass(unet, dev) -> int:
+    """With the fused feed-forward switched on, a 2-row int8 forward: K6
+    steps aside at every feed-forward whose int8 in-projection would
+    otherwise take it (the reference's rule under WIW_QUANT=int8
+    WIW_FUSED_FF=1). Returns that count; raises if K6 launched."""
+    from wiw_tpu_torch.models.layers import FeedForward
+    from wiw_tpu_torch.ops import fused_mlp as TF
+
+    would = []
+
+    def pre(m, args):
+        x = args[0]
+        if (m.net[0].proj.int8 and x.shape[-1] % TF.C_STEP == 0
+                and TF.lnff_eligible(x, x, m.net[2].weight)):
+            would.append(1)
+
+    blocks = [m for m in unet.modules() if hasattr(m, "fused_ff")]
+    hooks = [m.register_forward_pre_hook(pre) for m in unet.modules()
+             if isinstance(m, FeedForward)]
+    for m in blocks:
+        m.fused_ff = True
+    reset_launches()
+    try:
+        with torch.inference_mode():
+            unet(*forward_args(dev))
+        torch.cuda.synchronize()
+    finally:
+        for m in blocks:
+            m.fused_ff = False
+        for h in hooks:
+            h.remove()
+    counts = launches()
+    print(f"int8 with the fused feed-forward on: K6 stepped aside at "
+          f"{len(would)} feed-forwards of a 2-row forward that it takes in "
+          f"bf16; launches {counts}", flush=True)
+    if counts["K6"] or counts["K6-bf16"] or not would:
+        raise RuntimeError("K6 did not step aside for int8 projections")
+    return len(would)
+
+
+def attention_probe_phase(rows: dict, dev, g):
+    """K9 (floor, noexp, v2) on bf16 [B, H, S, 64] head views and K10 (bf16
+    and int8 PV) on the probe's int8 q, k and [B*H, S, 65] v (column 64
+    = 1), at K9_SHAPE, each against its plain version at the kernels' kv
+    block width. Bound: the two products over the peak of their types
+    (K10: q k^T int8, PV bf16 or int8), or q, k, v read and o written
+    once. Library: SDPA for v2 (K1's function); none for the others."""
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops import flash_attention as TFA
+    from wiw_tpu_torch.ops import int8_attention as TI
+
+    B, H, S = K9_SHAPE
+    q, k, v = (torch.randn(B, S, H * 64, generator=g, device=dev,
+                           dtype=torch.bfloat16).view(B, S, H, 64).transpose(1, 2)
+               for _ in range(3))
+    flops = 4 * B * H * S * S * 64
+    bound = bound_ms(4 * B * H * S * 64 * 2, flops, BF16_FLOPS_S)
+    for key, fn, plain in (("K9-floor", TFA.attention_floor, TFA.attention_floor_plain),
+                           ("K9-noexp", TFA.attention_noexp, TFA.attention_noexp_plain),
+                           ("K9-v2", TFA.attention_v2, TFA.attention_v2_plain)):
+        def kern(fn=fn):
+            return fn(q, k, v)
+
+        def ref(plain=plain):
+            return plain(q, k, v, bkv=TFA.KV_TILE)
+
+        out = kern()
+        if key == "K9-noexp":
+            # out = acc / (d + 1) has a pole where a row's denominator d (a
+            # sum of S - m <= 0) nears -1: there the two sides' ~1e-6
+            # difference in S is amplified without bound. The rows with
+            # |d + 1| >= 1 are held to the tolerance; the others must be
+            # finite (their count and error are printed). They must be under
+            # 1e-4 of the rows: at these random inputs d is spread over
+            # thousands, so |d + 1| < 1 is rare (4 of 1.29 M rows on the
+            # H100); more would leave a real part of the output unchecked
+            want, d1 = plain(q, k, v, bkv=TFA.KV_TILE, with_denominator=True)
+            well = (d1.abs() >= 1).expand_as(want)
+            ill_err = (out.float() - want.float())[~well].abs()
+            n_ill, n_rows = int((~well).sum()) // 64, want.numel() // 64
+            print(f"  {key}: {n_ill} of {n_rows} rows with |d + 1| < 1, max|err| "
+                  f"there {ill_err.max().item() if ill_err.numel() else 0.0:.6g}",
+                  flush=True)
+            if not torch.isfinite(out).all():
+                raise RuntimeError(f"{key}: non-finite output")
+            if n_ill > 1e-4 * n_rows:
+                raise RuntimeError(f"{key}: {n_ill} of {n_rows} rows left "
+                                   "unchecked, more than 1e-4 of them")
+            max_err, line = compare(f"{key} S={S}", out[well], want[well])
+            del want, d1, well
+        else:
+            max_err, line = compare(f"{key} S={S}", out, ref())
+        del out
+        library = ((lambda: F.scaled_dot_product_attention(q, k, v))
+                   if key == "K9-v2" else None)
+        ms, plain_ms, lib = timed(f"{key} B*H={B * H} S={S} D=64 {line}", ref,
+                                  kern, library, 5, 1, bound,
+                                  lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
+        rows[key].add(1, max_err, ms, plain_ms, bound, "operations", lib)
+    del q, k, v
+
+    def i8(*shape):
+        return (torch.randn(*shape, generator=g, device=dev) * 40).round().clamp(
+            -127, 127).to(torch.int8)
+
+    q8, k8 = i8(B * H, S, 64), i8(B * H, S, 64)
+    for key, i8pv in (("K10", False), ("K10-i8pv", True)):
+        v = i8(B * H, S, 65) if i8pv else torch.randn(
+            B * H, S, 65, generator=g, device=dev).bfloat16()
+        v[..., 64] = 1
+
+        def kern(v=v, i8pv=i8pv):
+            return TI.int8_qk_attention(q8, k8, v, K10_QK_SCALE, i8pv)
+
+        def ref(v=v, i8pv=i8pv):
+            return TI.int8_qk_attention_plain(q8, k8, v, K10_QK_SCALE, i8pv)
+
+        max_err, line = compare(f"{key} S={S}", kern(), ref())
+        half = 2 * B * H * S * S * 64
+        k10_bound = max(
+            (2 * B * H * S * 64 + B * H * S * 65 * (v.element_size() + 2))
+            / HBM_BYTES_S,
+            half / INT8_OPS_S + 2 * B * H * S * S * 65 / (
+                INT8_OPS_S if i8pv else BF16_FLOPS_S)) * 1e3
+        ms, plain_ms, _ = timed(f"{key} B*H={B * H} S={S} D=64 (+ ones column) "
+                                f"{line}", ref, kern, None, 5, 1, k10_bound,
+                                lambda ms: f"{4 * B * H * S * S * 64 / ms / 1e9:.1f}"
+                                           " T(FL)OP/s")
+        rows[key].add(1, max_err, ms, plain_ms, k10_bound, "operations")
+        del v
+    del q8, k8
+    torch.cuda.empty_cache()
 
 
 def _counters() -> dict:
@@ -851,6 +1215,8 @@ def _counters() -> dict:
     from wiw_tpu_torch.ops import flash_attention as TFA
     from wiw_tpu_torch.ops import fused_mlp as TF
     from wiw_tpu_torch.ops import group_norm as TG
+    from wiw_tpu_torch.ops import int8_attention as TI
+    from wiw_tpu_torch.ops import quant as TQ
     from wiw_tpu_torch.ops import temporal_attention as TT
 
     return {"K1": (TFA.flash_attention, "launches"),
@@ -861,7 +1227,14 @@ def _counters() -> dict:
             "K5": (TF.geglu_ffn, "launches"),
             "K6": (TF.ln_geglu_ffn_residual, "launches"),
             "K6-bf16": (TF.ln_geglu_ffn_residual, "launches_bf16_gate"),
-            "K8": (TG.group_norm, "launches")}
+            "K7-dense": (TQ.w8a8_dense, "launches"),
+            "K7-conv": (TQ.w8a8_conv, "launches"),
+            "K8": (TG.group_norm, "launches"),
+            "K9-floor": (TFA.attention_floor, "launches"),
+            "K9-noexp": (TFA.attention_noexp, "launches"),
+            "K9-v2": (TFA.attention_v2, "launches"),
+            "K10": (TI.int8_qk_attention, "launches"),
+            "K10-i8pv": (TI.int8_qk_attention, "launches_i8pv")}
 
 
 def reset_launches():
@@ -873,10 +1246,13 @@ def launches() -> dict:
     return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
-def expected(fixed: dict, group_norms: int) -> dict:
+def expected(fixed: dict, group_norms: int, int8_calls=None) -> dict:
     """The launches a path must show: `fixed`, K8 once per GroupNorm call,
-    every other kernel 0."""
-    return {**dict.fromkeys(_counters(), 0), **fixed, "K8": group_norms}
+    K7 once per int8 layer call (`count_int8_calls`), every other kernel
+    0."""
+    k7 = {f"K7-{kind}": sum(n for key, n in (int8_calls or {}).items()
+                            if key[0] == kind) for kind in ("dense", "conv")}
+    return {**dict.fromkeys(_counters(), 0), **fixed, "K8": group_norms, **k7}
 
 
 def count_group_norms(*towers):
@@ -896,21 +1272,28 @@ def count_group_norms(*towers):
     return seen, handles
 
 
-def profile_forward(unet, dev, label):
-    """One 2-row UNet forward at 576x1024 under torch.profiler: device time
-    by op (top 14 by self time), busy time and the forward's event time.
-    Returns the GroupNorm calls of one such forward (`count_group_norms`)."""
+def forward_args(dev):
+    """A 2-row UNet forward's inputs at 576x1024, 14 frames, from a seed."""
     g = torch.Generator(device=dev).manual_seed(2)
-    args = (torch.randn(2, FRAMES, 72, 128, 8, generator=g, device=dev),
+    return (torch.randn(2, FRAMES, 72, 128, 8, generator=g, device=dev),
             torch.full((2,), 0.5, device=dev),
             torch.randn(2, 1, 1024, generator=g, device=dev),
             torch.tensor([[6.0, 127.0, 0.02]] * 2, device=dev),
             torch.zeros(2, FRAMES, 14, device=dev))
+
+
+def profile_forward(unet, dev, label):
+    """One 2-row UNet forward at 576x1024 under torch.profiler: device time
+    by op (top 14 by self time), busy time and the forward's event time.
+    Returns the GroupNorm and int8 layer calls of one such forward
+    (`count_group_norms`, `count_int8_calls`) and its event time."""
+    args = forward_args(dev)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     norms, hooks = count_group_norms(unet)
+    int8_calls, int8_hooks = count_int8_calls(unet)
     with torch.inference_mode():
         unet(*args)
-        for h in hooks:
+        for h in hooks + int8_hooks:
             h.remove()
         fwd_ms = cuda_ms(lambda: unet(*args), 3)
         with torch.profiler.profile(activities=acts) as prof:
@@ -921,7 +1304,7 @@ def profile_forward(unet, dev, label):
           f"mean of 3); device busy {busy_ms(prof):.2f} ms in the profiled "
           "forward", flush=True)
     print_top(prof)
-    return norms
+    return norms, int8_calls, fwd_ms
 
 
 def busy_ms(prof) -> float:
@@ -937,6 +1320,7 @@ KERNEL_CLASSES = (
     ("K8 GroupNorm", ("gn_stats", "gn_finalize", "gn_apply")),
     ("port attention and feed-forward kernels",
      ("flash_attn", "temporal_attn", "geglu_ffn")),
+    ("K7 W8A8 product and conv", ("w8a8", "quant_rows", "amax_abs")),
     ("GEMM and conv", ("gemm", "xmma", "nvjet", "cutlass", "cudnn", "conv",
                        "wgmma", "sm80_", "sm90_")),
     ("LayerNorm", ("layer_norm",)),
@@ -975,22 +1359,30 @@ def print_top(prof, n: int = 12) -> None:
 
 def slice_phase(dev, label: str, requests: int, **config):
     """`requests` full-width requests of one configuration (K6's gate from
-    the environment, WIW_FUSED_FF_GATE, as the worker reads it)."""
+    the environment, WIW_FUSED_FF_GATE, as the worker reads it). Returns
+    the launches, the GroupNorm and int8 layer calls of the last request
+    and of a 2-row forward, the last request's frames and the forward's
+    event time."""
+    from wiw_tpu_torch.ops import quant as TQ
     from wiw_tpu_torch.workers.svd_action import SVDActionWorker
 
     t0 = time.perf_counter()
     worker = SVDActionWorker(
         width=1024, height=576, num_frames=FRAMES, num_inference_steps=STEPS,
         out_width=480, out_height=480, action_strategy="micro_cond",
-        action_input_channel=14, dtype="bfloat16", quantize="bf16",
-        cfg_schedule="serving", device="cuda", seed=0,
-        **{"fused_ff": False, "temporal_attention": "batched", **config})
+        action_input_channel=14, dtype="bfloat16", cfg_schedule="serving",
+        device="cuda", seed=0, **{"fused_ff": False, "quantize": "bf16",
+                                  "temporal_attention": "batched", **config})
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in worker.pipe.unet.parameters())
+    n_int8 = TQ.count_quantized(worker.pipe.unet)
     print(f"{label} worker built: UNet {n_params / 1e9:.3f} B params, "
           f"config fused_ff={worker.pipe.unet_config.fused_ff} "
-          f"temporal_attention={worker.pipe.unet_config.temporal_attention}, "
+          f"temporal_attention={worker.pipe.unet_config.temporal_attention} "
+          f"quantize={worker.quantize} ({n_int8} int8 weights), "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if (n_int8 > 0) != (worker.quantize == "int8"):
+        raise RuntimeError(f"{label}: {n_int8} int8 weights in {worker.quantize}")
 
     # device-side probes: denoise window (first UNet call -> last), and a
     # finiteness flag over every UNet and decoder output, read after each
@@ -1015,6 +1407,7 @@ def slice_phase(dev, label: str, requests: int, **config):
              worker.pipe.unet.register_forward_hook(post),
              worker.pipe.vae.decoder.register_forward_hook(decoded)]
     norms, norm_hooks = count_group_norms(worker.pipe.unet, worker.pipe.vae)
+    int8_calls, int8_hooks = count_int8_calls(worker.pipe.unet, worker.pipe.vae)
 
     rng = np.random.default_rng(0)
     request = {
@@ -1028,6 +1421,7 @@ def slice_phase(dev, label: str, requests: int, **config):
     for i in range(requests):
         marks.clear()
         norms.clear()
+        int8_calls.clear()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()  # count this request of this path only
         t = time.perf_counter()
@@ -1035,9 +1429,10 @@ def slice_phase(dev, label: str, requests: int, **config):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = launches()
-        want = expected(PER_REQUEST[label], sum(norms.values()))
+        want = expected(PER_REQUEST[label], sum(norms.values()), int8_calls)
         frames = out["pred_frames"]
         denoise_s = marks["start"].elapsed_time(marks["end"]) / 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
         print(f"{label} request {i}: {secs:.3f} s, denoise {denoise_s:.3f} s = "
               f"{FRAMES / denoise_s:.4f} frames/s, pred_frames {frames.shape} "
               f"{frames.dtype}, finite {bool(finite)}, std {frames.std():.3f}, "
@@ -1047,20 +1442,29 @@ def slice_phase(dev, label: str, requests: int, **config):
             raise RuntimeError(f"bad pred_frames {frames.shape} {frames.dtype}")
         if not bool(finite) or frames.min() == frames.max():
             raise RuntimeError("non-finite or constant output")
-        if counts != want or not counts["K8"]:
+        if counts != want or not counts["K8"] or (
+                (counts["K7-dense"] > 0) != (worker.quantize == "int8")):
             raise RuntimeError(f"{label}: launches {counts}, expected {want}")
         for k in total:
             total[k] += counts[k]
-    for h in hooks + norm_hooks:
+    for h in hooks + norm_hooks + int8_hooks:
         h.remove()
     reset_launches()
-    forward_norms = profile_forward(worker.pipe.unet, dev, label)
+    forward_norms, forward_int8, fwd_ms = profile_forward(worker.pipe.unet, dev,
+                                                          label)
+    info = {"request": norms, "forward": forward_norms, "frames": frames,
+            "int8_request": int8_calls, "int8_forward": forward_int8,
+            "s": secs, "frames_s": FRAMES / denoise_s, "forward_ms": fwd_ms,
+            "peak_gib": peak,
+            "int8_weights": n_int8}
+    if worker.quantize == "int8":
+        info["k6_bypass"] = k6_bypass(worker.pipe.unet, dev)
     del worker
     gc.collect()
     torch.cuda.empty_cache()
-    # the GroupNorm calls of the last request and of one 2-row forward, for
-    # K8's phase
-    return total, {"request": norms, "forward": forward_norms}
+    # the GroupNorm and int8 calls of the last request and of one 2-row
+    # forward, for K8's and K7's phases
+    return total, info
 
 
 def main() -> int:
@@ -1085,7 +1489,7 @@ def main() -> int:
           flush=True)
 
     libs = ("flash_attn_fwd", "flash_attn_bwd", "temporal_attn", "geglu_ffn",
-            "group_norm")
+            "group_norm", "w8a8", "flash_attn_i8")
     t0 = time.perf_counter()
     native.load_libraries(*libs)
     print(f"build (sm_90a, one nvcc per source in parallel): "
@@ -1132,6 +1536,37 @@ def main() -> int:
                   "one 2-row UNet forward (request_*: one default request, all "
                   "towers); library: F.group_norm (+ F.silu) on the [N, C, L] view",
                   library=True),
+        "K7-dense": Row("w8a8_dense", "wiw_tpu_torch/csrc/w8a8.cu",
+                        "wiw_tpu/ops/quant.py:97",
+                        "one 2-row int8 UNet forward: its GEGLU in-projections "
+                        "(request_*: one int8 request); library: torch._int_mm "
+                        "on the same int8 operands, the product alone",
+                        library=True),
+        "K7-conv": Row("w8a8_conv", "wiw_tpu_torch/csrc/w8a8.cu",
+                       "wiw_tpu/ops/quant.py:115",
+                       "one 2-row int8 UNet forward: its 3x3 convs (request_*: "
+                       "one int8 request; vae_conv: the VAE decoder's largest "
+                       "int8 conv); no int8 conv in PyTorch", library=False),
+        "K9-floor": Row("flash_attn_fwd_d64_floor", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
+                        "scripts/tune_attention2.py:78",
+                        "one call at B*H = 140, S = 9216; no model caller",
+                        library=False),
+        "K9-noexp": Row("flash_attn_fwd_d64_noexp", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
+                        "scripts/tune_attention2.py:95",
+                        "one call at B*H = 140, S = 9216; no model caller",
+                        library=False),
+        "K9-v2": Row("flash_attn_fwd_d64_v2", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
+                     "scripts/tune_attention2.py:122",
+                     "one call at B*H = 140, S = 9216 (K1's code on the "
+                     "pre-scaled q); no model caller", library=True),
+        "K10": Row("flash_attn_i8qk", "wiw_tpu_torch/csrc/flash_attn_i8.cu",
+                   "scripts/probe_int8_attention.py:48",
+                   "one call at B*H = 140, S = 9216, bf16 PV; no model caller",
+                   library=False),
+        "K10-i8pv": Row("flash_attn_i8qk_i8pv", "wiw_tpu_torch/csrc/flash_attn_i8.cu",
+                        "scripts/probe_int8_attention.py:48",
+                        "one call at B*H = 140, S = 9216, int8 PV; no model "
+                        "caller", library=False),
     }
     g = torch.Generator(device=dev).manual_seed(0)
     k1_phase(rows["K1"], dev, g)
@@ -1141,12 +1576,33 @@ def main() -> int:
     k3_phase(rows["K1"], rows["K3"], dev, g)
     k6_backward_check(dev, g)
     k8_checks(dev, g)
+    attention_probe_phase(rows, dev, g)
     torch.cuda.empty_cache()
 
     small_reference_phase(dev)
     by_path = {}
-    by_path["default"], norms = slice_phase(dev, "default", 1)
-    k8_phase(rows["K8"], norms["forward"], norms["request"], dev, g)
+    by_path["default"], info = slice_phase(dev, "default", 1)
+    k8_phase(rows["K8"], info["forward"], info["request"], dev, g)
+    by_path["int8"], info8 = slice_phase(dev, "int8", 1, **INT8)
+    mse = np.mean((info8["frames"].astype(np.float64)
+                   - info["frames"].astype(np.float64)) ** 2)
+    psnr = 10 * np.log10(255.0 ** 2 / mse) if mse else float("inf")
+    print(f"int8 against default, same seed and weights: {info8['int8_weights']} "
+          f"int8 weights; {info8['s']:.3f} vs {info['s']:.3f} s/request, "
+          f"{info8['frames_s']:.4f} vs {info['frames_s']:.4f} denoise frames/s, "
+          f"2-row forward {info8['forward_ms']:.2f} vs {info['forward_ms']:.2f} ms, "
+          f"peak {info8['peak_gib']:.2f} vs {info['peak_gib']:.2f} GiB; decoded "
+          f"frames PSNR {psnr:.2f} dB (random weights: no quality figure); K6 "
+          f"steps aside at {info8['k6_bypass']} feed-forwards a forward", flush=True)
+    if not np.isfinite(mse) or psnr < 10:
+        raise RuntimeError(f"int8 frames far from bf16's: PSNR {psnr:.2f} dB")
+    k7_phase(rows["K7-dense"], rows["K7-conv"], info8["int8_forward"],
+             info8["int8_request"], vae_int8_calls(dev), dev, g)
+    for key in ("int8_weights", "s", "frames_s", "forward_ms", "peak_gib",
+                "k6_bypass"):
+        rows["K7-dense"].d[f"int8_{key}"] = info8[key]
+    rows["K7-dense"].d["int8_psnr_db_vs_bf16"] = psnr
+    del info, info8
     by_path["fused"], _ = slice_phase(dev, "fused", 1, **FUSED)
     os.environ["WIW_FUSED_FF_GATE"] = "bf16"  # read by the worker, as the reference's
     try:
@@ -1161,7 +1617,8 @@ def main() -> int:
               f"({d['bound_by']}), library {d['library_ms']}", flush=True)
         d["launches"] = sum(p[key] for p in by_path.values())
         d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
-        d["on_main_path"] = key not in ("K2", "K2-unroll2", "K5")
+        d["on_main_path"] = key not in ("K2", "K2-unroll2", "K5", "K9-floor",
+                                        "K9-noexp", "K9-v2", "K10", "K10-i8pv")
         if d["on_main_path"] and not d["launches"]:
             raise RuntimeError(f"{key} was not launched on any path")
     rows["K1"].d["lse_per"] = ("one 1-row training forward: 16 calls at "

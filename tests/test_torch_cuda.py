@@ -458,3 +458,172 @@ def test_training_step_on_card_matches_the_cpu_step(cuda_device):
     for d, s in states.items():
         assert not torch.equal(s.params["conv_in.weight"].detach().cpu(),
                                before["conv_in.weight"])
+
+
+# ------------------------------------------------- K7 (W8A8), K9, K10
+# K7 repeats its plain version's arithmetic exactly (the same IEEE
+# division and round-half-to-even for the codes, exact int32 sums, the same
+# fp32 epilogue operations in the same order), so its output bits equal the
+# plain version's. K9 and K10 round where their plain versions do but sum
+# in another order: the tolerance above (`_close`), the plain versions at
+# the kernels' kv block width (64).
+
+
+def _k7_dense_args(dev, M, K, N, x_dtype, bias):
+    from wiw_tpu_torch.ops import quant as TQ
+
+    g = torch.Generator(device=dev).manual_seed(M + K + N)
+    x = (torch.randn(M, K, generator=g, device=dev) * 2).to(x_dtype)
+    x[3] = 0.0  # a zero row: the 1e-8 floor of the scale
+    w8, ws = TQ.quantize_kernel(torch.randn(N, K, generator=g, device=dev) * 0.1)
+    b = torch.randn(N, generator=g, device=dev) if bias else None
+    return x, w8, ws, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(1000, 320, 2560), (77, 64, 72), (4032, 1280, 1280)])
+@pytest.mark.parametrize("x_dtype,out_dtype,bias", [
+    (torch.bfloat16, torch.bfloat16, True), (torch.float32, torch.float32, False),
+    (torch.bfloat16, torch.float32, True)])
+def test_w8a8_dense_kernel_equals_plain_on_card(cuda_device, M, K, N, x_dtype,
+                                                out_dtype, bias):
+    from wiw_tpu_torch.ops import quant as TQ
+
+    x, w8, ws, b = _k7_dense_args(cuda_device, M, K, N, x_dtype, bias)
+    before = TQ.w8a8_dense.launches
+    out = TQ.w8a8_dense(x.view(1, M, K), w8, ws, b, out_dtype)
+    torch.cuda.synchronize()
+    assert TQ.w8a8_dense.launches == before + 1
+    assert out.shape == (1, M, N) and out.dtype == out_dtype
+    assert torch.equal(out[0], TQ.w8a8_dense_plain(x, w8, ws, b, out_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,O,k,stride,pad", [
+    ((3, 20, 24, 64), 72, 3, 1, 1), ((2, 17, 15, 32), 64, 3, 2, 1),
+    ((2, 9, 10, 48), 40, 1, 1, 0), ((1, 72, 128, 320), 320, 3, 1, 1)])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_w8a8_conv_kernel_equals_plain_on_card(cuda_device, shape, O, k, stride,
+                                               pad, x_dtype):
+    from wiw_tpu_torch.ops import quant as TQ
+
+    g = torch.Generator(device=cuda_device).manual_seed(O)
+    x = (torch.randn(*shape, generator=g, device=cuda_device) * 1.5).to(x_dtype)
+    w8, ws = TQ.quantize_kernel(torch.randn(O, k, k, shape[-1], generator=g,
+                                            device=cuda_device) * 0.05)
+    b = torch.randn(O, generator=g, device=cuda_device)
+    before = TQ.w8a8_conv.launches
+    out = TQ.w8a8_conv(x, w8, ws, b, stride=stride, padding=pad)
+    torch.cuda.synchronize()
+    assert TQ.w8a8_conv.launches == before + 1
+    ref = TQ.w8a8_conv_plain(x, w8, ws, b, stride=stride, padding=pad)
+    assert out.shape == ref.shape and torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_w8a8_kernels_reject_inputs_they_do_not_take(cuda_device):
+    from wiw_tpu_torch.ops import quant as TQ
+
+    x, w8, ws, b = _k7_dense_args(cuda_device, 64, 64, 64, torch.bfloat16, True)
+    with pytest.raises(ValueError):  # K not a multiple of 16
+        TQ.w8a8_dense(x[:, :40], w8[:, :40].contiguous(), ws, b)
+    with pytest.raises(TypeError):  # a float weight
+        TQ.w8a8_dense(x, w8.float(), ws, b)
+    with pytest.raises(ValueError):  # a bf16 bias
+        TQ.w8a8_dense(x, w8, ws, b.bfloat16())
+    xc = torch.randn(1, 8, 8, 24, device=cuda_device)
+    w8c, wsc = TQ.quantize_kernel(torch.randn(16, 3, 3, 24, device=cuda_device))
+    with pytest.raises(ValueError):  # C not a multiple of 16
+        TQ.w8a8_conv(xc, w8c, wsc, padding=1)
+    xc = torch.randn(1, 8, 8, 32, device=cuda_device)
+    w8c, wsc = TQ.quantize_kernel(torch.randn(16, 3, 3, 32, device=cuda_device))
+    with pytest.raises(ValueError):  # not contiguous NHWC
+        TQ.w8a8_conv(xc.transpose(1, 2), w8c, wsc, padding=1)
+
+
+@pytest.mark.cuda
+def test_int8_unet_layers_take_k7_on_card(cuda_device):
+    """A quantised Linear and Conv2d of the model route through K7 on the
+    card, with the module's compute dtype as output dtype."""
+    from wiw_tpu_torch.models.layers import Conv2d, Linear
+    from wiw_tpu_torch.ops import quant as TQ
+
+    lin = Linear(64, 128).to(cuda_device)
+    conv = Conv2d(32, 48, 3, padding=1).to(cuda_device)
+    for m in (lin, conv):
+        TQ.quantize_module_(m, torch.bfloat16)
+    d, c = TQ.w8a8_dense.launches, TQ.w8a8_conv.launches
+    y = lin(torch.randn(2, 5, 64, device=cuda_device, dtype=torch.bfloat16))
+    z = conv(torch.randn(2, 6, 7, 32, device=cuda_device, dtype=torch.bfloat16))
+    torch.cuda.synchronize()
+    assert (TQ.w8a8_dense.launches, TQ.w8a8_conv.launches) == (d + 1, c + 1)
+    assert y.dtype == z.dtype == torch.bfloat16 and z.shape == (2, 6, 7, 48)
+
+
+def _bhsd(dev, B, H, S, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(B, S, H * 64, generator=g, device=dev).to(torch.bfloat16)
+            .view(B, S, H, 64).transpose(1, 2) for _ in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["floor", "noexp", "v2"])
+@pytest.mark.parametrize("B,H,S", [(1, 3, 256), (2, 2, 1024)])
+def test_ablation_kernels_match_plain_on_card(cuda_device, variant, B, H, S):
+    fn = getattr(TFA, f"attention_{variant}")
+    plain = getattr(TFA, f"attention_{variant}_plain")
+    q, k, v = _bhsd(cuda_device, B, H, S, S + B)
+    before = fn.launches
+    out = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    if variant == "noexp":
+        # out = acc / (d + 1) has a pole where a row's denominator nears -1;
+        # there the two sides' ~1e-6 difference in S is amplified without
+        # bound: the rows with |d + 1| >= 1 are held to the tolerance, the
+        # others must be finite
+        ref, d1 = plain(q, k, v, bkv=TFA.KV_TILE, with_denominator=True)
+        well = (d1.abs() >= 1).expand_as(ref)
+        assert bool(torch.isfinite(out).all()) and well.float().mean() > 0.99
+        _close(out[well], ref[well])
+    else:
+        _close(out, plain(q, k, v, bkv=TFA.KV_TILE))
+
+
+@pytest.mark.cuda
+def test_ablation_v2_is_k1_code_on_card(cuda_device):
+    """K9 v2 is K1's kernel on the pre-scaled q with a unit scale: the same
+    bits."""
+    q, k, v = _bhsd(cuda_device, 1, 2, 576, 3)
+    out = TFA.attention_v2(q, k, v)
+    ref = TFA._launch_fwd(TFA.prescale_q(q), k, v, False, 1, sm_scale=1.0)[0]
+    assert torch.equal(out, ref)
+    with pytest.raises(ValueError):  # Skv not a multiple of 64
+        TFA.attention_noexp(q[:, :, :100], k[:, :, :100], v[:, :, :100])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("i8pv", [False, True])
+@pytest.mark.parametrize("BH,S", [(2, 256), (3, 1024)])
+def test_int8_qk_attention_kernel_matches_plain_on_card(cuda_device, i8pv, BH, S):
+    from wiw_tpu_torch.ops import int8_attention as TI
+
+    g = torch.Generator(device=cuda_device).manual_seed(BH * S)
+
+    def i8(*shape):
+        return (torch.randn(*shape, generator=g, device=cuda_device) * 40).round(
+        ).clamp(-127, 127).to(torch.int8)
+
+    q8, k8 = i8(BH, S, 64), i8(BH, S, 64)
+    v = i8(BH, S, 65) if i8pv else torch.randn(
+        BH, S, 65, generator=g, device=cuda_device).bfloat16()
+    v[..., 64] = 1
+    attr = "launches_i8pv" if i8pv else "launches"
+    before = getattr(TI.int8_qk_attention, attr)
+    out = TI.int8_qk_attention(q8, k8, v, 1e-3, i8pv)
+    torch.cuda.synchronize()
+    assert getattr(TI.int8_qk_attention, attr) == before + 1
+    assert out.shape == (BH, S, 65) and out.dtype == torch.bfloat16
+    _close(out, TI.int8_qk_attention_plain(q8, k8, v, 1e-3, i8pv))
+    with pytest.raises(ValueError):  # v of the other PV type
+        TI.int8_qk_attention(q8, k8, v, 1e-3, not i8pv)

@@ -9,8 +9,9 @@ reference's own draws do not enter. Decoding runs in chunks of 2 frames
 (2 + 1), so the chunk loop is exercised too.
 
 Also here: the import guard and a static scan (no module of wiw_tpu_torch,
-nor chip_smoke.py, imports jax, flax or wiw_tpu), and one generate with the
-fused-kernel configuration (K4, K6) on the same weights.
+nor chip_smoke.py, imports jax, flax or wiw_tpu), one generate with the
+fused-kernel configuration (K4, K6) on the same weights, and one in W8A8
+int8 (`quantize_unet()` on both sides).
 """
 
 import ast
@@ -32,6 +33,7 @@ from wiw_tpu_torch.core import schedule as TS
 from wiw_tpu_torch.models.clip import CLIPVisionConfig
 from wiw_tpu_torch.models.unet import UNetConfig
 from wiw_tpu_torch.models.vae import VAEConfig
+from wiw_tpu_torch.ops import quant as Q
 from wiw_tpu_torch.sampling.pipeline import GenerationConfig, SVDPipeline
 
 torch.set_num_threads(1)
@@ -95,6 +97,17 @@ def runs():
                         port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
     fused.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
     out["fused"] = fused.generate(*args, **kw).numpy()
+    # W8A8: each side quantises the fp32 weights it holds (the reference
+    # its tree, the port the values it loads)
+    int8 = SVDPipeline(port_cfg(UNetConfig, J_UNET),
+                       port_cfg(VAEConfig, TINY_VAE),
+                       port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
+    out["int8_count"] = int8.quantize_unet()
+    int8.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
+    out["int8"] = int8.generate(*args, **kw).numpy()
+    ref["int8_count"] = jpipe.quantize_unet()
+    ref["int8"] = np.asarray(jpipe.generate(key, image, jgen, actions=actions,
+                                            init_latents=noise))
     return gen, ref, out
 
 
@@ -123,6 +136,23 @@ def test_generate_fused_config_matches_reference(runs):
     np.testing.assert_allclose(out["fused"], out["video"], atol=1e-4, rtol=0)
 
 
+def test_generate_int8_matches_reference_within_its_own_spread(runs):
+    """W8A8 after `quantize_unet()` on both sides: the same 30 int8 weights,
+    and frames within the spread of the reference's own int8 pipeline.
+    Tolerance: the int8 UNet is chaotic at the level of activation codes (a
+    ~1e-7 reordering moves a code by one step of amax/127, and later int8
+    layers carry it on): the reference's int8 frames move by max 0.092 /
+    mean 0.0089 when its init latents move by 1e-6 relative. So max 0.25,
+    mean 0.02 (measured 0.106 / 0.0090); the int8 route moves the port's
+    frames off its fp32 ones (by ~0.07, as the reference's)."""
+    _, ref, out = runs
+    assert out["int8_count"] == ref["int8_count"] == 30
+    assert out["int8"].shape == ref["int8"].shape == (1, 3, 64, 64, 3)
+    diff = np.abs(out["int8"] - ref["int8"])
+    assert diff.max() <= 0.25 and diff.mean() <= 0.02, (diff.max(), diff.mean())
+    assert np.abs(out["int8"] - out["video"]).max() > 1e-2
+
+
 def test_generate_uint8_frames_within_one_level(runs):
     _, ref, out = runs
     assert out["u8"].dtype == np.uint8 and out["u8"].shape == (1, 3, 48, 40, 3)
@@ -144,11 +174,20 @@ def test_alt_tail_policy_is_not_ported_yet():
                       generator=torch.Generator().manual_seed(1))
 
 
-def test_worker_refuses_int8_and_keeps_bf16_default():
-    from wiw_tpu_torch.workers.svd_action import SVDActionWorker
-
-    with pytest.raises(NotImplementedError, match="M6"):
-        SVDActionWorker(quantize="int8", device="cpu")
+def test_quantize_comes_before_the_weights():
+    """quantize_unet/quantize_vae count the int8 weights to be and mark the
+    towers; after the weights are placed they refuse (the weights as loaded
+    are gone: quantising the cast ones would change codes)."""
+    pipe = SVDPipeline(port_cfg(UNetConfig, J_UNET),
+                       port_cfg(VAEConfig, TINY_VAE),
+                       port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
+    n_unet, n_vae = pipe.quantize_unet(), pipe.quantize_vae()
+    pipe.init_params(torch.Generator().manual_seed(0))
+    assert n_unet == Q.count_quantized(pipe.unet) > 0
+    assert n_vae == Q.count_quantized(pipe.vae) > 0
+    assert Q.count_quantized(pipe.vae.encoder) == 0
+    with pytest.raises(RuntimeError, match="before the weights"):
+        pipe.quantize_unet()
 
 
 def test_decode_chunk_resolution_matches_reference():
@@ -189,7 +228,7 @@ print(len(mods))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 22
+    assert int(r.stdout.split()[-1]) >= 24  # ops/quant, ops/int8_attention too
 
 
 def _reference_imports(source: str) -> list:
@@ -216,6 +255,9 @@ def test_no_reference_import_anywhere_in_port_source():
             (3, "wiw_tpu.serve"), (4, "jax.numpy")]
     files = sorted((REPO / "wiw_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {"wiw_tpu_torch/ops/quant.py",
+            "wiw_tpu_torch/ops/int8_attention.py"} <= names
     bad = [(f.relative_to(REPO), hit) for f in files
            for hit in _reference_imports(f.read_text())]
     assert not bad, bad

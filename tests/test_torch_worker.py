@@ -119,6 +119,8 @@ def test_switches_resolve_as_the_reference(monkeypatch, env, args, cfg, fused, m
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     sw = W.resolve_switches(**args)
+    int8 = (args.get("quantize") or env.get("WIW_QUANT", "")) == "int8"
+    assert sw["quantize"] == ("int8" if int8 else "bf16")
     want_cfg = J_SERVING_CFG if cfg == "serving" else CFGSchedule()
     assert (sw["cfg"].tail_sigma, sw["cfg"].tail_policy) == (
         want_cfg.tail_sigma, want_cfg.tail_policy)
@@ -145,13 +147,42 @@ def test_fused_ff_gate_resolves_as_the_reference(monkeypatch, env, gate):
 
 
 @pytest.mark.parametrize("env,args", [({"WIW_QUANT": "int8"}, {}),
-                                      ({}, {"quantize": "int8"})])
-def test_int8_raises_from_either_source(monkeypatch, env, args):
+                                      ({}, {"quantize": "int8"}),
+                                      ({"WIW_QUANT": "bf16"}, {"quantize": "int8"})])
+def test_int8_resolves_from_either_source(monkeypatch, env, args):
+    """W8A8 is served, not refused: from WIW_QUANT or an explicit argument,
+    which wins over the environment."""
     monkeypatch.delenv("WIW_QUANT", raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="M6"):
-        W.resolve_switches(**args)
+    assert W.resolve_switches(**args)["quantize"] == "int8"
+
+
+def test_worker_quantizes_before_loading(monkeypatch, capsys):
+    """In int8 the worker asks the pipeline for W8A8 before its weights are
+    made (they are quantised as loaded), and prints the reference's line
+    with the count; in bf16 it does not ask."""
+    calls = []
+
+    class Recorder:
+        def __init__(self, unet_config, device):
+            pass
+
+        def quantize_unet(self):
+            calls.append("quantize_unet")
+            return 30
+
+        def init_params(self, generator):
+            calls.append("init_params")
+
+    monkeypatch.setattr(W, "SVDPipeline", Recorder)
+    monkeypatch.delenv("WIW_QUANT", raising=False)
+    worker = W.SVDActionWorker(device="cpu", quantize="int8")
+    assert calls == ["quantize_unet", "init_params"] and worker.quantize == "int8"
+    assert "[svd_action] W8A8 serving mode: 30 int8 kernels" in capsys.readouterr().out
+    calls.clear()
+    assert W.SVDActionWorker(device="cpu").quantize == "bf16"
+    assert calls == ["init_params"]
 
 
 @pytest.mark.parametrize("args", [{"quantize": "fp8"}, {"cfg_schedule": "ful"}])
@@ -209,7 +240,30 @@ def test_cli_passes_the_switches(monkeypatch, argv, fused, mode):
     monkeypatch.setattr(W, "main_from_argv", lambda worker: None)
     W.main(argv)
     assert (seen["fused_ff"], seen["temporal_attention"]) == (fused, mode)
-    assert seen["quantize"] == "" and seen["cfg_schedule"] == ""
+    assert seen["quantize"] == "int8" and seen["cfg_schedule"] == ""
+
+
+@pytest.mark.parametrize("argv", [[], ["--quantize", "bf16"], ["--quantize", ""]])
+def test_cli_quantize_default_is_the_reference(monkeypatch, argv):
+    """The port's CLI passes the reference CLI's `--quantize`: int8 with no
+    flag (wiw_tpu/workers/svd_action.py), bf16 or the environment's when
+    told."""
+    from wiw_tpu.workers import svd_action as JW
+
+    seen = {}
+
+    def record(key):
+        def make(**kw):
+            seen[key] = kw["quantize"]
+            return lambda task: {"pred_frames": np.zeros((1,))}
+        return make
+
+    monkeypatch.setattr(W, "SVDActionWorker", record("port"))
+    monkeypatch.setattr(W, "main_from_argv", lambda worker: None)
+    monkeypatch.setattr(JW, "SVDActionWorker", record("reference"))
+    W.main(argv)
+    JW.main(argv + ["--debug"])
+    assert seen["port"] == seen["reference"] == (argv[1] if argv else "int8")
 
 
 def test_entry_points_default_to_the_card():

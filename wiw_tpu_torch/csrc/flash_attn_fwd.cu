@@ -47,6 +47,22 @@
 // independent products and exponentials of two tiles give the scheduler
 // more to overlap). It needs Skv a multiple of 128, as the reference needs
 // Skv % (2 * bkv) == 0; the wrapper takes the one-tile loop otherwise.
+//
+// K9: the attention ablations of scripts/tune_attention2.py, as the
+// template parameter kMode (one 64-row k/v tile an iteration, Skv a
+// multiple of 64, no LSE):
+//   kFloor (`_kern_floor`): no softmax, O = sum over tiles of bf16(q k^T) v
+//     with the logits unscaled: the two products alone.
+//   kNoExp (`_kern_noexp`): K1's loop with exp replaced by the identity on
+//     unscaled logits: m_new = max(m, rowmax S), P = S - m_new, the running
+//     output and denominator scaled by (m - m_new), not by its exp; the
+//     running max starts at -1e30, as there (at -inf the first scale times
+//     the zero accumulator would be NaN); O = acc / (denominator + 1).
+//     P and the scale depend on the running max at each tile, so the result
+//     depends on the tile width (64 here): the plain version takes it.
+//   `_kern_v2` is K1's function with q pre-scaled by its caller (rounded to
+//     bf16 as `_attn_kernel_v2` rounds it in-kernel): the wrapper pre-scales
+//     q and launches kSoftmax with sm_scale 1, so it is K1's code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,7 +100,9 @@ __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo,
          (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
 }
 
-template <bool kLse, int kTiles>
+enum Mode { kSoftmax = 0, kFloor = 1, kNoExp = 2 };
+
+template <bool kLse, int kTiles, int kMode>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -138,7 +156,9 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
   for (int nt = 0; nt < kD / 8; ++nt) {
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   }
-  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g+8 (log2 domain)
+  // rows g and g+8 (log2 domain); kNoExp starts at the reference's -1e30
+  const float m0 = kMode == kNoExp ? -1e30f : -INFINITY;
+  float m_run[2] = {m0, m0};
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
 
   for (int kv0 = 0; kv0 < Skv; kv0 += kTiles * kBlockN) {
@@ -180,55 +200,90 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
 
-    // scale into the log2 domain, mask the ragged tail, one row max over
-    // the iteration's tiles
-    float mx[2] = {m_run[0], m_run[1]};
+    if constexpr (kMode == kNoExp) {
+      // identity for exp on the unscaled logits (Skv % 64 == 0: no mask)
+      float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-    for (int u = 0; u < kTiles; ++u) {
+      for (int nt = 0; nt < kBlockN / 8; ++nt) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[0][nt][0], s[0][nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[0][nt][2], s[0][nt][3]));
+      }
+      float sc[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        sc[r] = m_run[r] - mx[r];
+        m_run[r] = mx[r];
+      }
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = kv0 + u * kBlockN + nt * 8 + 2 * t + (e & 1);
-          s[u][nt][e] = col < Skv ? s[u][nt][e] * scale_log2 : -INFINITY;
+        for (int e = 0; e < 4; ++e) s[0][nt][e] -= mx[e >> 1];
+        rs[0] += s[0][nt][0] + s[0][nt][1];
+        rs[1] += s[0][nt][2] + s[0][nt][3];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * sc[r] + rs[r];
+#pragma unroll
+      for (int nt = 0; nt < kD / 8; ++nt) {
+        acc[nt][0] *= sc[0];
+        acc[nt][1] *= sc[0];
+        acc[nt][2] *= sc[1];
+        acc[nt][3] *= sc[1];
+      }
+    } else if constexpr (kMode == kSoftmax) {
+      // scale into the log2 domain, mask the ragged tail, one row max over
+      // the iteration's tiles
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int u = 0; u < kTiles; ++u) {
+#pragma unroll
+        for (int nt = 0; nt < kBlockN / 8; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kv0 + u * kBlockN + nt * 8 + 2 * t + (e & 1);
+            s[u][nt][e] = col < Skv ? s[u][nt][e] * scale_log2 : -INFINITY;
+          }
+          mx[0] = fmaxf(mx[0], fmaxf(s[u][nt][0], s[u][nt][1]));
+          mx[1] = fmaxf(mx[1], fmaxf(s[u][nt][2], s[u][nt][3]));
         }
-        mx[0] = fmaxf(mx[0], fmaxf(s[u][nt][0], s[u][nt][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[u][nt][2], s[u][nt][3]));
       }
-    }
-    float alpha[2];
+      float alpha[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      // every iteration holds at least one unmasked column, so mx is finite
-      alpha[r] = exp2f(m_run[r] - mx[r]);
-      m_run[r] = mx[r];
-    }
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // every iteration holds at least one unmasked column, so mx is finite
+        alpha[r] = exp2f(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+      }
 
-    // P = exp2(S - m); partial row sums; rescale the running output
-    float rs[2] = {0.f, 0.f};
+      // P = exp2(S - m); partial row sums; rescale the running output
+      float rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int u = 0; u < kTiles; ++u) {
+      for (int u = 0; u < kTiles; ++u) {
 #pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        s[u][nt][0] = exp2f(s[u][nt][0] - mx[0]);
-        s[u][nt][1] = exp2f(s[u][nt][1] - mx[0]);
-        s[u][nt][2] = exp2f(s[u][nt][2] - mx[1]);
-        s[u][nt][3] = exp2f(s[u][nt][3] - mx[1]);
-        rs[0] += s[u][nt][0] + s[u][nt][1];
-        rs[1] += s[u][nt][2] + s[u][nt][3];
+        for (int nt = 0; nt < kBlockN / 8; ++nt) {
+          s[u][nt][0] = exp2f(s[u][nt][0] - mx[0]);
+          s[u][nt][1] = exp2f(s[u][nt][1] - mx[0]);
+          s[u][nt][2] = exp2f(s[u][nt][2] - mx[1]);
+          s[u][nt][3] = exp2f(s[u][nt][3] - mx[1]);
+          rs[0] += s[u][nt][0] + s[u][nt][1];
+          rs[1] += s[u][nt][2] + s[u][nt][3];
+        }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
 #pragma unroll
-    for (int nt = 0; nt < kD / 8; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
+      for (int nt = 0; nt < kD / 8; ++nt) {
+        acc[nt][0] *= alpha[0];
+        acc[nt][1] *= alpha[0];
+        acc[nt][2] *= alpha[1];
+        acc[nt][3] *= alpha[1];
+      }
+    }  // kFloor: P is S itself
 
     // O += P v: the S accumulator of tiles (2kc, 2kc+1) is the A fragment
     // of k-chunk kc; v's B fragment is gathered from row-major shared memory
@@ -258,8 +313,11 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  const float inv0 = 1.f / l_run[0];
-  const float inv1 = 1.f / l_run[1];
+  // kSoftmax: acc / l; kNoExp: acc / (l + 1); kFloor: acc
+  const float inv0 = kMode == kFloor ? 1.f
+                     : 1.f / (kMode == kNoExp ? l_run[0] + 1.f : l_run[0]);
+  const float inv1 = kMode == kFloor ? 1.f
+                     : 1.f / (kMode == kNoExp ? l_run[1] + 1.f : l_run[1]);
   const int row0 = q0 + g;
   const int row1 = q0 + g + 8;
 #pragma unroll
@@ -293,23 +351,31 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
 // viewed as [B, H, S, 64] with unit stride on the last dim; strides are in
 // elements. `lse` is null (serving) or an fp32 [B*H, Sq] buffer (training).
 // `tiles` is 1 (K1, K2's v1) or 2 (K2's unroll2: Skv a multiple of 128, no
-// LSE). Launches on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for what it refuses).
+// LSE). `mode` is kSoftmax (K1, K2, K9's v2), or K9's kFloor or kNoExp (one
+// tile, no LSE, Skv a multiple of 64). Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for what it refuses).
 extern "C" int wiw_flash_attn_fwd_d64(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H,
     int Sq, int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int tiles,
-    void* stream) {
-  if (tiles != 1 && (tiles != 2 || Skv % (2 * kBlockN) || lse != nullptr)) {
+    int mode, void* stream) {
+  if (tiles != 1 && (tiles != 2 || Skv % (2 * kBlockN) || lse != nullptr ||
+                     mode != kSoftmax)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (mode != kSoftmax && ((mode != kFloor && mode != kNoExp) ||
+                           Skv % kBlockN || lse != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
   const float scale_log2 = sm_scale * 1.4426950408889634f;
-  auto kernel = tiles == 2 ? flash_attn_fwd_d64_kernel<false, 2>
-                : lse != nullptr ? flash_attn_fwd_d64_kernel<true, 1>
-                                 : flash_attn_fwd_d64_kernel<false, 1>;
+  auto kernel = mode == kFloor     ? flash_attn_fwd_d64_kernel<false, 1, kFloor>
+                : mode == kNoExp   ? flash_attn_fwd_d64_kernel<false, 1, kNoExp>
+                : tiles == 2       ? flash_attn_fwd_d64_kernel<false, 2, kSoftmax>
+                : lse != nullptr   ? flash_attn_fwd_d64_kernel<true, 1, kSoftmax>
+                                   : flash_attn_fwd_d64_kernel<false, 1, kSoftmax>;
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),

@@ -10,6 +10,13 @@ dicts for the port: `flax_to_torch(params_np)`.
 Layouts: torch Conv2d [O, I, kh, kw] <-> flax [kh, kw, I, O];
 Conv3d [O, I, kt, kh, kw] <-> [kt, kh, kw, I, O]; Linear [O, I] <-> [I, O];
 norm weight/bias <-> scale/bias.
+
+Quantised trees (the reference's `ops/quant.quantize_params`): an int8
+`kernel` with its fp32 `kernel_scale` <-> the port's int8 `weight` with its
+`weight_scale`, in the layout the port keeps for the int8 weight: Linear
+[O, I] as above, Conv2d [O, kh, kw, I] <-> flax [kh, kw, I, O].
+`load_flax_params` makes the module's layers int8 where the tree's kernels
+are, then loads with full coverage both ways, as for a float tree.
 """
 
 from __future__ import annotations
@@ -108,12 +115,17 @@ def translate_key(torch_key: str) -> tuple[str, ...]:
             parts[-1] = "scale" if leaf == "weight" else "bias"
         elif leaf == "weight":
             parts[-1] = "kernel"
+    elif leaf == "weight_scale":
+        parts[-1] = "kernel_scale"
     return tuple(parts)
 
 
 def convert_tensor(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
-    """torch layout -> flax layout, by leaf name and rank."""
+    """torch layout -> flax layout, by leaf name, rank and dtype (an int8
+    conv weight is the port's [O, kh, kw, I])."""
     if path[-1] == "kernel":
+        if value.ndim == 4 and value.dtype == np.int8:
+            return value.transpose(1, 2, 3, 0)
         if value.ndim == 4:
             return value.transpose(2, 3, 1, 0)
         if value.ndim == 5:
@@ -129,6 +141,8 @@ def torch_key(path: tuple[str, ...]) -> str:
     parts = list(path)
     if parts[-1] in ("kernel", "scale"):
         parts[-1] = "weight"
+    elif parts[-1] == "kernel_scale":
+        parts[-1] = "weight_scale"
     s = "/".join(parts)
     for pat, repl in _LIST_SPLITS:
         s = re.sub(pat, repl, s)
@@ -142,6 +156,8 @@ def torch_key(path: tuple[str, ...]) -> str:
 def unconvert_tensor(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
     """flax layout -> torch layout (inverse of `convert_tensor`)."""
     if path[-1] == "kernel":
+        if value.ndim == 4 and value.dtype == np.int8:
+            return value.transpose(3, 0, 1, 2)
         if value.ndim == 4:
             return value.transpose(3, 2, 0, 1)
         if value.ndim == 5:
@@ -160,10 +176,14 @@ def _flatten(tree: Mapping, prefix=()) -> Iterable[tuple[tuple[str, ...], object
 
 
 def flax_to_torch(params_np: Mapping) -> Dict[str, torch.Tensor]:
-    """Nested flax params (numpy leaves) -> torch state dict (fp32 CPU)."""
+    """Nested flax params (numpy leaves) -> torch state dict (CPU; int8
+    kernels stay int8, every other leaf becomes fp32)."""
     out = {}
     for path, value in _flatten(params_np):
-        arr = unconvert_tensor(path, np.asarray(value, dtype=np.float32))
+        value = np.asarray(value)
+        if value.dtype != np.int8:
+            value = value.astype(np.float32)
+        arr = unconvert_tensor(path, value)
         out[torch_key(path)] = torch.from_numpy(np.array(arr, order="C"))
     return out
 
@@ -171,8 +191,23 @@ def flax_to_torch(params_np: Mapping) -> Dict[str, torch.Tensor]:
 def load_flax_params(module: nn.Module, params_np: Mapping) -> nn.Module:
     """Load a flax tree into `module`, requiring full coverage both ways:
     every module parameter gets a leaf and no leaf is left over. Values are
-    cast to each parameter's dtype and device."""
+    cast to each parameter's dtype and device. A layer whose kernel is int8
+    in the tree (with its `kernel_scale`) is made int8 first
+    (`ops/quant.make_int8_`, output in its compute dtype)."""
+    from wiw_tpu_torch.ops.quant import make_int8_
+
     state = flax_to_torch(params_np)
+    for key in [k for k in state if k.endswith(".weight_scale")]:
+        name = key[:-len(".weight_scale")]
+        try:
+            m = module.get_submodule(name)
+        except AttributeError:
+            continue  # reported as unexpected below
+        w8 = state.get(name + ".weight")
+        if w8 is not None and w8.dtype == torch.int8:
+            dev = m.weight.device
+            make_int8_(m, torch.empty(w8.shape, dtype=torch.int8, device=dev),
+                       torch.empty(w8.shape[0], device=dev), m.compute_dtype)
     own = module.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))

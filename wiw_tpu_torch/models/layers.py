@@ -14,6 +14,13 @@ compute in fp32, returning the input dtype (`cast_matmul_weights` casts
 only Linear/Conv weights, never a norm). No `torch.autocast`: its per-op
 rules are not the reference's.
 
+W8A8 int8 (the reference's `Dense`/`Conv` int8 route): a Linear or Conv2d
+whose weight `ops/quant.quantize_params` made int8, with an fp32
+`weight_scale` beside it, computes through kernel K7 (`w8a8_dense`,
+`w8a8_conv`) on its input as it arrives, never promoted first, and returns
+its compute dtype (the model dtype). `cast_matmul_weights` leaves such a
+layer as it is (int8 weight, fp32 scale and bias).
+
 Submodule and parameter names are the diffusers ones, so checkpoints load
 with `load_state_dict` and `models/convert.py` maps the reference's flax
 trees onto them.
@@ -33,6 +40,7 @@ from wiw_tpu_torch.ops.fused_mlp import (
     lnff_eligible,
 )
 from wiw_tpu_torch.ops.group_norm import group_norm
+from wiw_tpu_torch.ops.quant import w8a8_conv, w8a8_dense
 from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention
 
 
@@ -45,6 +53,10 @@ class _Promote:
     @property
     def compute_dtype(self) -> torch.dtype:
         return self._compute_dtype or self.weight.dtype
+
+    @property
+    def int8(self) -> bool:
+        return self.weight.dtype == torch.int8
 
     def _promoted(self, x):
         dt = self.compute_dtype
@@ -65,6 +77,9 @@ class Linear(_Promote, nn.Linear):
     """nn.Linear that casts input, weight and bias to its compute dtype."""
 
     def forward(self, x):
+        if self.int8:
+            return w8a8_dense(x, self.weight, self.weight_scale, self.bias,
+                              self.compute_dtype)
         return F.linear(*self._promoted(x))
 
 
@@ -79,6 +94,10 @@ class Conv2d(_Promote, nn.Conv2d):
         self.pad = pad
 
     def forward(self, x):
+        if self.int8:
+            return w8a8_conv(x.contiguous(), self.weight, self.weight_scale,
+                             self.bias, stride=self.stride[0],
+                             padding=self.padding[0], dtype=self.compute_dtype)
         x, w, b = self._promoted(x)
         x = x.permute(0, 3, 1, 2)
         if self.pad is not None:
@@ -100,9 +119,11 @@ class TemporalConv(_Promote, nn.Conv3d):
 
 def cast_matmul_weights(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast Linear/Conv parameters to `dtype`, leaving norms, mix factors
-    and embeddings in fp32 (the reference casts those at use)."""
+    and embeddings in fp32 (the reference casts those at use), and int8
+    layers as they are."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d)):
+        if (isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d))
+                and m.weight.dtype != torch.int8):
             m.to(dtype)
     return module
 
@@ -180,7 +201,10 @@ class FeedForward(nn.Module):
 
 class CrossAttention(nn.Module):
     """diffusers `Attention` in its transformer-block configuration: no qkv
-    bias, output projection with bias."""
+    bias, output projection with bias. Each projection is its own Linear
+    (the reference's fused-projection fold path is not ported), so an int8
+    to_q/to_k/to_v/to_out (the aggressive W8A8 set) takes K7 like any other
+    Linear, as the reference steps aside from its fold path for int8."""
 
     def __init__(self, query_dim: int, heads: int, dim_head: int,
                  context_dim: int | None = None):
@@ -227,15 +251,17 @@ class TemporalSelfAttention(CrossAttention):
 def _ln_ff_residual(x, ln: LayerNorm, ff: FeedForward, fused: bool,
                     gate: str = "f32"):
     """x + ff(ln(x)). With `fused`, kernel K6 (its gate in `gate`: K6-bf16
-    for "bf16") where `lnff_eligible` (the reference's rule) allows it and C
-    is a multiple of the kernel's C_STEP; elsewhere the unfused modules, the
-    function the reference's unfused oracle computes (a route by shape, see
-    `fused_mlp`; the reference's gate switch acts only inside its kernel).
+    for "bf16") where `lnff_eligible` (the reference's rule) allows it, C
+    is a multiple of the kernel's C_STEP and neither projection is int8 (in
+    W8A8 mode the reference takes the unfused path, its projections through
+    K7); elsewhere the unfused modules, the function the reference's
+    unfused oracle computes (a route by shape, see `fused_mlp`; the
+    reference's gate switch acts only inside its kernel).
     The modules keep their parameters either way, so checkpoints map alike.
     The weights and biases go to K6 in the Linear layers' compute dtype, as
     they would through the modules."""
     proj, out = ff.net[0].proj, ff.net[2]
-    if (fused and x.shape[-1] % C_STEP == 0
+    if (fused and x.shape[-1] % C_STEP == 0 and not out.int8
             and lnff_eligible(x, proj.weight, out.weight)):
         dt = proj.compute_dtype
         return ln_geglu_ffn_residual(

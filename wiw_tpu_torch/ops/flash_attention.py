@@ -16,6 +16,16 @@ iteration, one running max over both); `flash_attention(kernel="v1")`
 reaches it through `flash_attention_v1`. No model caller uses K2, as none
 uses v1 in the reference.
 
+K9, the reference's attention ablations (`_kern_floor`, `_kern_noexp`,
+`_kern_v2` in scripts/tune_attention2.py), are template modes of the same
+source: `attention_floor` (no softmax: sum of bf16(q k^T) v), `attention_noexp`
+(K1's loop with exp replaced by the identity, out = acc / (denominator + 1))
+and `attention_v2` (K1's function with q pre-scaled by the caller, which
+is K1's code with a unit scale). Their plain versions take the kv block
+width `bkv`, because noexp's (and v2's bf16 P's) values depend on the
+running max at each block; the kernels' is KV_TILE. No model caller, as in
+the reference.
+
 `flash_attention(q, k, v)` takes [B, H, S, D] tensors (any strides with a
 unit stride on D, e.g. head views of [B, S, H*D] projections). On CPU
 tensors it computes the plain versions; on CUDA tensors it launches the
@@ -133,7 +143,8 @@ def _bind(lib: ctypes.CDLL):
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_int64] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -147,9 +158,15 @@ def _bind_bwd(lib: ctypes.CDLL):
     return fn
 
 
-def _launch_fwd(q, k, v, with_lse: bool, tiles: int):
+# the forward kernel's modes (csrc/flash_attn_fwd.cu)
+_SOFTMAX, _FLOOR, _NOEXP = 0, 1, 2
+
+
+def _launch_fwd(q, k, v, with_lse: bool, tiles: int, mode: int = _SOFTMAX,
+                sm_scale: float | None = None):
     """The forward kernel on CUDA tensors: (out, lse or None); `tiles` k/v
-    tiles an iteration (2: unroll2)."""
+    tiles an iteration (2: unroll2); `mode` K1's softmax or a K9 ablation;
+    `sm_scale` D^-0.5 unless given."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -164,7 +181,8 @@ def _launch_fwd(q, k, v, with_lse: bool, tiles: int):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  None if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2],
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], D ** -0.5, tiles, stream)
+                 *out.stride()[:3], D ** -0.5 if sm_scale is None else sm_scale,
+                 tiles, mode, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
     return out, lse
@@ -296,3 +314,129 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------- K9
+NEG_INIT = -1e30  # the ablations' initial running max (tune_attention2.py)
+
+
+def _blocks(k, v, bkv):
+    Skv = k.shape[-2]
+    if Skv % bkv:
+        raise ValueError(f"Skv {Skv} not a multiple of the block width {bkv}")
+    return ((k[..., i:i + bkv, :].float(), v[..., i:i + bkv, :])
+            for i in range(0, Skv, bkv))
+
+
+def attention_floor_plain(q, k, v, bkv: int = KV_TILE):
+    """`_kern_floor`'s arithmetic: acc += bf16(q k^T) v block by block (the
+    logits unscaled and in fp32, rounded to v's dtype for the product)."""
+    qf = q.float()
+    acc = torch.zeros(*q.shape[:-1], v.shape[-1], dtype=torch.float32,
+                      device=q.device)
+    for kb, vb in _blocks(k, v, bkv):
+        s = torch.einsum("...qd,...kd->...qk", qf, kb)
+        acc = acc + torch.einsum("...qk,...kd->...qd", s.to(v.dtype).float(),
+                                 vb.float())
+    return acc.to(q.dtype)
+
+
+def attention_noexp_plain(q, k, v, bkv: int = KV_TILE,
+                          with_denominator: bool = False):
+    """`_kern_noexp`'s arithmetic: the running max m from -1e30, P = S - m
+    (the identity for exp) on unscaled fp32 logits, acc and the
+    denominator scaled by (m_old - m_new); out = acc / (denominator + 1).
+    `with_denominator`: (out, denominator + 1), the latter fp32 [..., Sq, 1]
+    (out has a pole where it nears 0)."""
+    qf = q.float()
+    shape = q.shape[:-1]
+    acc = torch.zeros(*shape, v.shape[-1], dtype=torch.float32, device=q.device)
+    m = torch.full((*shape, 1), NEG_INIT, dtype=torch.float32, device=q.device)
+    denom = torch.zeros_like(m)
+    for kb, vb in _blocks(k, v, bkv):
+        s = torch.einsum("...qd,...kd->...qk", qf, kb)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = s - m_new
+        scale = m - m_new
+        acc = acc * scale + torch.einsum("...qk,...kd->...qd",
+                                         p.to(v.dtype).float(), vb.float())
+        denom = denom * scale + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    out = (acc / (denom + 1.0)).to(q.dtype)
+    return (out, denom + 1.0) if with_denominator else out
+
+
+def prescale_q(q: torch.Tensor) -> torch.Tensor:
+    """`v2`'s caller-side pre-scale: q * D^-0.5 in fp32, rounded to q's
+    dtype (as `_attn_kernel_v2` rounds it in-kernel)."""
+    return (q.float() * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def attention_v2_plain(q, k, v, bkv: int = KV_TILE):
+    """`_kern_v2`'s arithmetic with its caller's pre-scale: S = q_s k^T in
+    fp32, P = exp(S - m) rounded to v's dtype, the denominator the sum of
+    that rounded P (the ones column appended to V), out = acc / acc[D]."""
+    qs = prescale_q(q).float()
+    D = v.shape[-1]
+    ones = torch.ones(*v.shape[:-1], 1, dtype=v.dtype, device=v.device)
+    vp = torch.cat([v, ones], dim=-1)
+    shape = q.shape[:-1]
+    acc = torch.zeros(*shape, D + 1, dtype=torch.float32, device=q.device)
+    m = torch.full((*shape, 1), NEG_INIT, dtype=torch.float32, device=q.device)
+    for kb, vb in _blocks(k, vp, bkv):
+        s = torch.einsum("...qd,...kd->...qk", qs, kb)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        scale = torch.exp(m - m_new)
+        acc = acc * scale + torch.einsum("...qk,...kd->...qd",
+                                         p.to(v.dtype).float(), vb.float())
+        m = m_new
+    return (acc / acc[..., D:D + 1]).to(q.dtype)[..., :D]
+
+
+def _ablation(q, k, v, mode):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("the K9 ablations have no gradient")
+    if k.shape[2] % KV_TILE:
+        raise ValueError(f"K9 takes Skv a multiple of {KV_TILE}, got {k.shape[2]}")
+    return _launch_fwd(q, k, v, with_lse=False, tiles=1, mode=mode)[0]
+
+
+def attention_floor(q, k, v):
+    """K9 floor over [B, H, S, D] (what K1 takes, Skv a multiple of 64, no
+    gradient). CPU tensors take `attention_floor_plain`; CUDA tensors
+    launch the kernel (`attention_floor.launches`) or raise."""
+    if native.on_cpu(q, k, v):
+        return attention_floor_plain(q, k, v)
+    out = _ablation(q, k, v, _FLOOR)
+    attention_floor.launches += 1
+    return out
+
+
+def attention_noexp(q, k, v):
+    """K9 noexp over [B, H, S, D], as `attention_floor` takes them; counted
+    in `attention_noexp.launches`."""
+    if native.on_cpu(q, k, v):
+        return attention_noexp_plain(q, k, v)
+    out = _ablation(q, k, v, _NOEXP)
+    attention_noexp.launches += 1
+    return out
+
+
+def attention_v2(q, k, v):
+    """K9 v2 over [B, H, S, D]: softmax(prescale_q(q) k^T) v, K1's kernel
+    with a unit scale on the pre-scaled q (what K1 takes; no gradient);
+    counted in `attention_v2.launches`."""
+    if native.on_cpu(q, k, v):
+        return attention_v2_plain(q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("the K9 ablations have no gradient")
+    out = _launch_fwd(prescale_q(q), k, v, with_lse=False, tiles=1,
+                      sm_scale=1.0)[0]
+    attention_v2.launches += 1
+    return out
+
+
+attention_floor.launches = 0
+attention_noexp.launches = 0
+attention_v2.launches = 0

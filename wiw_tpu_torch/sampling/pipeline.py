@@ -11,6 +11,11 @@ Port of `wiw_tpu/sampling/pipeline.py`:
     uncond prediction, 'cond' runs guidance off
   * chunked temporal VAE decode, then optional resize to the output size
     and uint8 on the device
+  * W8A8 int8 serving (`quantize_unet`, `quantize_vae`): the reference's
+    policy (ops/quant.py) makes the UNet trunk's (the VAE decoder's) 3x3
+    convs and GEGLU in-projections int8, quantised from the weights as
+    loaded, before the cast to the serving dtype, as the reference
+    quantises its fp32 tree; those layers then run kernel K7
 
 The reference's 'alt' segment, `past_images`, the mesh and `shard_clip`
 paths are not ported yet.
@@ -35,6 +40,7 @@ from wiw_tpu_torch.models.convert import load_flax_params
 from wiw_tpu_torch.models.layers import cast_matmul_weights
 from wiw_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
 from wiw_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
+from wiw_tpu_torch.ops import quant as Q
 from wiw_tpu_torch.ops.resize import resize_cubic
 
 
@@ -117,6 +123,8 @@ class SVDPipeline:
             self.unet = UNetSpatioTemporal(unet_config)
             self.vae = AutoencoderKLTemporal(vae_config)
             self.clip = CLIPVisionModel(clip_config)
+        # W8A8 asked for before the weights are placed: tower -> extra_deny
+        self._int8 = {}
 
     def _towers(self):
         return ((self.unet, self.unet_config), (self.vae, self.vae_config),
@@ -126,11 +134,21 @@ class SVDPipeline:
         return tower.to_empty(device=self.device)
 
     def _finish(self):
-        """Cast each tower's Linear/Conv weights to its parameter dtype (the
-        UNet's `param_dtype`, else the model dtype) and freeze it; a trainer
-        unfreezes the UNet parameters it trains."""
+        """Quantise the weights `quantize_unet`/`quantize_vae` asked for,
+        from their values as loaded; cast each tower's other Linear/Conv
+        weights to its parameter dtype (the UNet's `param_dtype`, else the
+        model dtype) and freeze it; a trainer unfreezes the UNet parameters
+        it trains. int8 layers output the model dtype."""
         for tower, cfg in self._towers():
             dtype = getattr(cfg, "param_torch_dtype", cfg.torch_dtype)
+            if tower is self.unet and "unet" in self._int8:
+                Q.quantize_params(tower, self._int8["unet"])
+            elif tower is self.vae and "vae" in self._int8:
+                Q.quantize_vae_decoder(tower)
+            for m in tower.modules():  # quantised here or loaded int8
+                if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)) and (
+                        m.weight.dtype == torch.int8):
+                    m._compute_dtype = cfg.torch_dtype
             cast_matmul_weights(tower, dtype).eval().requires_grad_(False)
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -152,6 +170,32 @@ class SVDPipeline:
         for (tower, _), sd in zip(self._towers(), (unet, vae, clip)):
             self._place(tower).load_state_dict(sd, strict=True)
         self._finish()
+
+    def _before_weights(self, name: str) -> None:
+        if not self.unet.conv_in.weight.is_meta:
+            raise RuntimeError(
+                f"quantize_{name}() comes before the weights are loaded: it "
+                "quantises them as loaded, before the cast to the serving "
+                "dtype, as the reference quantises its fp32 tree")
+
+    def quantize_unet(self, extra_deny=()) -> int:
+        """Switch the UNet to the W8A8 int8 serving path (ops/quant.py):
+        call it before `init_params`/`load_*`, which then quantise the
+        trunk's eligible weights from the values they load, before the cast
+        to the serving dtype (the reference quantises its fp32 tree). Those
+        layers run kernel K7. Inference only. Returns the number of int8
+        weights there will be."""
+        self._before_weights("unet")
+        self._int8["unet"] = tuple(extra_deny)
+        return len(Q.eligible_modules(self.unet, extra_deny))
+
+    def quantize_vae(self) -> int:
+        """Switch the VAE DECODER to the W8A8 serving path, as
+        `quantize_unet` (call before loading); the encoder stays high
+        precision. Returns the number of int8 weights there will be."""
+        self._before_weights("vae")
+        self._int8["vae"] = ()
+        return len(Q.eligible_modules(self.vae.decoder, prefix="decoder."))
 
     # ------------------------------------------------------------------
     def _prepare_action_ids(self, actions):

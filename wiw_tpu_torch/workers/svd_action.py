@@ -7,9 +7,11 @@ Port of `wiw_tpu/workers/svd_action.py`, with the same contract:
 
 Runs in-process (`worker(input_dict)`) or as a subprocess through the
 port's copy of the worker SDK (`wiw_tpu_torch.serve.worker`), whose wire
-format is the reference manager's. Serving precision is bf16: the
-reference's W8A8 int8 mode is not ported yet (ROADMAP M6/K7) and asking
-for it raises. The fused-kernel configuration (K4 frame attention, K6
+format is the reference manager's. Serving precision, as in the
+reference: the CLI serves W8A8 int8 unless told `--quantize bf16`; the
+class serves int8 with `quantize="int8"` or WIW_QUANT=int8, else bf16. In
+int8 the UNet trunk's 3x3 convs and GEGLU in-projections run kernel K7
+(ops/quant.py). The fused-kernel configuration (K4 frame attention, K6
 LN + GEGLU feed-forward) is selected with `fused_ff=True,
 temporal_attention="pallas"` or the reference's WIW_FUSED_FF=1 and
 WIW_TEMPORAL_ATTN=pallas; WIW_FUSED_FF_GATE=bf16 takes K6's bf16 gate
@@ -46,7 +48,7 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
     the default.
 
       WIW_CFG            'serving' (default) -> SERVING_CFG, else full CFG
-      WIW_QUANT          'int8' -> W8A8 (not ported: raises), else bf16
+      WIW_QUANT          'int8' -> W8A8 int8, else bf16
       WIW_FUSED_FF       '1' -> fused LN + feed-forward (K6), else off
       WIW_TEMPORAL_ATTN  'pallas' (K4) | 'xla', else 'batched' (default)
       WIW_FUSED_FF_GATE  'bf16' -> K6's gate in bf16 (K6-bf16), else 'f32'
@@ -56,16 +58,14 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
     `quantize` or `cfg_schedule` outside the CLI's choices raises
     ValueError rather than serving something else.
 
-    Returns {cfg, fused_ff, temporal_attention, fused_ff_gate}."""
+    Returns {cfg, quantize ('int8' or 'bf16'), fused_ff,
+    temporal_attention, fused_ff_gate}."""
     if quantize not in QUANTIZE_CHOICES:
         raise ValueError(f"quantize {quantize!r} not in {QUANTIZE_CHOICES}")
     if cfg_schedule not in CFG_CHOICES:
         raise ValueError(f"cfg_schedule {cfg_schedule!r} not in {CFG_CHOICES}")
     env = os.environ
-    if (quantize or env.get("WIW_QUANT", "")) == "int8":
-        raise NotImplementedError(
-            "W8A8 int8 serving is not ported to the GPU yet (ROADMAP "
-            "M6 / kernel K7); serve with --quantize bf16")
+    int8 = (quantize or env.get("WIW_QUANT", "")) == "int8"
     cfg = cfg_schedule or env.get("WIW_CFG", "serving")
     if fused_ff is None:
         fused_ff = env.get("WIW_FUSED_FF", "0") == "1"
@@ -74,8 +74,8 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
         temporal_attention = mode if mode in ("pallas", "xla") else "batched"
     gate = "bf16" if env.get("WIW_FUSED_FF_GATE", "f32") == "bf16" else "f32"
     return {"cfg": SERVING_CFG if cfg == "serving" else CFGSchedule(),
-            "fused_ff": fused_ff, "temporal_attention": temporal_attention,
-            "fused_ff_gate": gate}
+            "quantize": "int8" if int8 else "bf16", "fused_ff": fused_ff,
+            "temporal_attention": temporal_attention, "fused_ff_gate": gate}
 
 
 class SVDActionWorker:
@@ -120,6 +120,11 @@ class SVDActionWorker:
                        fused_ff_gate=sw["fused_ff_gate"]),
             device=self.device,
         )
+        self.quantize = sw["quantize"]
+        if self.quantize == "int8":
+            n = self.pipe.quantize_unet()
+            print(f"[svd_action] W8A8 serving mode: {n} int8 kernels",
+                  flush=True)
         if unet_path:
             self._load_weights(unet_path, svd_path)
         else:
@@ -194,9 +199,10 @@ def main(argv: Optional[list] = None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--debug", action="store_true")
     ap.add_argument(
-        "--quantize", default="", choices=QUANTIZE_CHOICES,
-        help="serving precision of the UNet; unset: $WIW_QUANT, else bf16. "
-             "int8 W8A8 is not ported yet and raises.")
+        "--quantize", default="int8", choices=QUANTIZE_CHOICES,
+        help="serving precision of the UNet trunk. Default int8 (selective "
+             "W8A8 through kernel K7, ops/quant.py), as the reference's CLI; "
+             "--quantize bf16 opts out; '': $WIW_QUANT, else bf16.")
     ap.add_argument(
         "--cfg_schedule", default="", choices=CFG_CHOICES,
         help="CFG row schedule; unset: $WIW_CFG, else 'serving' = "
