@@ -72,7 +72,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      from an in-memory dataset through the port's PrefetchLoader; per step:
      seconds, loss, peak memory and the K1/K3/K8 launches, then clips/s and
      the model-FLOPs utilisation
-Then one JSON line with the kernels, the card line again, and last:
+Then one JSON line with each kernel's time before this version of the
+kernels (`prev_kernels`, copied from PERF.md, not measured here), one JSON
+line with the kernels as this run measured them, the card line again, and
+last:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It imports no jax and needs no network.
 """
@@ -153,6 +156,17 @@ ILL_ATOL = 2e-3
 # the H100's L2 (data sheet): K8's floor is one read of x where one batch
 # row (the unit its statistics cover) fits here, two where it does not
 L2_BYTES = 50 * 2 ** 20
+
+
+# each row's time as PERF.md §6 recorded it before this version of the
+# kernels (the builders' runs of this script on an H100 80GB HBM3 at 700 W),
+# printed on a line of its own before the measured `kernels` line
+PREV_MS = {"K1": 99.0636, "K2": 17.1462, "K2-unroll2": 19.0403, "K3": 150.7475,
+           "K4": 7.4865, "K5": 248.9817, "K6": 276.8193, "K6-bf16": 366.8169,
+           "K8": 14.3089, "K7-dense": 64.5817, "K7-conv": 92.6088,
+           "K9-floor": 14.5467, "K9-noexp": 15.6669, "K9-v2": 17.7919,
+           "K10": 30.3313, "K10-i8pv": 30.1647}
+PREV_FROM = "PERF.md §6, the time before this version (H100 80GB HBM3, 700 W)"
 
 
 def card_line() -> str:
@@ -1139,8 +1153,11 @@ def attention_probe_phase(rows: dict, dev, g):
         def kern(fn=fn):
             return fn(q, k, v)
 
-        def ref(plain=plain):
-            return plain(q, k, v, bkv=TFA.KV_TILE)
+        # v2 runs K1's kernel (K1_KV_TILE), floor and noexp the mma.sync one
+        bkv = TFA.K1_KV_TILE if key == "K9-v2" else TFA.KV_TILE
+
+        def ref(plain=plain, bkv=bkv):
+            return plain(q, k, v, bkv=bkv)
 
         out = kern()
         if key == "K9-noexp":
@@ -1612,8 +1629,9 @@ def main() -> int:
     by_path["train"] = train_phase(dev)
     for key, row in rows.items():
         d = row.d
-        print(f"{key} per UNet forward ({d['per']}): kernel {d['ms']:.4f} ms, "
-              f"plain {d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
+        print(f"{key} per UNet forward ({d['per']}): kernel {d['ms']:.4f} ms "
+              f"(before: {PREV_MS[key]} ms), plain "
+              f"{d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
               f"({d['bound_by']}), library {d['library_ms']}", flush=True)
         d["launches"] = sum(p[key] for p in by_path.values())
         d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
@@ -1625,6 +1643,8 @@ def main() -> int:
                                "batch 14, with (lse_ms) and without (lse_off_ms)"
                                " the LSE output")
 
+    print(json.dumps({"prev_kernels": {k: PREV_MS[k] for k in rows},
+                      "from": PREV_FROM}))
     print(json.dumps({"kernels": [r.d for r in rows.values()]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

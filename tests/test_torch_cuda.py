@@ -11,7 +11,9 @@ output (K1's shrinks as 1/sqrt(S)): each element within 0.05 rms(ref) plus
 the softmax weights; K2 rounds P against a running max, its plain version
 against the row max; K4, K5, K6, K6-bf16 and K8 round where their plain
 versions do, but sum in another order, so a bf16 rounding (of the output,
-or of K5/K6's intermediates) may land one step apart.
+or of K5/K6's intermediates) may land one step apart. K3 sums dQ over kv
+tiles by reductions in L2 in the order the CTAs reach them, so dq's last
+bits change from run to run: the same tolerance holds.
 """
 
 import pytest
@@ -72,12 +74,19 @@ def test_kernel_reads_strided_heads_and_rejects_bad_inputs(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Sq,Skv", [(1, 3, 144, 144), (2, 2, 200, 72),
-                                        (1, 2, 1000, 1000)])
+@pytest.mark.parametrize("B,H,Sq,Skv", [
+    (1, 3, 144, 144), (2, 2, 200, 72), (1, 2, 1000, 1000), (1, 2, 64, 64),
+    (2, 3, 65, 65), (2, 2, 200, 200), (1, 2, 2304, 2304), (2, 2, 200, 65),
+    (1, 3, 64, 2304), (2, 2, 2304, 144),
+    (28, 5, 144, 144),  # B*H 140: above one wave of 132 SMs
+])
 def test_backward_kernel_and_lse_match_plain_on_card(cuda_device, B, H, Sq, Skv):
-    """K1 with its LSE flag, then K3 through the autograd Function, on head
-    views of [B, S, H*64] projections (ragged S), against the plain
-    forward, LSE and backward on the same bf16 inputs."""
+    """K1 (wgmma, TMA-fed k/v stages) with and without its LSE flag, then K3
+    (one wgmma pass of five products, dQ by TMA reduce-add) through the
+    autograd Function, on head views of [B, S, H*64] projections (ragged S,
+    Sq != Skv), against the plain forward, LSE and backward on the same
+    bf16 inputs: one launch each, K1's output bits the same with and
+    without the LSE."""
     g = torch.Generator(device=cuda_device).manual_seed(1)
 
     def heads(S):
@@ -85,7 +94,11 @@ def test_backward_kernel_and_lse_match_plain_on_card(cuda_device, B, H, Sq, Skv)
                 .bfloat16().view(B, S, H, 64).transpose(1, 2))
 
     q, k, v, dout = heads(Sq), heads(Skv), heads(Skv), heads(Sq)
+    with torch.no_grad():
+        serving = flash_attention(q, k, v)
+    _close(serving, flash_attention_plain(q, k, v))
     out, lse = TFA._forward(q, k, v, with_lse=True)
+    assert torch.equal(out, serving)
     # the LSE sums fp32 exponentials in another order: 2e-3 absolute on
     # values of ~log(Skv) (a wrong scale or a dropped tile moves it by > 0.1)
     torch.testing.assert_close(lse, TFA.flash_attention_lse_plain(q, k),
@@ -101,6 +114,22 @@ def test_backward_kernel_and_lse_match_plain_on_card(cuda_device, B, H, Sq, Skv)
     for leaf, r in zip(leaves, ref):
         assert leaf.grad.shape == r.shape
         _close(leaf.grad, r)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_refuses_scratch_of_another_q_tile(cuda_device, monkeypatch):
+    """K3's wrapper sizes its fp32 scratch by Q_TILE; the kernel writes rows
+    up to Sq rounded to its own q tile, so a wrapper whose tile disagrees
+    raises before any launch instead of writing past the scratch."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, dout = (torch.randn(1, 2, 144, 64, generator=g, device=cuda_device)
+                     .bfloat16() for _ in range(4))
+    out, lse = TFA._forward(q, k, v, with_lse=True)
+    before = TFA.flash_attention_bwd.launches
+    monkeypatch.setattr(TFA, "Q_TILE", 128)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        TFA.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert TFA.flash_attention_bwd.launches == before
 
 
 @pytest.mark.cuda
@@ -587,7 +616,9 @@ def test_ablation_kernels_match_plain_on_card(cuda_device, variant, B, H, S):
         assert bool(torch.isfinite(out).all()) and well.float().mean() > 0.99
         _close(out[well], ref[well])
     else:
-        _close(out, plain(q, k, v, bkv=TFA.KV_TILE))
+        # v2 runs K1's kernel and its 128-row kv stages
+        bkv = TFA.K1_KV_TILE if variant == "v2" else TFA.KV_TILE
+        _close(out, plain(q, k, v, bkv=bkv))
 
 
 @pytest.mark.cuda

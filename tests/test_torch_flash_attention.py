@@ -129,3 +129,24 @@ def test_kernel_choice_follows_the_reference():
     m = torch.zeros(1, 1, 16, 64, device="meta")
     with pytest.raises(ValueError):
         flash_attention(m, m, m, kernel="v1")
+
+
+def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library is named by a digest of its source, every shared
+    header of csrc/ (K1 and K3 include sm90.cuh) and the flags: an edit to
+    a header names another library, so a stale one is never reused. No
+    nvcc is run."""
+    from wiw_tpu_torch.ops import native
+
+    monkeypatch.setattr(native, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "sm90.cuh"\n')
+    (tmp_path / "sm90.cuh").write_text("// v1\n")
+    first = native._target("k")
+    assert native._target("k") == first and first.name.startswith("k-")
+    (tmp_path / "sm90.cuh").write_text("// v2\n")
+    second = native._target("k")
+    assert second != first
+    (tmp_path / "other.cuh").write_text("\n")
+    assert native._target("k") != second
+    (tmp_path / "k.cu").write_text('#include "sm90.cuh"\n// edited\n')
+    assert native._target("k") not in (first, second)

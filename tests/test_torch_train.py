@@ -530,3 +530,92 @@ def test_psnr_ssim_match_reference():
         assert got[k] == pytest.approx(want[k], rel=1e-5)
     with pytest.raises(NotImplementedError, match="M8"):
         TM.evaluate_video_metrics(ta, tb, metrics=("lpips",))
+
+
+# -------------------------------------------- the environment's switches
+# The reference reads WIW_FUSED_FF, WIW_FUSED_FF_GATE and WIW_TEMPORAL_ATTN
+# at trace time for every caller, its trainer included
+# (wiw_tpu/models/layers.py:56, ops/fused_mlp.py:192,
+# ops/temporal_attention.py:167); the port's train CLI passes the same
+# readings (`unet.env_switches`) into the UNet's config.
+def _built_unet_config(monkeypatch, env: dict) -> TU.UNetConfig:
+    for k in ("WIW_FUSED_FF", "WIW_FUSED_FF_GATE", "WIW_TEMPORAL_ATTN"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    seen = {}
+
+    class Recorder:  # no weights are made
+        def __init__(self, unet_cfg, vae_cfg, clip_cfg, device):
+            seen["unet"] = unet_cfg
+
+        def init_params(self, generator):
+            pass
+
+    class NoTrainer:
+        def __init__(self, pipe, cfg):
+            pass
+
+        def init_state(self):
+            return None
+
+    monkeypatch.setattr(train_cli, "SVDPipeline", Recorder)
+    monkeypatch.setattr(train_cli, "Trainer", NoTrainer)
+    train_cli.build(train_cli.parse_args(["--data_root", "x", "--device", "cpu"]))
+    return seen["unet"]
+
+
+@pytest.mark.parametrize("env,fused,gate,mode", [
+    ({}, False, "f32", "batched"),
+    ({"WIW_FUSED_FF": "1"}, True, "f32", "batched"),
+    ({"WIW_FUSED_FF": "true"}, False, "f32", "batched"),
+    ({"WIW_FUSED_FF": "1", "WIW_FUSED_FF_GATE": "bf16"}, True, "bf16", "batched"),
+    ({"WIW_FUSED_FF_GATE": "BF16"}, False, "f32", "batched"),
+    ({"WIW_TEMPORAL_ATTN": "xla"}, False, "f32", "xla"),
+    ({"WIW_TEMPORAL_ATTN": "pallas"}, False, "f32", "pallas"),
+    ({"WIW_TEMPORAL_ATTN": "flash"}, False, "f32", "batched"),
+])
+def test_train_cli_reads_the_model_switches(monkeypatch, env, fused, gate, mode):
+    from wiw_tpu.models import layers as JLY
+
+    cfg = _built_unet_config(monkeypatch, env)
+    assert (cfg.fused_ff, cfg.fused_ff_gate, cfg.temporal_attention) == (fused, gate, mode)
+    assert cfg.fused_ff == JLY._fused_ff_on()  # the reference's own reader
+    assert cfg.remat is False and cfg.param_dtype == "float32"
+
+
+def test_fused_ff_step_matches_reference_under_the_same_environment(ref, monkeypatch):
+    """One optimizer step under WIW_FUSED_FF=1, the port's UNet taking the
+    switches `train_cli.build` reads, against the reference's jitted step
+    traced under the same environment (its fused formulation and custom
+    VJP). Batch 4 makes 384 rows at the 64-channel level, which K6's rule
+    takes: the port's feed-forwards there go through K6's autograd Function
+    (its plain version on the CPU, backward by recompute)."""
+    from wiw_tpu_torch.models import layers as TLY
+
+    jpipe, params = ref
+    cfg = _built_unet_config(monkeypatch, {"WIW_FUSED_FF": "1"})
+    kw = dict(learning_rate=1e-3, max_grad_norm=0.05, weight_decay=0.1)
+    jtr = JT.Trainer(jpipe, JT.TrainConfig(**kw))
+    jstate = jtr.init_state(params)
+    frozen = {"vae": params["vae"], "clip": params["clip"]}
+    batch = _batch(B=4, seed=21)
+    key = jax.random.PRNGKey(7)
+    jstate, jm = jtr.make_train_step()(
+        jstate, frozen, jax.tree_util.tree_map(jnp.asarray, batch), key)
+
+    calls = []
+    fused = TLY.ln_geglu_ffn_residual
+    monkeypatch.setattr(TLY, "ln_geglu_ffn_residual",
+                        lambda *a, **k: calls.append(1) or fused(*a, **k))
+    pipe = port_pipeline(params, fused_ff=cfg.fused_ff, fused_ff_gate=cfg.fused_ff_gate,
+                         temporal_attention=cfg.temporal_attention)
+    trainer = TT.Trainer(pipe, TT.TrainConfig(**kw))
+    state = trainer.init_state()
+    m = trainer.train_step(state, _t(batch), draws=[jax_draws(key, 4)])
+    assert calls, "no feed-forward went through K6"
+    assert abs(float(m["loss"]) - float(jm["loss"])) <= LOSS_REL * abs(float(jm["loss"]))
+    want = _flat(jstate["params"])
+    for name, p in state.params.items():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
+                                   atol=STEP_ATOL, rtol=0, err_msg=name)

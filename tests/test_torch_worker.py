@@ -13,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from wiw_tpu.core.schedule import SERVING_CFG as J_SERVING_CFG
 from wiw_tpu.models import layers as JL
@@ -269,3 +270,56 @@ def test_cli_quantize_default_is_the_reference(monkeypatch, argv):
 def test_entry_points_default_to_the_card():
     for fn in (SVDPipeline, W.SVDActionWorker):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+# ------------------------------------------------------ conditioning image
+# The reference (wiw_tpu/workers/svd_action.py `_load_cond_images`) makes the
+# conditioning image on the host: astype(np.uint8), PIL's default filter to
+# (W, H), / 127.5 - 1. Both methods are called unbound on a stub that holds
+# only what they read, so no worker (and no JAX model) is built. PIL runs on
+# both sides and the scaling is the same fp32 arithmetic: the bits are equal.
+@pytest.mark.parametrize("shape,dtype,layout", [
+    ((2, 40, 72, 3), np.uint8, "bhwc"),     # above the generation size
+    ((1, 12, 20, 3), np.uint8, "bhwc"),     # below it
+    ((2, 24, 48, 3), np.uint8, "bhwc"),     # equal to it
+    ((2, 40, 72, 3), np.float32, "bhwc"),   # float: truncated, not rounded
+    ((1, 3, 12, 20), np.float32, "bchw"),
+    ((1, 4, 40, 72), np.uint8, "bchw"),     # RGBA channels first
+])
+def test_cond_images_match_the_reference(shape, dtype, layout):
+    from types import SimpleNamespace
+
+    from wiw_tpu.workers import svd_action as JW
+
+    rng = np.random.default_rng(sum(shape))
+    imgs = rng.uniform(0, 255.99, shape).astype(dtype)
+    stub = SimpleNamespace(gen=SimpleNamespace(height=24, width=48),
+                           device=torch.device("cpu"))
+    task = {"b_image": imgs}
+    want = JW.SVDActionWorker._load_cond_images(stub, task)
+    got = W.SVDActionWorker._load_cond_images(stub, task)
+    assert got.shape == (shape[0], 24, 48, 3) and want.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cond_images_from_save_dirs_match_the_reference(tmp_path):
+    from types import SimpleNamespace
+
+    from PIL import Image
+
+    from wiw_tpu.workers import svd_action as JW
+
+    rng = np.random.default_rng(7)
+    dirs = []
+    for i in range(2):
+        d = tmp_path / str(i)
+        d.mkdir()
+        Image.fromarray(rng.integers(0, 256, (30, 50, 3), dtype=np.uint8)).save(
+            d / "cond_rgb.png")
+        dirs.append(str(d))
+    stub = SimpleNamespace(gen=SimpleNamespace(height=16, width=32),
+                           device=torch.device("cpu"))
+    task = {"save_dirs": dirs}
+    np.testing.assert_array_equal(
+        W.SVDActionWorker._load_cond_images(stub, task).numpy(),
+        JW.SVDActionWorker._load_cond_images(stub, task))

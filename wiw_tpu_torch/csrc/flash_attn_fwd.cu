@@ -2,74 +2,291 @@
 //
 // Replaces the TPU kernel `_attn_kernel_v2` in wiw_tpu/ops/pallas_attention.py
 // (reached from `flash_attention_bhsd(kernel="v2")`): non-causal
-// softmax(q k^T / sqrt(D)) v with fp32 accumulation and an fp32 online softmax,
-// so the [S, S] logits never reach device memory.
+// softmax(q k^T / sqrt(D)) v with fp32 accumulation and an fp32 online
+// softmax, so the [S, S] logits never reach device memory.
 //
-// What bounds it on this card: at the UNet's shapes (S = 9216 and 2304, D = 64)
-// the work is ~4*S*S*D flops per (batch, head) against ~4*S*D bytes of q/k/v/o,
-// far above the H100's ~295 flop/byte ridge, so the kernel is bound by the
-// tensor cores and by the exp/max/sum softmax work between the two products.
-// The design keeps both products on the tensor cores (mma.sync m16n8k16 bf16
-// with fp32 accumulators) and keeps the softmax in registers: the QK^T
-// accumulator fragment of a warp is laid out exactly as the A operand of the
-// PV product, so P goes from registers to the tensor cores without a trip
-// through shared memory (the TPU kernel's ones column in V, which made the
-// MXU sum the denominator, is not needed: each thread keeps partial row sums
-// and one quad shuffle finishes them at the end).
+// What bounds it on this card: the operations. At the UNet's shapes (S =
+// 9216 ... 144, D = 64) a (batch, head) does 4 S^2 D flops on 4 S D bf16
+// values of q/k/v/o: at S = 9216 that is 9216 flop/byte, far above the
+// H100's ~295 flop/byte ridge. Only wgmma reaches the tensor cores' bf16
+// rate, and between the two products every logit takes a scale, a max, an
+// exp2 and a sum on the FP32 units, which the two consumer warpgroups
+// overlap with each other's products.
 //
-// Layout: one block per (batch*head, 64-row q tile); 4 warps, 16 q rows each.
-// Each block loops over 64-row k/v tiles staged in shared memory (16-byte
-// loads, rows padded to 72 elements so the fragment loads are conflict-free).
-// q, k, v and o are read and written through (batch, head, row) strides with a
-// unit stride on D, so the projections' [B, S, H*D] layout needs no transpose
-// (Hopper has no sublane constraint, which blocked the TPU's strided variant).
-// Rows past S are masked: the ragged tail is zero-filled in shared memory and
-// its logits set to -inf; q rows past S are computed on zeros and not stored.
-// This is the simple first version: no cp.async/TMA pipelining, no wgmma, no
-// warp specialisation.
+// K1's design (`flash_attn_fwd_sm90_kernel`, a redesign of the first,
+// mma.sync, version of this kernel):
+//   * One CTA per (batch*head, 128 q rows): 3 warpgroups, 384 threads.
+//     Warpgroup 0 is the producer: it gives up registers (setmaxnreg 24)
+//     and one thread issues every TMA copy. Warpgroups 1 and 2 are the
+//     consumers (setmaxnreg 240), 64 q rows each. (ptxas still holds every
+//     thread to 168 registers, three warps to an SM sub-partition; the
+//     consumers fit them without spilling or serialising their wgmma.
+//     Issuing S of the next tile before the softmax of this one, in a
+//     256-thread variant with the registers for two S accumulators, made
+//     ptxas serialise the wgmma (C7515) and was slower: 9.75 ms against this
+//     design's 8.2-8.4 at B*H 140, S 9216 on an H100 80GB HBM3 at 700 W.)
+//   * q is loaded once by TMA. k and v come in 128-row tiles through a ring
+//     of kStages = 2 stages; each stage has a full mbarrier for k, one for
+//     v (so S = q k^T starts before v lands) and an empty mbarrier that the
+//     8 consumer warps release after their P v product. Every tile is
+//     128-byte swizzled (a 64-wide bf16 row is 128 bytes), as TMA writes it
+//     and wgmma reads it.
+//   * S = q k^T: 4 x wgmma.m64n128k16, both operands in shared memory,
+//     K-major. The online softmax runs in registers with the scale folded
+//     into exp2 (log2 domain); one quad shuffle finishes each row max.
+//   * O += P v: 8 x wgmma.m64n64k16 with bf16(P) as the register A operand
+//     (the S accumulator's layout is the A fragment's) and v as the
+//     MN-major B operand, read through the transpose bit: no transpose pass.
+//   * q, k and v are read through 4-D tensor maps (64, S, H, B) with the
+//     byte strides of the [B, H, S, 64] view, so head views of [B, S, H*64]
+//     projections need no copy. Rows past S read as zeros (never the next
+//     head); logits of kv columns past Skv are set to -inf, and q rows past
+//     Sq are computed on zeros and not stored. The output goes out through
+//     its strides, a [B, H, Sq, 64] view of a contiguous [B, Sq, H, 64].
+//   * Shared memory: q 16 KB + 2 stages x (k 16 KB + v 16 KB) = 80 KB plus
+//     the barriers (dynamic, above the 48 KB default). Registers: a
+//     consumer thread holds S (64 fp32), O (32 fp32) and P (32 x bf16x2).
+//   * The template flag kLse also stores each q row's log-sum-exp (natural
+//     log of sum_j exp(scale * q.k_j), fp32, [B*H, Sq] contiguous), which the
+//     backward (K3) needs. It changes only that store: the output bits are
+//     the same with and without it.
 //
-// Training: the template flag kLse also stores each q row's log-sum-exp
-// (natural log of sum_j exp(scale * q.k_j), fp32, [B*H, Sq] contiguous),
-// which the backward (flash_attn_bwd.cu, K3) needs to recompute P. With the
-// flag off (serving) the kernel is the same code and writes no LSE; the
-// output bits are the same either way.
-//
-// K2: the reference's v1 kernels, `_attn_kernel` and `_attn_kernel_unroll2`
-// (pallas_attention.py:40-118, `flash_attention_bhsd(kernel="v1")`). v1's
-// arithmetic (the scale applied to the fp32 logits, P rounded to bf16 for
-// the PV product, the denominator the fp32 sum of the unrounded P) is
-// already what this kernel does for K1: the TPU's v2 moved the scale onto
-// q in bf16 and the denominator into the PV product only to save VPU work.
-// So v1 without unroll2 is this kernel as it stands, and `unroll2` is the
-// template parameter kTiles = 2: each iteration stages two 64-row k/v tiles
-// and takes one running max over both before their exponentials and PV
-// products, as `_attn_kernel_unroll2` does with its two kv blocks (the
-// independent products and exponentials of two tiles give the scheduler
-// more to overlap). It needs Skv a multiple of 128, as the reference needs
-// Skv % (2 * bkv) == 0; the wrapper takes the one-tile loop otherwise.
-//
-// K9: the attention ablations of scripts/tune_attention2.py, as the
-// template parameter kMode (one 64-row k/v tile an iteration, Skv a
-// multiple of 64, no LSE):
-//   kFloor (`_kern_floor`): no softmax, O = sum over tiles of bf16(q k^T) v
-//     with the logits unscaled: the two products alone.
-//   kNoExp (`_kern_noexp`): K1's loop with exp replaced by the identity on
-//     unscaled logits: m_new = max(m, rowmax S), P = S - m_new, the running
-//     output and denominator scaled by (m - m_new), not by its exp; the
-//     running max starts at -1e30, as there (at -inf the first scale times
-//     the zero accumulator would be NaN); O = acc / (denominator + 1).
-//     P and the scale depend on the running max at each tile, so the result
-//     depends on the tile width (64 here): the plain version takes it.
-//   `_kern_v2` is K1's function with q pre-scaled by its caller (rounded to
-//     bf16 as `_attn_kernel_v2` rounds it in-kernel): the wrapper pre-scales
-//     q and launches kSoftmax with sm_scale 1, so it is K1's code.
+// K2 and K9 in this file:
+//   * K2's v1 (`_attn_kernel`, pallas_attention.py:40) and K9's v2
+//     (`_kern_v2`, scripts/tune_attention2.py:122, q pre-scaled by the
+//     caller, sm_scale 1) are K1's function and run K1's kernel above: v1's
+//     arithmetic (the scale applied to the fp32 logits, P rounded to bf16
+//     for the PV product, the denominator the fp32 sum of the unrounded P)
+//     is what K1 does.
+//   * K2's unroll2 (`_attn_kernel_unroll2`, pallas_attention.py:77) and
+//     K9's floor and noexp (`_kern_floor`, `_kern_noexp`,
+//     tune_attention2.py:78, :95) stay on the first mma.sync kernel below
+//     (`flash_attn_fwd_d64_mma_kernel`, not redesigned): ablations with no
+//     model caller. unroll2 stages two 64-row k/v tiles an iteration and
+//     takes one running max over both (Skv a multiple of 128). floor is the
+//     two products alone: O = sum over tiles of bf16(q k^T) v, logits
+//     unscaled. noexp is the loop with exp replaced by the identity on
+//     unscaled logits (m_new = max(m, rowmax S), P = S - m_new, the running
+//     output and denominator scaled by m - m_new, the max starting at -1e30,
+//     O = acc / (denominator + 1)); its result depends on the 64-wide kv
+//     tile, which its plain version takes as `bkv`. That kernel loads k/v
+//     synchronously through registers and gathers v's fragments with scalar
+//     shared loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
+
+// ------------------------------------------------------ K1: wgmma + TMA
+namespace k1 {
+constexpr int kBlockM = 128;           // q rows a CTA
+constexpr int kBlockN = 128;           // k/v rows a stage
+constexpr int kStages = 2;
+constexpr int kThreads = 384;          // producer + 2 consumer warpgroups
+constexpr int kTile = 128 * 128;       // bytes of a 128-row tile
+constexpr int kQ = 0;                  // shared-memory offsets (bytes)
+constexpr int kK0 = kTile;             // k of stage s at kK0 + 2 s kTile
+constexpr int kBars = kTile * (1 + 2 * kStages);
+// q_full, k_full[kStages], v_full[kStages], empty[kStages]
+constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;  // + alignment
+}  // namespace k1
+
+template <bool kLse>
+__global__ void __launch_bounds__(k1::kThreads, 1)
+flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                           const __grid_constant__ CUtensorMap kmap,
+                           const __grid_constant__ CUtensorMap vmap,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int H, int Sq, int Skv,
+                           int64_t o_sb, int64_t o_sh, int64_t o_ss,
+                           float scale_log2) {
+  using namespace k1;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* empty = v_full + kStages;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kBlockM;
+  const int n_kv = (Skv + kBlockN - 1) / kBlockN;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {  // producer
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_expect_tx(q_full, kTile);
+      sm90::tma_load_4d(smem + kQ, &qmap, q_full, 0, q0, h, b);
+      for (int it = 0; it < n_kv; ++it) {
+        const int s = it % kStages;
+        sm90::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        uint8_t* kt = smem + kK0 + 2 * s * kTile;
+        sm90::mbar_expect_tx(&k_full[s], kTile);
+        sm90::tma_load_4d(kt, &kmap, &k_full[s], 0, it * kBlockN, h, b);
+        sm90::mbar_expect_tx(&v_full[s], kTile);
+        sm90::tma_load_4d(kt + kTile, &vmap, &v_full[s], 0, it * kBlockN, h, b);
+      }
+    }
+  } else {  // consumers: 64 q rows each
+    sm90::setmaxnreg_inc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x - 128 * wg;
+    const int warp = tid >> 5;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const uint8_t* qs = smem + kQ + c * 64 * 128;
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (log2 domain)
+    float l_run[2] = {0.f, 0.f};              // this thread's partial sums
+
+    sm90::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_kv; ++it) {
+      const int s = it % kStages;
+      const uint32_t parity = (it / kStages) & 1;
+      const uint8_t* kt = smem + kK0 + 2 * s * kTile;
+      const uint8_t* vt = kt + kTile;
+
+      // S = q k^T over this warpgroup's 64 rows x 128 kv columns
+      float sc[64];
+      sm90::mbar_wait(&k_full[s], parity);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::wgmma_m64n128k16_ss<0, 0>(sc, sm90::desc_sw128(qs + 32 * kk),
+                                        sm90::desc_sw128(kt + 32 * kk), kk);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+
+      // scale into the log2 domain, mask kv columns past Skv, row max
+      const int kv0 = it * kBlockN;
+      float mx[2] = {m_run[0], m_run[1]};
+      if (kv0 + kBlockN > Skv) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          const int col = kv0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          sc[i] = col < Skv ? sc[i] * scale_log2 : -INFINITY;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // every tile holds at least one unmasked column: mx is finite
+        alpha[r] = exp2f(m_run[r] - mx[r]);
+        m_run[r] = mx[r];
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        sc[4 * j] = exp2f(sc[4 * j] - mx[0]);
+        sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mx[0]);
+        sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mx[1]);
+        sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mx[1]);
+        rs[0] += sc[4 * j] + sc[4 * j + 1];
+        rs[1] += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[4 * j] *= alpha[0];
+        acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1];
+        acc[4 * j + 3] *= alpha[1];
+      }
+      uint32_t pa[8][4];
+      sm90::acc_to_a<8>(sc, pa);
+
+      // O += bf16(P) v, v the MN-major B operand
+      sm90::mbar_wait(&v_full[s], parity);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        sm90::wgmma_m64n64k16_rs<1>(acc, pa[kk], sm90::desc_sw128(vt + 2048 * kk));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::fence_regs(pa);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&empty[s]);
+    }
+
+    // finish the row sums across the quad, normalise, store bf16
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+    const float inv0 = 1.f / l_run[0];
+    const float inv1 = 1.f / l_run[1];
+    const int row0 = q0 + 64 * c + 16 * warp + g;
+    const int row1 = row0 + 8;
+    __nv_bfloat16* op = o + b * o_sb + h * o_sh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (row0 < Sq) {
+        *reinterpret_cast<uint32_t*>(op + row0 * o_ss + col) =
+            sm90::pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+      }
+      if (row1 < Sq) {
+        *reinterpret_cast<uint32_t*>(op + row1 * o_ss + col) =
+            sm90::pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      }
+    }
+    if (kLse && t == 0) {
+      // m_run is in the log2 domain: lse = (m + log2 l) * ln 2
+      if (row0 < Sq) {
+        lse[static_cast<int64_t>(bh) * Sq + row0] =
+            (m_run[0] + log2f(l_run[0])) * 0.6931471805599453f;
+      }
+      if (row1 < Sq) {
+        lse[static_cast<int64_t>(bh) * Sq + row1] =
+            (m_run[1] + log2f(l_run[1])) * 0.6931471805599453f;
+      }
+    }
+  }
+}
+
+// ------------------------------ K2's unroll2, K9's floor and noexp: mma.sync
+namespace mma {
 
 constexpr int kD = 64;               // head dim (template constant of the port)
 constexpr int kWarps = 4;
@@ -102,13 +319,12 @@ __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo,
 
 enum Mode { kSoftmax = 0, kFloor = 1, kNoExp = 2 };
 
-template <bool kLse, int kTiles, int kMode>
+template <int kTiles, int kMode>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
+flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o,
-                          float* __restrict__ lse, int H, int Sq,
+                          __nv_bfloat16* __restrict__ o, int H, int Sq,
                           int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                           int64_t k_sb, int64_t k_sh, int64_t k_ss,
                           int64_t v_sb, int64_t v_sh, int64_t v_ss,
@@ -332,28 +548,23 @@ flash_attn_fwd_d64_kernel(const __nv_bfloat16* __restrict__ q,
           pack_f32(acc[nt][2] * inv1, acc[nt][3] * inv1);
     }
   }
-  if (kLse && t == 0) {
-    // m_run is in the log2 domain: lse = (m + log2 l) * ln 2
-    if (row0 < Sq) {
-      lse[static_cast<int64_t>(bh) * Sq + row0] =
-          (m_run[0] + log2f(l_run[0])) * 0.6931471805599453f;
-    }
-    if (row1 < Sq) {
-      lse[static_cast<int64_t>(bh) * Sq + row1] =
-          (m_run[1] + log2f(l_run[1])) * 0.6931471805599453f;
-    }
-  }
 }
+
+
+}  // namespace mma
 
 }  // namespace
 
 // C entry, bound with ctypes. Pointers are device pointers of bf16 tensors
 // viewed as [B, H, S, 64] with unit stride on the last dim; strides are in
-// elements. `lse` is null (serving) or an fp32 [B*H, Sq] buffer (training).
-// `tiles` is 1 (K1, K2's v1) or 2 (K2's unroll2: Skv a multiple of 128, no
-// LSE). `mode` is kSoftmax (K1, K2, K9's v2), or K9's kFloor or kNoExp (one
-// tile, no LSE, Skv a multiple of 64). Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for what it refuses).
+// elements (multiples of 8, 16-byte aligned bases: what TMA takes). `lse` is
+// null (serving) or an fp32 [B*H, Sq] buffer (training). `tiles` is 1 (K1,
+// K2's v1, K9's v2) or 2 (K2's unroll2: Skv a multiple of 128, no LSE).
+// `mode` is kSoftmax (K1, K2, K9's v2), or K9's kFloor or kNoExp (one tile,
+// no LSE, Skv a multiple of 64). kSoftmax with one tile runs K1's wgmma
+// kernel, the rest the mma.sync kernel. Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for what it refuses, a tensor
+// map the driver refuses included).
 extern "C" int wiw_flash_attn_fwd_d64(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H,
@@ -361,26 +572,45 @@ extern "C" int wiw_flash_attn_fwd_d64(
     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int tiles,
     int mode, void* stream) {
-  if (tiles != 1 && (tiles != 2 || Skv % (2 * kBlockN) || lse != nullptr ||
-                     mode != kSoftmax)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (mode != kSoftmax && ((mode != kFloor && mode != kNoExp) ||
-                           Skv % kBlockN || lse != nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, B * H);
+  using mma::kFloor;
+  using mma::kNoExp;
+  using mma::kSoftmax;
   const float scale_log2 = sm_scale * 1.4426950408889634f;
-  auto kernel = mode == kFloor     ? flash_attn_fwd_d64_kernel<false, 1, kFloor>
-                : mode == kNoExp   ? flash_attn_fwd_d64_kernel<false, 1, kNoExp>
-                : tiles == 2       ? flash_attn_fwd_d64_kernel<false, 2, kSoftmax>
-                : lse != nullptr   ? flash_attn_fwd_d64_kernel<true, 1, kSoftmax>
-                                   : flash_attn_fwd_d64_kernel<false, 1, kSoftmax>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mode == kSoftmax && tiles == 1) {
+    CUtensorMap qm, km, vm;
+    if (!sm90_head_map(&qm, q, B, H, Sq, q_sb, q_sh, q_ss, k1::kBlockM) ||
+        !sm90_head_map(&km, k, B, H, Skv, k_sb, k_sh, k_ss, k1::kBlockN) ||
+        !sm90_head_map(&vm, v, B, H, Skv, v_sb, v_sh, v_ss, k1::kBlockN)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    auto kernel = lse != nullptr ? flash_attn_fwd_sm90_kernel<true>
+                                 : flash_attn_fwd_sm90_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k1::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((Sq + k1::kBlockM - 1) / k1::kBlockM, B * H);
+    kernel<<<grid, k1::kThreads, k1::kSmem, st>>>(
+        qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+        H, Sq, Skv, o_sb, o_sh, o_ss, scale_log2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (lse != nullptr ||
+      (tiles != 1 && (tiles != 2 || Skv % (2 * mma::kBlockN) ||
+                      mode != kSoftmax)) ||
+      (mode != kSoftmax &&
+       ((mode != kFloor && mode != kNoExp) || Skv % mma::kBlockN))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((Sq + mma::kBlockM - 1) / mma::kBlockM, B * H);
+  auto kernel = mode == kFloor    ? mma::flash_attn_fwd_d64_mma_kernel<1, kFloor>
+                : mode == kNoExp  ? mma::flash_attn_fwd_d64_mma_kernel<1, kNoExp>
+                                  : mma::flash_attn_fwd_d64_mma_kernel<2, kSoftmax>;
+  kernel<<<grid, mma::kThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
-      v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
+      Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
+      o_sh, o_ss, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

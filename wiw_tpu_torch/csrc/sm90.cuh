@@ -1,0 +1,406 @@
+// Hopper (sm_90a) building blocks shared by the flash-attention kernels
+// K1 (flash_attn_fwd.cu) and K3 (flash_attn_bwd.cu): inline PTX for
+// mbarriers, TMA tensor and bulk copies, wgmma descriptors and products,
+// fences, named barriers and register reallocation, plus the host-side
+// tensor map of a [B, H, S, 64] bf16 head view.
+//
+// Shared-memory operands use the 128-byte swizzle throughout: a row of 64
+// bf16 is exactly 128 bytes, TMA writes tiles in that layout, and wgmma
+// reads it through a descriptor with layout type SW128. Every tile starts
+// 1024-byte aligned (one swizzle atom of 8 rows x 128 bytes), so the
+// descriptor's base offset is 0. In such a tile of R rows x 64 columns:
+//   * as a K-major operand (rows = M or N, the 64 columns = K), the k-th
+//     16-column slice starts 32 * k bytes into the tile;
+//   * as an MN-major operand (rows = K, the 64 columns = M or N), the k-th
+//     16-row slice starts 2048 * k bytes into the tile.
+// The stride between 8-row groups (SBO) is 1024 bytes in both cases.
+//
+// The wgmma accumulator of m64nNk16 (fp32) gives thread (warp w of the
+// warpgroup, lane = 4 g + t) rows 16 w + g and 16 w + g + 8, and for each
+// 8-column block j the elements d[4j + 0, 1] = (row g, columns 8j + 2t,
+// 8j + 2t + 1) and d[4j + 2, 3] = (row g + 8, the same columns): the
+// mma.sync m16n8 layout repeated over N / 8 blocks. The register A operand
+// of m64nNk16 has the mma.sync m16n8k16 A layout, so the accumulator
+// blocks (2k, 2k + 1) packed to bf16 are the A fragment of k-slice k.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ----------------------------------------------------------------- mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// after the barriers are initialised, before any thread or TMA uses them
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also announces `bytes` of TMA transactions to come
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed; a wait that never
+// ends (a lost arrival or transaction) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  uint32_t tries = 0;
+  do {
+    if (++tries == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// ---------------------------------------------------------------------- TMA
+// a box of the 4-D tensor map `map` at coordinates (c0, c1, c2, c3) into
+// shared memory at `dst`, completing `bytes` of transactions on `bar`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// add a box of fp32 from shared memory at `src` into the 2-D tensor map
+// `map` at coordinates (c0, c1), the reduction done by TMA in L2; tracked by
+// the issuing thread's bulk groups
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most kPending of this thread's bulk groups still read shared
+// memory
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+// until at most kPending of this thread's bulk groups are still in flight
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma, TMA) before they read them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// --------------------------------------------------------- warp roles, sync
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -------------------------------------------------------------------- wgmma
+// descriptor of a 128-byte-swizzled operand starting at `p` (see the top)
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |               // LBO (unused)
+         (static_cast<uint64_t>(1024 >> 4) << 32) |       // SBO: 8 rows
+         (static_cast<uint64_t>(1) << 62);                // SW128
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(kPending) : "memory");
+}
+
+// keeps the compiler from moving reads or writes of these registers across
+// the asynchronous products (CUTLASS's warpgroup_fence_operand)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+  }
+}
+
+// two floats -> one register of two bf16 (lo in the low half)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the A fragments of the K slices of an m64nNk16 accumulator (N = 16 * K),
+// rounded to bf16
+template <int K>
+__device__ __forceinline__ void acc_to_a(const float (&d)[8 * K],
+                                         uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    a[k][0] = pack_bf16(d[8 * k + 0], d[8 * k + 1]);
+    a[k][1] = pack_bf16(d[8 * k + 2], d[8 * k + 3]);
+    a[k][2] = pack_bf16(d[8 * k + 4], d[8 * k + 5]);
+    a[k][3] = pack_bf16(d[8 * k + 6], d[8 * k + 7]);
+  }
+}
+
+// byte offset of (row, byte column) in a 128-byte-swizzled tile
+__device__ __forceinline__ uint32_t swizzle128(int row, int col_bytes) {
+  return static_cast<uint32_t>(row * 128 +
+                               ((((col_bytes >> 4) ^ (row & 7)) << 4) |
+                                (col_bytes & 15)));
+}
+
+// ------------------------------------------------- wgmma products (bf16 -> fp32)
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B in shared memory
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B in shared memory
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B in shared memory
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// D[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the fragment
+// of an m64nXk16 accumulator, packed to bf16 pairs), B in shared memory
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
+
+}  // namespace sm90
+
+// ------------------------------------------------------------------- host
+// (Both maps below read rows past their extent as zeros.)
+// The 4-D tensor map of a [B, H, S, 64] bf16 view with element strides
+// (sb, sh, ss) and unit stride on the last dim, as TMA dims (64, S, H, B):
+// boxes of 64 x `rows` elements, 128-byte swizzle, rows past S read as
+// zeros. cuTensorMapEncodeTiled is taken from the driver through the
+// runtime, so nothing links against libcuda. Returns false if the driver
+// refuses the map (a stride not a multiple of 16 bytes, a misaligned base).
+typedef CUresult (*Sm90EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                    void*, const cuuint64_t*, const cuuint64_t*,
+                                    const cuuint32_t*, const cuuint32_t*,
+                                    CUtensorMapInterleave, CUtensorMapSwizzle,
+                                    CUtensorMapL2promotion,
+                                    CUtensorMapFloatOOBfill);
+
+static inline Sm90EncodeTiled sm90_encode_fn() {
+  static Sm90EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+#endif
+    fn = reinterpret_cast<Sm90EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 2-D tensor map of a row-major fp32 [rows, 64] matrix: boxes of 32
+// columns x `box_rows` rows (128 bytes wide), 128-byte swizzle.
+static inline bool sm90_f32_rows_map(CUtensorMap* map, void* base,
+                                     int64_t rows, int box_rows) {
+  Sm90EncodeTiled encode = sm90_encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {64, static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {64 * 4};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static inline bool sm90_head_map(CUtensorMap* map, const void* base, int B,
+                                 int H, int S, int64_t sb, int64_t sh,
+                                 int64_t ss, int rows) {
+  Sm90EncodeTiled encode = sm90_encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}

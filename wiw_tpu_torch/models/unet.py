@@ -18,6 +18,7 @@ folded into batch ([B*F, H, W, C]).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -38,6 +39,31 @@ from wiw_tpu_torch.models.layers import (
 )
 from wiw_tpu_torch.ops.fused_mlp import GATES
 from wiw_tpu_torch.ops.temporal_attention import MODES
+
+
+def env_switches(fused_ff: Optional[bool] = None,
+                 temporal_attention: Optional[str] = None) -> dict:
+    """The model switches the reference reads from the environment at trace
+    time, for every caller, serving and training alike
+    (wiw_tpu/models/layers.py `_fused_ff_on`, ops/fused_mlp.py's gate,
+    ops/temporal_attention.py's mode); an explicit argument wins.
+
+      WIW_FUSED_FF       '1' -> fused LN + feed-forward (K6), else off
+      WIW_TEMPORAL_ATTN  'pallas' (K4) | 'xla', else 'batched' (default)
+      WIW_FUSED_FF_GATE  'bf16' -> K6's gate in bf16 (K6-bf16), else 'f32'
+                         (the environment only, as in the reference)
+
+    Returns {fused_ff, temporal_attention, fused_ff_gate}: UNetConfig's
+    fields of the same names."""
+    env = os.environ
+    if fused_ff is None:
+        fused_ff = env.get("WIW_FUSED_FF", "0") == "1"
+    if temporal_attention is None:
+        mode = env.get("WIW_TEMPORAL_ATTN", "batched")
+        temporal_attention = mode if mode in ("pallas", "xla") else "batched"
+    gate = "bf16" if env.get("WIW_FUSED_FF_GATE", "f32") == "bf16" else "f32"
+    return {"fused_ff": fused_ff, "temporal_attention": temporal_attention,
+            "fused_ff_gate": gate}
 
 
 @dataclasses.dataclass(frozen=True)

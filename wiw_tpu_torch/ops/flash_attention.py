@@ -7,24 +7,27 @@ called through `flash_attention_bhsd(kernel="v2")`); its CUDA source is
 `wiw_tpu_torch/csrc/flash_attn_fwd.cu`. K3 replaces the backward of the
 stock Pallas TPU flash attention that the reference's custom VJP calls
 (`_flash_attention_fn` in wiw_tpu/ops/attention.py); its CUDA source is
-`wiw_tpu_torch/csrc/flash_attn_bwd.cu`. Each header says what bounds the
-kernel on the H100 and how the design answers that. K2 replaces the TPU
-kernels `_attn_kernel` and `_attn_kernel_unroll2` (`flash_attention_bhsd(
-kernel="v1", unroll2=...)`): the same source as K1, whose arithmetic is
-already v1's, with `unroll2` a template parameter (two k/v tiles an
-iteration, one running max over both); `flash_attention(kernel="v1")`
-reaches it through `flash_attention_v1`. No model caller uses K2, as none
-uses v1 in the reference.
+`wiw_tpu_torch/csrc/flash_attn_bwd.cu`. Both run on wgmma, fed by TMA
+through an mbarrier ring (helpers in `csrc/sm90.cuh`); each header says
+what bounds the kernel on the H100 and how the design answers that. K3 sums
+dQ over kv tiles by reductions in L2 (TMA reduce-add), in the order the
+CTAs reach them, so dq's last bits change from run to run.
+K2 replaces the TPU kernels `_attn_kernel` and `_attn_kernel_unroll2`
+(`flash_attention_bhsd(kernel="v1", unroll2=...)`): v1 is K1's function and
+runs K1's kernel; `unroll2` runs the same source's mma.sync kernel (two
+64-row k/v tiles an iteration, one running max over both);
+`flash_attention(kernel="v1")` reaches both through `flash_attention_v1`.
+No model caller uses K2, as none uses v1 in the reference.
 
 K9, the reference's attention ablations (`_kern_floor`, `_kern_noexp`,
 `_kern_v2` in scripts/tune_attention2.py), are template modes of the same
 source: `attention_floor` (no softmax: sum of bf16(q k^T) v), `attention_noexp`
 (K1's loop with exp replaced by the identity, out = acc / (denominator + 1))
 and `attention_v2` (K1's function with q pre-scaled by the caller, which
-is K1's code with a unit scale). Their plain versions take the kv block
+is K1's kernel with a unit scale). Their plain versions take the kv block
 width `bkv`, because noexp's (and v2's bf16 P's) values depend on the
-running max at each block; the kernels' is KV_TILE. No model caller, as in
-the reference.
+running max at each block: floor and noexp run the mma.sync kernel
+(KV_TILE), v2 K1's (K1_KV_TILE). No model caller, as in the reference.
 
 `flash_attention(q, k, v)` takes [B, H, S, D] tensors (any strides with a
 unit stride on D, e.g. head views of [B, S, H*D] projections). On CPU
@@ -47,7 +50,10 @@ import torch
 from wiw_tpu_torch.ops import native
 
 HEAD_DIM = 64  # the kernels' template constant
-KV_TILE = 64  # k/v rows a kernel tile; unroll2 takes two an iteration
+KV_TILE = 64  # k/v rows a tile of the mma.sync kernel (K2's unroll2 takes
+# two an iteration, K9's floor and noexp one)
+K1_KV_TILE = 128  # k/v rows a stage of K1's wgmma kernel (K1, K2's v1, K9's v2)
+Q_TILE = 64  # q rows a stage of K3
 KERNELS = ("v2", "v1")
 _LIB = "flash_attn_fwd"
 _BWD_LIB = "flash_attn_bwd"
@@ -152,7 +158,7 @@ def _bind(lib: ctypes.CDLL):
 def _bind_bwd(lib: ctypes.CDLL):
     fn = lib.wiw_flash_attn_bwd_d64
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -228,15 +234,22 @@ def flash_attention_bwd(q, k, v, out, lse, dout):
         return torch.empty(B, S, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
 
     dq, dk, dv = grad_like(Sq), grad_like(Skv), grad_like(Skv)
-    delta = torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
+    # the kernel's scratch: L * log2(e) and Delta per q row, and dQ's fp32
+    # sum over kv tiles (reduce-adds into zeros), Sq padded to Q_TILE rows;
+    # the kernel refuses a padding other than its own q tile's
+    sq_pad = -(-Sq // Q_TILE) * Q_TILE
+    rows = torch.empty(2, B * H, sq_pad, dtype=torch.float32, device=q.device)
+    dq_acc = torch.zeros(B * H, sq_pad, D, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, out, dout, dq, dk, dv)
                                       for s in t.stride()[:3]))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, H, Sq, Skv,
-                 ctypes.cast(strides, ctypes.c_void_p), D ** -0.5, stream)
+                 dout.data_ptr(), lse.data_ptr(), rows.data_ptr(),
+                 dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, H, Sq, Skv, sq_pad, ctypes.cast(strides, ctypes.c_void_p),
+                 D ** -0.5,
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd launch failed: cudaError {err}")
     flash_attention_bwd.launches += 1

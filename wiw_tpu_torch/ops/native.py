@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled with nvcc
 for sm_90a into `wiw_tpu_torch/_build/<name>-<digest>.so` at first use, then
-loaded with ctypes. The digest covers the source and the flags, so an edited
-kernel rebuilds and a built one is reused. `load_libraries` runs one nvcc
+loaded with ctypes. The digest covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited kernel or header rebuilds and a
+built one is reused. `load_libraries` runs one nvcc
 per source, all at once. Nothing here runs at import.
 
 Two rules every kernel wrapper shares live here too: `on_cpu` (CPU tensors
@@ -52,10 +53,14 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library's path: its name and a digest of the source, every
+    shared header in `CSRC` (a `.cu` may include any of them) and the
+    flags, so that an edit to any of them rebuilds."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def load_libraries(*names: str) -> list[ctypes.CDLL]:

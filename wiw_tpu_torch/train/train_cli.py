@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from wiw_tpu_torch.models.clip import CLIPVisionConfig
-from wiw_tpu_torch.models.unet import UNetConfig
+from wiw_tpu_torch.models.unet import UNetConfig, env_switches
 from wiw_tpu_torch.models.vae import VAEConfig
 from wiw_tpu_torch.sampling.pipeline import GenerationConfig, SVDPipeline
 from wiw_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -92,7 +92,14 @@ def parse_args(argv=None):
 def build(args):
     """(pipeline, trainer, state) for `args`: the towers placed on the
     device (random weights from --seed, or --unet_path / --svd_path), the
-    trainer and its initial state."""
+    trainer and its initial state. The UNet takes the environment's model
+    switches (`env_switches`: WIW_FUSED_FF, WIW_TEMPORAL_ATTN,
+    WIW_FUSED_FF_GATE), as the reference's trainer does: WIW_FUSED_FF=1
+    trains through K6 and its recompute backward. K4 has no gradient, as
+    the reference's bare pallas_call defines none, so
+    WIW_TEMPORAL_ATTN=pallas raises at the first step on the card; on the
+    CPU both packages take a differentiable form (the reference's K4 is
+    TPU-only, the port's CPU path its plain version)."""
     if args.fsdp > 1:
         raise NotImplementedError(
             "--fsdp > 1: sharding over several cards is not ported yet "
@@ -108,7 +115,7 @@ def build(args):
         action_strategy=args.action_strategy or None,
         action_input_channel=args.action_input_channel,
         dtype="bfloat16", param_dtype="float32",
-        remat=args.gradient_checkpointing, **size_kw)
+        remat=args.gradient_checkpointing, **env_switches(), **size_kw)
     pipe = SVDPipeline(unet_cfg, VAE_CONFIG, CLIP_CONFIG, device=device)
     if args.unet_path:
         from wiw_tpu_torch.models.convert import load_safetensors_dir

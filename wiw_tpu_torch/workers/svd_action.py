@@ -31,8 +31,7 @@ import torch
 from wiw_tpu_torch.agents.saver import save_video
 from wiw_tpu_torch.core.schedule import SERVING_CFG, CFGSchedule
 from wiw_tpu_torch.models.convert import load_safetensors_dir
-from wiw_tpu_torch.models.unet import UNetConfig
-from wiw_tpu_torch.ops.resize import resize_cubic
+from wiw_tpu_torch.models.unet import UNetConfig, env_switches
 from wiw_tpu_torch.sampling.pipeline import GenerationConfig, SVDPipeline
 from wiw_tpu_torch.serve.worker import main_from_argv
 
@@ -49,10 +48,9 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
 
       WIW_CFG            'serving' (default) -> SERVING_CFG, else full CFG
       WIW_QUANT          'int8' -> W8A8 int8, else bf16
-      WIW_FUSED_FF       '1' -> fused LN + feed-forward (K6), else off
-      WIW_TEMPORAL_ATTN  'pallas' (K4) | 'xla', else 'batched' (default)
-      WIW_FUSED_FF_GATE  'bf16' -> K6's gate in bf16 (K6-bf16), else 'f32'
-                         (the environment only, as in the reference)
+      and the model's switches, as `unet.env_switches` reads them
+      (WIW_FUSED_FF, WIW_TEMPORAL_ATTN, WIW_FUSED_FF_GATE; the train CLI
+      reads the same)
 
     Environment values keep the reference's readings; an explicit
     `quantize` or `cfg_schedule` outside the CLI's choices raises
@@ -67,15 +65,9 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
     env = os.environ
     int8 = (quantize or env.get("WIW_QUANT", "")) == "int8"
     cfg = cfg_schedule or env.get("WIW_CFG", "serving")
-    if fused_ff is None:
-        fused_ff = env.get("WIW_FUSED_FF", "0") == "1"
-    if temporal_attention is None:
-        mode = env.get("WIW_TEMPORAL_ATTN", "batched")
-        temporal_attention = mode if mode in ("pallas", "xla") else "batched"
-    gate = "bf16" if env.get("WIW_FUSED_FF_GATE", "f32") == "bf16" else "f32"
     return {"cfg": SERVING_CFG if cfg == "serving" else CFGSchedule(),
-            "quantize": "int8" if int8 else "bf16", "fused_ff": fused_ff,
-            "temporal_attention": temporal_attention, "fused_ff_gate": gate}
+            "quantize": "int8" if int8 else "bf16",
+            **env_switches(fused_ff, temporal_attention)}
 
 
 class SVDActionWorker:
@@ -148,22 +140,24 @@ class SVDActionWorker:
 
     def _load_cond_images(self, input_dict: dict) -> torch.Tensor:
         """[B, H, W, 3] fp32 in [-1, 1] on the device, from b_image or
-        <save_dir>/cond_rgb.png, resized to the generation size with the
-        cubic antialiased resize when it differs."""
+        <save_dir>/cond_rgb.png, as the reference makes it on the host:
+        truncated to uint8, resized to the generation size by PIL's default
+        filter, then scaled."""
+        from PIL import Image
+
         if input_dict.get("b_image") is not None:
             imgs = np.asarray(input_dict["b_image"])
             if imgs.ndim == 4 and imgs.shape[1] in (3, 4):  # BCHW -> BHWC
                 imgs = np.transpose(imgs[:, :3], (0, 2, 3, 1))
         else:
-            from PIL import Image
-
             imgs = np.stack([
                 np.asarray(Image.open(osp.join(d, "cond_rgb.png")).convert("RGB"))
                 for d in input_dict["save_dirs"]])
-        x = torch.from_numpy(np.ascontiguousarray(imgs)).to(
-            self.device, torch.float32) / 127.5 - 1.0
-        x = resize_cubic(x, (self.gen.height, self.gen.width), dims=(1, 2))
-        return x.clamp(-1.0, 1.0)
+        H, W = self.gen.height, self.gen.width
+        resized = np.stack([
+            np.asarray(Image.fromarray(im.astype(np.uint8)).resize((W, H)))
+            for im in imgs])
+        return torch.from_numpy(resized).to(self.device, torch.float32) / 127.5 - 1.0
 
     def __call__(self, input_dict: dict) -> dict:
         actions = torch.as_tensor(np.asarray(input_dict["b_action"]))
