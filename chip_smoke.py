@@ -7,7 +7,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. the card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN
   2. build: every CUDA kernel of the serving and training paths, from
      wiw_tpu_torch/csrc, one nvcc per source, all at once (ptxas
-     registers/spills printed)
+     registers/spills printed; fails if ptxas serialises K7's wgmma)
   3. kernels: K1 (flash attention), K2 (the reference's v1 attention, with
      and without unroll2, at S = 9216 and 144), K4 (frame attention), K5, K6
      and K6-bf16 (fused GEGLU feed-forward, fp32 and bf16 gate) each against
@@ -58,7 +58,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and at the VAE decoder's largest conv (`quantize_vae`), against its
      plain version (exact int32 sums in float64: the bits must be equal),
      with `torch._int_mm` on the same int8 operands as the dense library
-     call (the product alone)
+     call (the product alone); each call's device time split by
+     torch.profiler into the quantisation passes (quant_rows; amax_abs,
+     quant_tensor) and the product (w8a8_wgmma), with the product's TOPS
+     and the share of the bound
   5d. K9 (the attention ablations floor, noexp, v2) and K10 (int8 q k^T,
      bf16 and int8 PV) at the reference probes' shape, B*H 140, S 9216,
      against their plain versions at the kernels' kv block width (64)
@@ -163,7 +166,7 @@ L2_BYTES = 50 * 2 ** 20
 # printed on a line of its own before the measured `kernels` line
 PREV_MS = {"K1": 99.0636, "K2": 17.1462, "K2-unroll2": 19.0403, "K3": 150.7475,
            "K4": 7.4865, "K5": 248.9817, "K6": 276.8193, "K6-bf16": 366.8169,
-           "K8": 14.3089, "K7-dense": 64.5817, "K7-conv": 92.6088,
+           "K8": 14.3089, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 14.5467, "K9-noexp": 15.6669, "K9-v2": 17.7919,
            "K10": 30.3313, "K10-i8pv": 30.1647}
 PREV_FROM = "PERF.md §6, the time before this version (H100 80GB HBM3, 700 W)"
@@ -944,6 +947,41 @@ def k7_ops_bytes(key) -> tuple[int, int, int]:
     return 2 * M * N * K, xbytes + N * K + M * N * odt.itemsize, M * N
 
 
+# K7's kernels by name: the quantisation passes before the product and
+# the product
+K7_PASSES = {"dense": ("quant_rows",), "conv": ("amax_abs", "quant_tensor")}
+K7_PRODUCT = "w8a8_wgmma"
+
+
+def k7_split(fn, kind: str, reps: int, retries: int = 4) -> tuple[float, float]:
+    """Device time of one call of `fn` (a K7 wrapper of `kind`) in its
+    quantisation passes and in its product, ms, from torch.profiler over
+    `reps` calls. Each kernel runs once a call; its time is averaged over
+    the launches the profile recorded (late in a long run it records only
+    some, or none of a kernel: then the profile is taken again)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    per_call = {k: 0.0 for k in K7_PASSES[kind] + (K7_PRODUCT,)}
+    for e in events:
+        for k in per_call:
+            if k in e.key and e.count:
+                per_call[k] += self_dev(e) / e.count
+    missing = [k for k, ms in per_call.items() if not ms]
+    if missing:
+        print(f"  (the profile held no {missing}: "
+              + "; ".join(f"{e.key[:60]} x{e.count} {self_dev(e):.1f} us"
+                          for e in events) + ")", flush=True)
+        if retries:
+            return k7_split(fn, kind, reps, retries - 1)
+        raise RuntimeError(f"no {missing} kernel in the profile of a K7 call")
+    product = per_call.pop(K7_PRODUCT)
+    return sum(per_call.values()) / 1e3, product / 1e3
+
+
 def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
              dev, g):
     """K7 at every distinct int8 call of `request` (one int8 request) and
@@ -1013,12 +1051,18 @@ def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
         fwd, req = forward.get(key, 0), request.get(key, 0)
         where = "VAE decoder's largest int8 conv" if key == vae_key else (
             f"{fwd} a 2-row forward, {req} a request")
+        reps = max(3, min(50, int(2e11 // ops)))
         ms, plain_ms, lib_ms = timed(
             f"K7-{kind} x {list(xshape)} {str(xdtype)[6:]} w8 {list(wshape)} "
             f"stride {stride} -> {str(odt)[6:]} ({where}) {line}; bits equal "
-            f"at {same:.6g} of elements", plain, kern, lib,
-            max(3, min(50, int(2e11 // ops))), 1, bound,
+            f"at {same:.6g} of elements", plain, kern, lib, reps, 1, bound,
             lambda ms: f"{ops / ms / 1e9:.1f} TOPS, {nbytes / ms / 1e6:.0f} GB/s")
+        passes_ms, product_ms = k7_split(kern, kind, min(reps, 10))
+        print(f"  device time a call: passes {passes_ms:.4f} ms + product "
+              f"{product_ms:.4f} ms; product {ops / product_ms / 1e9:.1f} TOPS; "
+              f"bound {100 * bound / (passes_ms + product_ms):.1f}% of the "
+              f"device time ({100 * bound / ms:.1f}% of the event time)",
+              flush=True)
         row = dense if kind == "dense" else conv
         by = "operations" if ops / INT8_OPS_S > nbytes / HBM_BYTES_S else "bytes"
         row.add(fwd, max_err, ms, plain_ms, bound, by,
@@ -1027,6 +1071,8 @@ def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
         # the row's bound_by: what bounds most of a forward's bound time
         d.setdefault("bound_ms_by", {"operations": 0.0, "bytes": 0.0})[by] += fwd * bound
         d["bound_by"] = max(d["bound_ms_by"], key=d["bound_ms_by"].get)
+        for f, v in (("passes_ms", passes_ms), ("product_ms", product_ms)):
+            d[f] = d.get(f, 0.0) + fwd * v
         d["request_ms"] += req * ms
         d["request_plain_ms"] += req * plain_ms
         d["request_bound_ms"] += req * bound
@@ -1035,6 +1081,7 @@ def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
         if key == vae_key:
             conv.d["vae_conv"] = {"x": list(xshape), "w8": list(wshape),
                                   "ms": ms, "plain_ms": plain_ms,
+                                  "passes_ms": passes_ms, "product_ms": product_ms,
                                   "bound_ms": bound, "max_abs_err": max_err}
         del x, w8, ws, b
         if kind == "dense":
@@ -1042,6 +1089,10 @@ def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
         torch.cuda.empty_cache()
     for row in (dense, conv):
         d = row.d
+        print(f"{d['name']} a 2-row forward, device time: passes "
+              f"{d['passes_ms']:.4f} ms + product {d['product_ms']:.4f} ms "
+              f"(event time {d['ms']:.4f} ms, bound {d['bound_ms']:.4f} ms)",
+              flush=True)
         print(f"{d['name']} per request: kernel {d['request_ms']:.4f} ms, plain "
               f"{d['request_plain_ms']:.4f} ms, bound {d['request_bound_ms']:.4f}"
               f" ms, library {d['request_library_ms']}", flush=True)
@@ -1337,7 +1388,8 @@ KERNEL_CLASSES = (
     ("K8 GroupNorm", ("gn_stats", "gn_finalize", "gn_apply")),
     ("port attention and feed-forward kernels",
      ("flash_attn", "temporal_attn", "geglu_ffn")),
-    ("K7 W8A8 product and conv", ("w8a8", "quant_rows", "amax_abs")),
+    ("K7 W8A8 product and conv", ("w8a8_wgmma", "quant_rows", "amax_abs",
+                                  "quant_tensor")),
     ("GEMM and conv", ("gemm", "xmma", "nvjet", "cutlass", "cudnn", "conv",
                        "wgmma", "sm80_", "sm90_")),
     ("LayerNorm", ("layer_norm",)),
@@ -1516,6 +1568,13 @@ def main() -> int:
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"  {name}: {secs:.2f} s; " + "; ".join(ptxas), flush=True)
+    # K7 runs its product on wgmma: ptxas must not serialise it (C7510-C7518)
+    wgmma = [ln.strip() for ln in native.build_info["w8a8"][1].splitlines()
+             if "serialized" in ln or "C751" in ln]
+    print("  w8a8 ptxas wgmma lines: " + ("; ".join(wgmma) if wgmma else
+                                          "none (no wgmma serialized)"), flush=True)
+    if wgmma:
+        raise RuntimeError("ptxas serialised K7's wgmma")
 
     rows = {
         "K1": Row("flash_attn_fwd_d64", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",

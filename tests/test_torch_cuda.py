@@ -510,7 +510,13 @@ def _k7_dense_args(dev, M, K, N, x_dtype, bias):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(1000, 320, 2560), (77, 64, 72), (4032, 1280, 1280)])
+# every tile width (BN 128; 160 at N 320), a ragged last N tile (N 72), M
+# not a multiple of the 128-row tile, K not a multiple of the 64-byte chunk
+# (K 80), and more tiles than 132 SMs x 6 stages (M 40000, N 2560: 6260
+# tiles, the persistent walk)
+@pytest.mark.parametrize("M,K,N", [(1000, 320, 2560), (77, 64, 72), (4032, 1280, 1280),
+                                   (300, 320, 320), (129, 80, 640),
+                                   (40000, 320, 2560)])
 @pytest.mark.parametrize("x_dtype,out_dtype,bias", [
     (torch.bfloat16, torch.bfloat16, True), (torch.float32, torch.float32, False),
     (torch.bfloat16, torch.float32, True)])
@@ -527,26 +533,46 @@ def test_w8a8_dense_kernel_equals_plain_on_card(cuda_device, M, K, N, x_dtype,
     assert torch.equal(out[0], TQ.w8a8_dense_plain(x, w8, ws, b, out_dtype))
 
 
+# both A producers (TMA boxes at stride 1 with C % 64 == 0, the cp.async
+# gather at stride 2 or other C), every tile width (BN 128, 160, 256; 256
+# with an fp32 output has its own 4-stage layout), output rectangles that
+# straddle H (18 x 32: 4-row tiles; 9 x 16: 8-row tiles) or W (W 24, 15,
+# 10), a VAE-like C 128 at W 512 with fp32 in and out, an all-zero x (the
+# 1e-8 floor of the one scale; `amp` 0), and more tiles than 132 SMs x 6
+# stages (8 x 72 x 128 at N 320: 1152 tiles)
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,O,k,stride,pad", [
-    ((3, 20, 24, 64), 72, 3, 1, 1), ((2, 17, 15, 32), 64, 3, 2, 1),
-    ((2, 9, 10, 48), 40, 1, 1, 0), ((1, 72, 128, 320), 320, 3, 1, 1)])
+@pytest.mark.parametrize("shape,O,k,stride,pad,out_dtype,amp", [
+    ((3, 20, 24, 64), 72, 3, 1, 1, torch.bfloat16, 1.5),
+    ((2, 17, 15, 32), 64, 3, 2, 1, torch.bfloat16, 1.5),
+    ((2, 9, 10, 48), 40, 1, 1, 0, torch.bfloat16, 1.5),
+    ((1, 72, 128, 320), 320, 3, 1, 1, torch.bfloat16, 1.5),
+    ((2, 18, 32, 640), 640, 3, 1, 1, torch.bfloat16, 1.5),
+    ((2, 9, 16, 1280), 1280, 3, 1, 1, torch.bfloat16, 1.5),
+    ((2, 17, 15, 320), 320, 3, 2, 1, torch.bfloat16, 1.5),
+    ((1, 9, 11, 48), 64, 3, 1, 1, torch.bfloat16, 1.5),
+    ((1, 8, 512, 128), 128, 3, 1, 1, torch.float32, 1.5),
+    ((1, 8, 256, 256), 512, 3, 1, 1, torch.float32, 1.5),
+    ((2, 17, 15, 64), 256, 3, 2, 1, torch.bfloat16, 1.5),
+    ((2, 9, 16, 64), 64, 3, 1, 1, torch.bfloat16, 0.0),
+    ((8, 72, 128, 320), 320, 3, 1, 1, torch.bfloat16, 1.5)])
 @pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
 def test_w8a8_conv_kernel_equals_plain_on_card(cuda_device, shape, O, k, stride,
-                                               pad, x_dtype):
+                                               pad, out_dtype, amp, x_dtype):
     from wiw_tpu_torch.ops import quant as TQ
 
     g = torch.Generator(device=cuda_device).manual_seed(O)
-    x = (torch.randn(*shape, generator=g, device=cuda_device) * 1.5).to(x_dtype)
+    x = (torch.randn(*shape, generator=g, device=cuda_device) * amp).to(x_dtype)
     w8, ws = TQ.quantize_kernel(torch.randn(O, k, k, shape[-1], generator=g,
                                             device=cuda_device) * 0.05)
     b = torch.randn(O, generator=g, device=cuda_device)
     before = TQ.w8a8_conv.launches
-    out = TQ.w8a8_conv(x, w8, ws, b, stride=stride, padding=pad)
+    out = TQ.w8a8_conv(x, w8, ws, b, stride=stride, padding=pad, dtype=out_dtype)
     torch.cuda.synchronize()
     assert TQ.w8a8_conv.launches == before + 1
-    ref = TQ.w8a8_conv_plain(x, w8, ws, b, stride=stride, padding=pad)
-    assert out.shape == ref.shape and torch.equal(out, ref)
+    ref = TQ.w8a8_conv_plain(x, w8, ws, b, stride=stride, padding=pad,
+                             dtype=out_dtype)
+    assert out.shape == ref.shape and out.dtype == out_dtype
+    assert torch.equal(out, ref)
 
 
 @pytest.mark.cuda

@@ -88,10 +88,10 @@ def test_quant_rows_codes_equal_reference(dtype):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
 
 
-def _dense_args(bias, seed=2):
-    x = _rand((3, 50, 64), seed)
-    w = _rand((64, 96), seed + 1, 0.2)
-    b = _rand((96,), seed + 2) if bias else None
+def _dense_args(bias, seed=2, lead=(3, 50), K=64, N=96):
+    x = _rand(lead + (K,), seed)
+    w = _rand((K, N), seed + 1, 0.2)
+    b = _rand((N,), seed + 2) if bias else None
     j8, js = JQ.quantize_kernel(jnp.asarray(w))
     return x, j8, js, b
 
@@ -106,11 +106,15 @@ def _assert_out_close(out, ref, dtype):
         assert (np.abs(out - ref) <= ulp).all()
 
 
+# the widths K7's tiling singles out: N 320 (160-wide tiles), K 320 and 960
+# (not multiples of 128), a few rows
+@pytest.mark.parametrize("lead,K,N", [((3, 50), 64, 96), ((2, 7), 320, 320),
+                                      ((5,), 960, 160)])
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("bias", [True, False])
-def test_w8a8_dense_matches_reference(x_dtype, out_dtype, bias):
-    x, j8, js, b = _dense_args(bias)
+def test_w8a8_dense_matches_reference(x_dtype, out_dtype, bias, lead, K, N):
+    x, j8, js, b = _dense_args(bias, lead=lead, K=K, N=N)
     ref = JQ.w8a8_dense(jnp.asarray(x).astype(x_dtype), j8, js,
                         None if b is None else jnp.asarray(b),
                         dtype=getattr(jnp, out_dtype))
@@ -122,14 +126,16 @@ def test_w8a8_dense_matches_reference(x_dtype, out_dtype, bias):
     _assert_out_close(out, ref, out_dtype)
 
 
+@pytest.mark.parametrize("C,O", [(32, 48), (320, 320), (960, 64)])
 @pytest.mark.parametrize("stride", [1, 2])
 @pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
-def test_w8a8_conv_matches_reference(stride, out_dtype):
+def test_w8a8_conv_matches_reference(stride, out_dtype, C, O):
     """3x3 pad 1 at stride 1 (resnets, upsamplers) and 2 (downsamplers) on
-    odd spatial sizes; one activation scale for the whole call."""
-    x = _rand((2, 9, 11, 32), 3, 2.0)
-    w = _rand((3, 3, 32, 48), 4, 0.1)
-    b = _rand((48,), 5)
+    odd spatial sizes; one activation scale for the whole call; input
+    channels off the 64-byte chunk (32) and on it (320, 960), N 320."""
+    x = _rand((2, 9, 11, C), 3, 2.0)
+    w = _rand((3, 3, C, O), 4, 0.1)
+    b = _rand((O,), 5)
     j8, js = JQ.quantize_kernel(jnp.asarray(w))
     ref = JQ.w8a8_conv(jnp.asarray(x).astype(jnp.bfloat16), j8, js,
                        jnp.asarray(b), strides=(stride, stride),
@@ -328,3 +334,73 @@ def test_full_width_int8_count_equals_reference():
     want = JQ.count_quantized(jax.eval_shape(quantized_tree))
     pipe = SVDPipeline(port_cfg(TU.UNetConfig, jcfg), device="cpu")
     assert pipe.quantize_unet() == want == 98
+
+
+@pytest.mark.parametrize("args,plan", [
+    ((320,), (160, 0)), ((2560,), (160, 0)), ((10240,), (160, 0)),
+    ((72,), (128, 0)), ((256,), (128, 0)),
+    ((320, 320, 1, 128), (160, 128)), ((640, 640, 1, 64), (160, 64)),
+    ((1280, 1280, 1, 16), (256, 16)), ((128, 128, 1, 1024), (128, 128)),
+    ((512, 512, 1, 256), (256, 128)), ((64, 64, 1, 15), (128, 16)),
+    ((64, 64, 1, 1), (128, 1)), ((320, 320, 2, 64), (160, 0)),
+    ((1280, 1280, 2, 16), (160, 0)), ((64, 48, 1, 11), (128, 0))])
+def test_k7_plan_rules(args, plan):
+    """K7's tile width (the widest that divides N: dense 160; a conv with
+    TMA boxes 256, then 160; the gathered conv 160; else 128) and its A
+    producer (TMA boxes in bw x 128 / bw output rectangles at stride 1 with
+    C a multiple of 64, bw the power of two >= OW up to 128; else the
+    cp.async gather, bw 0)."""
+    assert TQ.k7_plan(*args) == plan
+
+
+def _served_input_width(name: str, vae: bool) -> int:
+    """The input width of the conv `name` when the worker serves 576x1024
+    (a 72x128 latent): the UNet halves it at each down block's downsampler
+    and doubles it at each up block's upsampler (levels 128, 64, 32, 16);
+    the VAE decoder starts at the latent's 128 and doubles it after each
+    of its up blocks 0-2 (128 .. 1024)."""
+    parts = name.split(".")
+    if parts[0] == "mid_block":
+        return 128 if vae else 16
+    block = int(parts[1])
+    up = parts[2] == "upsamplers"  # runs on the upsampled map
+    if vae:
+        return 128 << (block + up)
+    level = block if parts[0] == "down_blocks" else 3 - block - up
+    return 128 >> level
+
+
+def test_k7_plan_full_width_shapes():
+    """At every int8 layer of the full-width UNet (SVD† widths, micro_cond
+    with 14 action channels) and of the W8A8 VAE decoder, at the widths the
+    worker serves (576x1024), K7's tiles do not pad N; the A operand comes
+    by TMA but at the three stride-2 downsamplers, in output rectangles as
+    wide as the output row up to 128 (the next power of two of OW), so no
+    column of a tile pads either. The pipeline builds its modules on the
+    meta device: no weights are made."""
+    from wiw_tpu.models.unet import UNetConfig as JUNetConfig
+    from wiw_tpu_torch.sampling.pipeline import SVDPipeline
+
+    jcfg = JUNetConfig(action_strategy="micro_cond", action_input_channel=14)
+    pipe = SVDPipeline(port_cfg(TU.UNetConfig, jcfg), device="cpu")
+    unet = TQ.eligible_modules(pipe.unet)
+    vae = TQ.eligible_modules(pipe.vae.decoder, prefix="decoder.")
+    assert len(unet) == 98 and vae
+    gathered, widths = [], set()
+    for is_vae, layers in ((False, unet), (True, vae)):
+        for name, m in layers:
+            if isinstance(m, torch.nn.Linear):
+                bn, bw = TQ.k7_plan(m.out_features)
+                assert m.out_features % bn == 0 and m.in_features % 64 == 0
+                continue
+            (kw,), (s,), (pad,) = m.kernel_size[1:], m.stride[1:], m.padding[1:]
+            OW = (_served_input_width(name, is_vae) + 2 * pad - kw) // s + 1
+            bn, bw = TQ.k7_plan(m.out_channels, m.in_channels, s, OW)
+            assert m.out_channels % bn == 0, name
+            if bw == 0:
+                gathered.append(m)
+                continue
+            assert bw == min(128, 1 << (OW - 1).bit_length()) and OW % bw == 0, name
+            widths.add(bw)
+    assert len(gathered) == 3 and all(m.stride[0] == 2 for m in gathered)
+    assert widths == {16, 32, 64, 128}

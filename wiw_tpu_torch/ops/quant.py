@@ -10,11 +10,13 @@ quantisation has to be fused into the int8 product to pay:
     ((acc * s_a[row]) * s_w[col]) + bias, in fp32, rounded once to `dtype`;
   * `w8a8_conv`: one dynamic scale for the whole call (per-position scales
     do not factor out of a conv's window sum): a pass takes amax(|x|), a
-    pass writes x8 = rint(x / s_a), the implicit-GEMM int8 conv gathers its
+    pass writes x8 = rint(x / s_a), the implicit-GEMM int8 conv reads its
     tiles from x8, and the epilogue is acc * (s_a * s_w[col]) + bias.
     The scale spans every row of the call (both CFG rows and all frames),
     as the reference's does, so a row's output depends on the rows batched
     with it.
+Both products run on one wgmma core; `k7_plan` picks its tile width and,
+for a conv, how its A operand is loaded (the header of w8a8.cu says why).
 Dispatch is by device, as in every kernel wrapper of the port: CPU tensors
 take the plain versions (exact int32 sums, in float64), CUDA tensors launch
 K7 or raise; there is no fallback.
@@ -130,13 +132,34 @@ def w8a8_conv_plain(x, w8, w_scale, bias=None, *, stride=1, padding=0,
     return out.to(dtype)
 
 
+K7_TILE_M = 128  # output rows (conv: pixels) of one tile of the product
+
+
+def k7_plan(N: int, C: int | None = None, stride: int = 1, OW: int = 1):
+    """K7's tiling: (bn, bw). `bn` is the tile's width in output channels,
+    one that divides N where one does, so that no width of the UNet or the
+    VAE decoder pads: a dense product and a gathered conv take 160, a conv
+    with TMA boxes 256 (the least L2 traffic an operation), then 160, else
+    128 (the widths that measured fastest: the header of w8a8.cu). For a
+    conv (`C` input channels, `stride`, output width `OW`), `bw` > 0 loads
+    the A operand by TMA boxes shifted per tap, in output rectangles of bw x
+    (128 / bw) pixels, with bw the power of two >= OW up to 128 (stride 1
+    and C a multiple of 64, a 64-byte K chunk inside one tap); `bw` 0
+    gathers A with cp.async (a dense product takes TMA and ignores it)."""
+    bw = 0
+    if C is not None and stride == 1 and C % 64 == 0:
+        bw = min(K7_TILE_M, 1 << max(OW - 1, 0).bit_length())
+    widths = (256, 160) if bw else (160,)
+    return next((w for w in widths if N % w == 0), 128), bw
+
+
 def _bind(lib: ctypes.CDLL):
     dense, conv = lib.wiw_w8a8_dense, lib.wiw_w8a8_conv
     if dense.argtypes is None:
-        dense.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        dense.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
                           + [ctypes.c_void_p])
         dense.restype = ctypes.c_int
-        conv.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+        conv.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
                          + [ctypes.c_void_p])
         conv.restype = ctypes.c_int
     return dense, conv
@@ -167,6 +190,8 @@ def _check_common(x, w8, w_scale, bias, dtype, what):
         raise ValueError(f"{what}: output channels {N} not a multiple of 8")
     if x.data_ptr() % 16:
         raise ValueError(f"{what}: x must be 16-byte aligned")
+    if any(t is not None and t.data_ptr() % 8 for t in (w_scale, bias)):
+        raise ValueError(f"{what}: w_scale and bias must be 8-byte aligned")
 
 
 def _stream(x):
@@ -180,7 +205,7 @@ def w8a8_dense(x, w8, w_scale, bias=None, dtype=torch.bfloat16):
     tensors launch K7-dense (a per-row quantisation pass, then the int8
     product; counted as one launch in `w8a8_dense.launches`): bf16/fp32 x
     and output, K a multiple of 16, N of 8, fp32 bias; anything else
-    raises."""
+    raises. `k7_plan(N)` picks the tile width."""
     if native.on_cpu(*(t for t in (x, w8, w_scale, bias) if t is not None)):
         return w8a8_dense_plain(x, w8, w_scale, bias, dtype)
     _check_common(x, w8, w_scale, bias, dtype, "w8a8_dense")
@@ -201,8 +226,8 @@ def w8a8_dense(x, w8, w_scale, bias=None, dtype=torch.bfloat16):
     with torch.cuda.device(x.device):
         err = dense(x2.data_ptr(), x8.data_ptr(), sa.data_ptr(), w8.data_ptr(),
                     w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
-                    out.data_ptr(), M, N, K, _DTYPES[x.dtype], _DTYPES[dtype],
-                    _stream(x))
+                    out.data_ptr(), M, N, K, k7_plan(N)[0],
+                    _DTYPES[x.dtype], _DTYPES[dtype], _stream(x))
     if err != 0:
         raise RuntimeError(f"w8a8_dense launch failed: cudaError {err}")
     w8a8_dense.launches += 1
@@ -218,7 +243,8 @@ def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
     x [N, H, W, I] float, w8 [O, kh, kw, I] int8, symmetric integer
     `stride` and `padding`. CPU tensors take `w8a8_conv_plain`. CUDA tensors
     launch K7-conv (an amax pass, a pass that writes x8, then the
-    implicit-GEMM int8 conv; counted as one launch in `w8a8_conv.launches`):
+    implicit-GEMM int8 conv, tiled by `k7_plan`; counted as one launch in
+    `w8a8_conv.launches`):
     contiguous bf16/fp32 x, I a multiple of 16, O of 8; anything else
     raises."""
     if native.on_cpu(*(t for t in (x, w8, w_scale, bias) if t is not None)):
@@ -244,12 +270,14 @@ def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
     x8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     amax = torch.empty(1, dtype=torch.float32, device=x.device)
     out = torch.empty(Nb, OH, OW, O, dtype=dtype, device=x.device)
+    bn, bw = k7_plan(O, C, stride, OW)
     _, conv = _bind(native.load_library(_LIB))
     with torch.cuda.device(x.device):
         err = conv(x.data_ptr(), x8.data_ptr(), amax.data_ptr(), w8.data_ptr(),
                    w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
                    out.data_ptr(), Nb, H, W, C, O, kh, kw, stride, padding,
-                   OH, OW, _DTYPES[x.dtype] | (_DTYPES[dtype] << 1), _stream(x))
+                   OH, OW, bn, bw, _DTYPES[x.dtype] | (_DTYPES[dtype] << 1),
+                   _stream(x))
     if err != 0:
         raise RuntimeError(f"w8a8_conv launch failed: cudaError {err}")
     w8a8_conv.launches += 1
