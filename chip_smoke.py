@@ -7,7 +7,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. the card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN
   2. build: every CUDA kernel of the serving and training paths, from
      wiw_tpu_torch/csrc, one nvcc per source, all at once (ptxas
-     registers/spills printed; fails if ptxas serialises K7's wgmma)
+     registers/spills printed; fails if ptxas serialises K7's or K6's wgmma,
+     or spills in K6)
   3. kernels: K1 (flash attention), K2 (the reference's v1 attention, with
      and without unroll2, at S = 9216 and 144), K4 (frame attention), K5, K6
      and K6-bf16 (fused GEGLU feed-forward, fp32 and bf16 gate) each against
@@ -15,7 +16,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
      serving path gives it (max/mean |error| and relative Frobenius error
      against the stated tolerance, which scales with the plain output;
      K6-bf16 also differs from K6 and equals its own plain version at more
-     elements than it equals K6's);
+     elements than it equals K6's; for K6 and K6-bf16 also `k6_plan`'s
+     choice and cluster size, TFLOP/s, the gate's CUDA-core floor (an
+     estimate) beside the bound, and the device time by kernel name);
      kernel, plain and library-call ms by CUDA events in turns (plain,
      kernel, kernel, plain); the least time the card could take (bound) from
      the bytes and flops of each call; the device kernels the library call
@@ -87,6 +90,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -162,10 +166,11 @@ L2_BYTES = 50 * 2 ** 20
 
 
 # each row's time as PERF.md §6 recorded it before this version of the
-# kernels (the builders' runs of this script on an H100 80GB HBM3 at 700 W),
-# printed on a line of its own before the measured `kernels` line
+# kernels (runs of this script on an H100 80GB HBM3 at 700 W; K6 and
+# K6-bf16: the mma.sync kernel's), printed on a line of its own before the
+# measured `kernels` line
 PREV_MS = {"K1": 99.0636, "K2": 17.1462, "K2-unroll2": 19.0403, "K3": 150.7475,
-           "K4": 7.4865, "K5": 248.9817, "K6": 276.8193, "K6-bf16": 366.8169,
+           "K4": 7.4865, "K5": 248.9817, "K6": 275.2729, "K6-bf16": 363.8384,
            "K8": 14.3089, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 14.5467, "K9-noexp": 15.6669, "K9-v2": 17.7919,
            "K10": 30.3313, "K10-i8pv": 30.1647}
@@ -398,11 +403,43 @@ def k4_phase(row: Row, dev, g):
         del q, k, v, heads
 
 
+# K6's gate on the CUDA cores, an estimate: operations a hidden value,
+# counted from csrc/geglu_ffn.cu where the source spells them out (a bf16x2
+# instruction, add, product or packed conversion, 0.5 a value; a widening
+# to fp32, an fp32 add, product or compare-select 1) and costed where it
+# calls libdevice (an IEEE reciprocal and expf 4 each, erff 20; not
+# counted): the bias adds and their roundings 2.5, then the fp32 gate 27.5
+# (K6) or the bf16 gate 25.5 (K6-bf16: its Abramowitz-Stegun erf on bf16x2
+# instructions). Its floor is ops x M x I over the fp32 issue rate, one
+# operation a lane a clock on 132 SMs: 33.5 T/s at 700 W. Printed beside
+# the bound, not part of the `kernels` line
+GATE_OPS = {"K6": 2.5 + 27.5, "K6-bf16": 2.5 + 25.5}
+FP32_OPS_S = 33.5e12
+
+
+def device_by_kernel(fn, reps: int) -> dict:
+    """Device time of one call of `fn` by kernel name, ms (torch.profiler
+    over `reps` calls)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: self_dev(e) / 1e3 / reps for e in prof.key_averages()
+            if self_dev(e) > 0}
+
+
 def ffn_phase(k5: Row, k6: Row, k6_bf16: Row, dev, g):
+    """K5, K6 and K6-bf16 at the UNet's two feed-forward shapes against
+    their plain versions, timed in turns; K6's plan (`k6_plan`) and cluster
+    size, its TFLOP/s, the gate's CUDA-core floor beside the bound, and its
+    device time by kernel name. Returns the gate floor a UNet forward, ms,
+    of K6 and K6-bf16."""
     from functools import partial
 
     from wiw_tpu_torch.ops import fused_mlp as TF
 
+    gate_floors = {"K6": 0.0, "K6-bf16": 0.0}
     for M, C, calls in FF_SHAPES:
         inner = 4 * C
 
@@ -418,23 +455,38 @@ def ffn_phase(k5: Row, k6: Row, k6_bf16: Row, dev, g):
         flops = 6 * M * C * inner  # two products: 2*M*C*2I + 2*M*I*C
         nbytes = 2 * (2 * M * C + 3 * inner * C)  # x, out; W1, W2 once
         bound = bound_ms(nbytes, flops, BF16_FLOPS_S)
+        plan = TF.k6_plan(C, C)
+        print(f"K6 plan at C={C}: {plan._asdict()}, cluster {TF.K6_CLUSTER}",
+              flush=True)
         lnff = (x, ln_w, ln_b, w1, b1, w2, b2)
         outs = {}
-        for row, kern, plain, args in (
-                (k6, TF.ln_geglu_ffn_residual, TF.ln_geglu_ffn_residual_plain, lnff),
-                (k6_bf16, partial(TF.ln_geglu_ffn_residual, gate="bf16"),
+        for key, row, kern, plain, args in (
+                ("K6", k6, TF.ln_geglu_ffn_residual, TF.ln_geglu_ffn_residual_plain,
+                 lnff),
+                ("K6-bf16", k6_bf16, partial(TF.ln_geglu_ffn_residual, gate="bf16"),
                  partial(TF.ln_geglu_ffn_residual_plain, gate="bf16"), lnff),
-                (k5, TF.geglu_ffn, TF.geglu_ffn_plain, (x, w1, b1, w2, b2))):
+                ("K5", k5, TF.geglu_ffn, TF.geglu_ffn_plain, (x, w1, b1, w2, b2))):
             name = row.d["name"]
             outs[name] = out, ref = kern(*args), plain(*args)
             max_err, err_line = compare(f"{name} C={C}", out, ref)
+            floor = ""
+            if key != "K5":
+                gate_floor = GATE_OPS[key] * M * inner / FP32_OPS_S * 1e3
+                floor = (f", gate floor {gate_floor:.4f} ms ({GATE_OPS[key]} ops a "
+                         f"value, estimated)")
+                gate_floors[key] += calls * gate_floor
             ms, plain_ms, _ = timed(
                 f"{name} M={M} C={C} inner={inner} {err_line}",
                 lambda: plain(*args), lambda: kern(*args), None, 5, 3, bound,
-                lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
+                lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s{floor}")
             row.add(calls, max_err, ms, plain_ms, bound, "operations")
+            split = device_by_kernel(lambda: kern(*args), 3)
+            print(f"  {name} C={C} device time a call by kernel: " + "; ".join(
+                f"{k[:60]} {v:.4f} ms" for k, v in
+                sorted(split.items(), key=lambda kv: -kv[1])), flush=True)
         gate_check(outs[k6.d["name"]], outs[k6_bf16.d["name"]], M, C)
         del x, w1, w2, outs
+    return gate_floors
 
 
 def gate_check(k6, k6_bf16, M, C):
@@ -1568,13 +1620,20 @@ def main() -> int:
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"  {name}: {secs:.2f} s; " + "; ".join(ptxas), flush=True)
-    # K7 runs its product on wgmma: ptxas must not serialise it (C7510-C7518)
-    wgmma = [ln.strip() for ln in native.build_info["w8a8"][1].splitlines()
-             if "serialized" in ln or "C751" in ln]
-    print("  w8a8 ptxas wgmma lines: " + ("; ".join(wgmma) if wgmma else
-                                          "none (no wgmma serialized)"), flush=True)
-    if wgmma:
-        raise RuntimeError("ptxas serialised K7's wgmma")
+    # K7 and K6 run their products on wgmma: ptxas must not serialise them
+    # (C7510-C7518) nor spill
+    for name in ("w8a8", "geglu_ffn"):
+        log = native.build_info[name][1].splitlines()
+        wgmma = [ln.strip() for ln in log if "serialized" in ln or "C751" in ln]
+        print(f"  {name} ptxas wgmma lines: " + ("; ".join(wgmma) if wgmma else
+                                                 "none (no wgmma serialized)"),
+              flush=True)
+        if wgmma:
+            raise RuntimeError(f"ptxas serialised {name}'s wgmma")
+    spills = [ln.strip() for ln in native.build_info["geglu_ffn"][1].splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+    if spills:
+        raise RuntimeError("ptxas spilled in geglu_ffn: " + "; ".join(spills))
 
     rows = {
         "K1": Row("flash_attn_fwd_d64", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
@@ -1648,7 +1707,7 @@ def main() -> int:
     k1_phase(rows["K1"], dev, g)
     k2_phase(rows, dev, g)
     k4_phase(rows["K4"], dev, g)
-    ffn_phase(rows["K5"], rows["K6"], rows["K6-bf16"], dev, g)
+    gate_floors = ffn_phase(rows["K5"], rows["K6"], rows["K6-bf16"], dev, g)
     k3_phase(rows["K1"], rows["K3"], dev, g)
     k6_backward_check(dev, g)
     k8_checks(dev, g)
@@ -1688,10 +1747,12 @@ def main() -> int:
     by_path["train"] = train_phase(dev)
     for key, row in rows.items():
         d = row.d
+        floor = (f", gate floor {gate_floors[key]:.4f} ms (estimated)"
+                 if key in gate_floors else "")
         print(f"{key} per UNet forward ({d['per']}): kernel {d['ms']:.4f} ms "
               f"(before: {PREV_MS[key]} ms), plain "
               f"{d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
-              f"({d['bound_by']}), library {d['library_ms']}", flush=True)
+              f"({d['bound_by']}){floor}, library {d['library_ms']}", flush=True)
         d["launches"] = sum(p[key] for p in by_path.values())
         d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
         d["on_main_path"] = key not in ("K2", "K2-unroll2", "K5", "K9-floor",

@@ -196,8 +196,17 @@ def _ffn(dev, M, C, c_out=None, seed=0):
         b2=r(c_out, scale=0.1).bfloat16())
 
 
+# K6's cases: (rows, C). Both splits (C <= 320: row halves of 128-row tiles;
+# above: column halves of 64-row tiles), C off 64 (96, 336, 624: the C-tail
+# read as zeros), clusters of 2 left half-empty (an odd count of 128-row
+# tiles: one at C = 320 and 96, three at C = 64 and 128), and more tiles
+# than one wave of 132 SMs (300 and 256)
+K6_CASES = [(128, 320), (256, 640), (384, 64), (128, 640), (384, 128), (128, 96),
+            (256, 336), (384, 624), (38400, 64), (16384, 640)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,C", [(128, 320), (256, 640), (384, 64)])
+@pytest.mark.parametrize("M,C", K6_CASES)
 def test_ln_geglu_ffn_residual_matches_plain_on_card(cuda_device, M, C):
     p = _ffn(cuda_device, M, C)
     args = (p["x"], p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"])
@@ -206,6 +215,29 @@ def test_ln_geglu_ffn_residual_matches_plain_on_card(cuda_device, M, C):
     torch.cuda.synchronize()
     assert TF.ln_geglu_ffn_residual.launches == before + 1
     _close(out, TF.ln_geglu_ffn_residual_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,C", [(256, 320), (128, 640)])
+def test_ln_geglu_ffn_residual_function_launches_k6_once_on_card(cuda_device, M, C):
+    """K6's autograd Function: one K6 launch forward, the backward
+    recomputed through the unfused formulation; all seven gradients against
+    autograd through the plain version."""
+    p = _ffn(cuda_device, M, C, seed=5)
+    args = (p["x"], p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"])
+    dout = torch.randn_like(p["x"])
+
+    def grads(fn):
+        leaves = [t.detach().requires_grad_() for t in args]
+        fn(*leaves).backward(dout)
+        return [t.grad for t in leaves]
+
+    before = TF.ln_geglu_ffn_residual.launches
+    got = grads(TF.ln_geglu_ffn_residual)
+    torch.cuda.synchronize()
+    assert TF.ln_geglu_ffn_residual.launches == before + 1
+    for a, b in zip(got, grads(TF.ln_geglu_ffn_residual_plain)):
+        _close(a, b)
 
 
 @pytest.mark.cuda
@@ -232,8 +264,8 @@ def test_ffn_kernels_reject_inputs_they_do_not_take(cuda_device):
         TF.ln_geglu_ffn_residual(p["x"][:200], *ln, *w)
     with pytest.raises(ValueError):  # layout
         TF.geglu_ffn(p["x"], p["w1"].t().contiguous().t(), *w[1:])
-    # C > 640; C = 96, which the reference's rule takes but the kernel not
-    for C in (1280, 96):
+    # C > 640; C = 100, off the kernel's step of 16
+    for C in (1280, 100):
         p = _ffn(cuda_device, 128, C)
         with pytest.raises(ValueError):
             TF.ln_geglu_ffn_residual(p["x"], p["ln_w"], p["ln_b"], p["w1"],
@@ -241,7 +273,7 @@ def test_ffn_kernels_reject_inputs_they_do_not_take(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,C", [(128, 320), (256, 640)])
+@pytest.mark.parametrize("M,C", [(128, 320), (256, 640), (128, 96), (16384, 640)])
 def test_bf16_gate_kernel_matches_plain_on_card(cuda_device, M, C):
     p = _ffn(cuda_device, M, C, seed=3)
     args = (p["x"], p["ln_w"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"])

@@ -15,6 +15,7 @@ import torch
 from wiw_tpu.ops import fused_mlp as JF
 from wiw_tpu.ops.temporal_attention import temporal_self_attention_pallas
 from wiw_tpu.ops.temporal_attention import temporal_self_attention_xla as J_xla
+from wiw_tpu_torch.models.unet import UNetConfig
 from wiw_tpu_torch.ops import fused_mlp as TF
 from wiw_tpu_torch.ops import temporal_attention as TT
 
@@ -435,9 +436,36 @@ def test_frame_attention_refuses_a_gradient_off_the_cpu():
 
 
 def test_fused_ff_routes_c_off_the_kernel_step_to_the_unfused_modules(monkeypatch):
-    """C = 96 passes the reference's rule (C <= 640, 384 rows) but not the
-    CUDA kernel's C % 64: the block takes the unfused modules, whose result
-    is the fused path's function, and never calls K6's wrapper."""
+    """C = 40 with a 16-fold inner width (640) passes the reference's rule
+    (C <= 640, 384 rows, inner a multiple of 128) but not the CUDA kernel's
+    C % C_STEP (16): the block takes the unfused modules, whose result is
+    the fused path's function, and never calls K6's wrapper."""
+    from wiw_tpu_torch.models import layers as TL
+
+    torch.manual_seed(0)
+    fused = TL.BasicTransformerBlock(40, 2, 20, 16, fused_ff=True)
+    plain = TL.BasicTransformerBlock(40, 2, 20, 16, fused_ff=False)
+    for block in (fused, plain):
+        block.ff = TL.FeedForward(40, mult=16)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.from_numpy(_rand((3, 128, 40), 5))
+    ctx = torch.from_numpy(_rand((3, 1, 16), 6))
+    w1 = fused.ff.net[0].proj.weight
+    assert 40 % TF.C_STEP and TF.lnff_eligible(x, w1, fused.ff.net[2].weight)
+
+    def refuse(*a, **k):
+        raise AssertionError("K6's wrapper called at C = 40")
+
+    monkeypatch.setattr(TL, "ln_geglu_ffn_residual", refuse)
+    with torch.no_grad():
+        torch.testing.assert_close(fused(x, ctx), plain(x, ctx), rtol=0, atol=0)
+
+
+def test_fused_ff_takes_k6_at_a_c_of_the_kernel_step(monkeypatch):
+    """C = 96, a multiple of C_STEP but not of 64, which the kernel takes
+    since its C-tail is read as zeros: the block calls K6's wrapper once (the
+    plain version on the CPU) and agrees with the unfused modules (fp32:
+    summation order only)."""
     from wiw_tpu_torch.models import layers as TL
 
     torch.manual_seed(0)
@@ -446,15 +474,61 @@ def test_fused_ff_routes_c_off_the_kernel_step_to_the_unfused_modules(monkeypatc
     plain.load_state_dict(fused.state_dict())
     x = torch.from_numpy(_rand((3, 128, 96), 5))
     ctx = torch.from_numpy(_rand((3, 1, 16), 6))
-    w1 = fused.ff.net[0].proj.weight
-    assert TF.lnff_eligible(x, w1, fused.ff.net[2].weight)
+    calls = []
 
-    def refuse(*a, **k):
-        raise AssertionError("K6's wrapper called at C = 96")
+    def record(*a, **k):
+        calls.append(a[0].shape)
+        return TF.ln_geglu_ffn_residual(*a, **k)
 
-    monkeypatch.setattr(TL, "ln_geglu_ffn_residual", refuse)
+    monkeypatch.setattr(TL, "ln_geglu_ffn_residual", record)
     with torch.no_grad():
-        torch.testing.assert_close(fused(x, ctx), plain(x, ctx), rtol=0, atol=0)
+        torch.testing.assert_close(fused(x, ctx), plain(x, ctx), rtol=1e-5, atol=1e-5)
+    assert calls == [(3, 128, 96)]
+
+
+# the feed-forward widths of the UNet (C <= MAX_C) and of the card tests
+K6_WIDTHS = sorted({c for c in UNetConfig().block_out_channels if c <= TF.MAX_C}
+                   | {16, 64, 96, 128, 336, 624})
+
+
+@pytest.mark.parametrize("C_", K6_WIDTHS)
+def test_k6_plan_fits_the_card(C_):
+    """Every width K6 runs at gets a plan of the stage counts built for its
+    split (the C entry refuses any other; the build's static_assert holds
+    that split's shared memory to an H100 block's): row halves of 128-row
+    tiles up to C_out = 320, column halves of 64-row tiles above, so that
+    each warpgroup's accumulator stays 64 x 320 (160 registers a thread)."""
+    plan = TF.k6_plan(C_, C_)
+    assert plan.split == (C_ > TF.K6_NW)
+    assert plan.tile_rows == (64 if plan.split else 128)
+    assert (plan.w1_stages, plan.w2_stages) == ((2, 1) if plan.split else (2, 3))
+
+
+@pytest.mark.parametrize("C_,C_out", [
+    (0, 0), (100, 100), (8, 8), (656, 656), (1280, 1280), (320, 640), (640, 320),
+])
+def test_k6_plan_refuses_what_the_kernel_does_not_take(C_, C_out):
+    with pytest.raises(ValueError):
+        TF.k6_plan(C_, C_out)
+
+
+def test_k6_wrapper_refuses_shapes_before_any_launch():
+    """The wrapper's shape rules on meta tensors (no device needed): C off
+    the step, inner off K6's 32, rows off 128."""
+    def args(M, C_, inner):
+        m = torch.empty(M, C_, dtype=torch.bfloat16, device="meta")
+        return (m, torch.empty(C_, device="meta"), torch.empty(C_, device="meta"),
+                torch.empty(2 * inner, C_, dtype=torch.bfloat16, device="meta"),
+                torch.empty(2 * inner, device="meta"),
+                torch.empty(C_, inner, dtype=torch.bfloat16, device="meta"),
+                torch.empty(C_, device="meta"))
+
+    for M, C_, inner in ((128, 100, 400), (128, 96, 48), (200, 96, 384)):
+        a = args(M, C_, inner)
+        with pytest.raises(ValueError):
+            TF._check(*a[:1], *a[3:], residual=True, ln=a[1:3])
+    a = args(128, 96, 384)
+    assert TF._check(*a[:1], *a[3:], residual=True, ln=a[1:3]) == (128, 96, 384, 96)
 
 
 def test_ln_geglu_ffn_residual_function_gradients_match_reference():

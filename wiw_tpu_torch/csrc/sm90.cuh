@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
-// K1 (flash_attn_fwd.cu) and K3 (flash_attn_bwd.cu) and the int8 product
-// K7 (w8a8.cu): inline PTX for mbarriers, TMA tensor and bulk copies (loads
-// and stores), wgmma descriptors and products (bf16 -> fp32, s8 -> s32),
-// fences, named barriers and register reallocation, plus the host-side
-// tensor maps.
+// K1 (flash_attn_fwd.cu) and K3 (flash_attn_bwd.cu), the int8 product K7
+// (w8a8.cu) and the fused feed-forward K6 (geglu_ffn.cu): inline PTX for
+// mbarriers, TMA tensor and bulk copies (loads and stores), wgmma
+// descriptors and products (bf16 -> fp32, s8 -> s32), fences, named
+// barriers and register reallocation, plus the host-side tensor maps.
 //
 // K7's int8 operands are rows of 64 bytes (one K chunk of 64 int8) in the
 // 64-byte swizzle (`desc_sw64`): the 16-byte chunk q of row r sits at
@@ -97,6 +97,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// whether the phase of parity `parity` has completed, without waiting
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
 // ---------------------------------------------------------------------- TMA
 // a box of the 4-D tensor map `map` at coordinates (c0, c1, c2, c3) into
 // shared memory at `dst`, completing `bytes` of transactions on `bar`
@@ -123,6 +136,21 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst,
       ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "h"(mask)
+      : "memory");
+}
+
+// a box of the 5-D tensor map `map` at coordinates (c0 .. c4), multicast as
+// `tma_load_2d_multicast`
+__device__ __forceinline__ void tma_load_5d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      int c2, int c3, int c4,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5, %6, %7}], [%2], %8;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3), "r"(c4), "h"(mask)
       : "memory");
 }
 

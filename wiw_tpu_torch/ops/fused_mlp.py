@@ -23,12 +23,18 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
 - `lnff_eligible` is the reference's rule for taking K6; where it says no
   (C > 640, rows not a multiple of 128, ...) the model runs its unfused
   LayerNorm and FeedForward modules, the function of the reference's
-  unfused oracle. The CUDA kernels take C and C_out only in multiples of
-  `C_STEP`, which the reference's rule does not ask for (its Pallas kernel
-  takes any C <= 640), so the model's dispatch (`models/layers.py`,
-  `_ln_ff_residual`) also asks for C % C_STEP == 0 and sends any other C to
-  the unfused modules: a route by shape, as the reference sends C > 640 to
-  XLA, to the same function. A C-tail inside the kernel is ROADMAP work.
+  unfused oracle. K6 takes C in multiples of `C_STEP` (16: TMA reads the
+  columns past C as zeros and the kernel normalises over the true C); the
+  reference's Pallas kernel takes any C <= 640, so the model's dispatch
+  (`models/layers.py`, `_ln_ff_residual`) also asks for C % C_STEP == 0
+  and sends any other C to the unfused modules: a route by shape, as the
+  reference sends C > 640 to XLA, to the same function. Under the
+  reference's rule (inner = 4 C a multiple of 128) every C it takes is a
+  multiple of 32, so a FeedForward of the usual width never takes that
+  route. K5 keeps its first kernel, which takes C and C_out in multiples
+  of `K5_STEP` (64).
+- `k6_plan(C, C_out)` is the one place that picks K6's tile, split and
+  stage counts; the C entry refuses any other plan.
 - K6's gradient, as the reference's custom VJP does it: the autograd
   Function `LnGegluFfnResidual` runs K6 forward and saves only its inputs;
   its backward recomputes through the unfused differentiable formulation
@@ -39,20 +45,25 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
   the bf16 gate the gradient is the fp32 gate's.
 
 Both kernels are one CUDA source, `wiw_tpu_torch/csrc/geglu_ffn.cu`, whose
-header says what bounds them on the H100. The wrappers take CPU tensors to
+header says what bounds them on the H100 and how K6 is laid out (wgmma,
+TMA through an mbarrier ring, clusters that multicast the weights; K5 on
+the first version's mma.sync template). The wrappers take CPU tensors to
 the plain versions; on CUDA tensors they launch or raise.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from wiw_tpu_torch.ops import native
 
-MAX_C = 640       # the kernel keeps a [32, C] fp32 accumulator in registers
-C_STEP = 64       # ... and takes C and C_out in multiples of this
+MAX_C = 640       # K5 and K6 keep the output row's fp32 sums in registers
+C_STEP = 16       # K6 takes C in multiples of this
+K5_STEP = 64      # K5 takes C and C_out in multiples of this
+INNER_STEP = 32   # K6 walks the inner dimension 32 columns at a time (K5: 64)
 ROW_BLOCK = 128   # rows must come in multiples of this (the reference's rule)
 _LIB = "geglu_ffn"
 _SQRT1_2 = 0.7071067811865476
@@ -85,6 +96,37 @@ def _gate_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     `_lnff_kernel` computes it under WIW_FUSED_FF_GATE=bf16."""
     half, one, r2 = _consts(b.dtype, 0.5, 1.0, _SQRT1_2)
     return a * (b * half * (one + _erf_as(b * r2)))
+
+
+# K6's build (csrc/geglu_ffn.cu `Layout`, whose static_assert holds its
+# shared memory to an H100 block's): each warpgroup's output accumulator is
+# 64 rows x K6_NW columns; the W1 and W2 rings' stage counts by split
+K6_NW = 320
+K6_CLUSTER = 2   # CTAs that multicast each weight box (4 ran slower, PERF.md)
+_K6_STAGES = {False: (2, 3), True: (2, 1)}  # split -> (W1, W2) stages
+
+
+class K6Plan(NamedTuple):
+    split: bool      # two column halves of 64-row tiles (C > 320), else two
+                     # 64-row halves of 128-row tiles
+    tile_rows: int
+    w1_stages: int
+    w2_stages: int
+
+
+def k6_plan(C: int, C_out: int) -> K6Plan:
+    """K6's plan for C input and C_out output columns (C_out == C for K6):
+    at C_out <= 320 the two warpgroups split 128-row tiles by rows, above
+    it 64-row tiles by columns, so that each keeps a 64 x 320 fp32
+    accumulator (160 registers a thread) at both of the UNet's widths.
+    Raises for what the kernel does not take: C not a positive multiple of
+    C_STEP up to MAX_C, C_out != C."""
+    if C % C_STEP or not 0 < C <= MAX_C:
+        raise ValueError(f"K6 takes C a multiple of {C_STEP} up to {MAX_C}, got {C}")
+    if C_out != C:
+        raise ValueError(f"K6 takes C_out == C (the residual), got {C_out} and {C}")
+    split = C_out > K6_NW
+    return K6Plan(split, 64 if split else 128, *_K6_STAGES[split])
 
 
 def _check_gate(gate: str) -> None:
@@ -178,16 +220,25 @@ def _check(x, w1, b1, w2, b2, residual: bool, ln=()) -> tuple[int, int, int, int
                          f"w2 {tuple(w2.shape)} b2 {tuple(b2.shape)} do not fit C={C}")
     if residual and (c_out != C or any(t.shape != (C,) for t in ln)):
         raise ValueError(f"{name}: the residual needs C_out == C and [C] norm params")
+    step, inner_step = (C_STEP, INNER_STEP) if residual else (K5_STEP, 64)
     for what, n in (("C", C), ("C_out", c_out)):
-        if n % C_STEP or not 0 < n <= MAX_C:
-            raise ValueError(f"{name} kernel takes {what} a multiple of {C_STEP} up to "
+        if n % step or not 0 < n <= MAX_C:
+            raise ValueError(f"{name} kernel takes {what} a multiple of {step} up to "
                              f"{MAX_C}, got {n}")
-    if inner % 64 or inner == 0:
-        raise ValueError(f"{name} kernel takes inner a multiple of 64, got {inner}")
+    if inner % inner_step or inner == 0:
+        raise ValueError(f"{name} kernel takes inner a multiple of {inner_step}, "
+                         f"got {inner}")
     if M == 0 or M % ROW_BLOCK:
         raise ValueError(f"{name} kernel takes a positive multiple of {ROW_BLOCK} "
                          f"rows, got {M}")
     return M, C, inner, c_out
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    """An fp32 vector for the kernels: contiguous, 16-byte aligned (they
+    read bias pairs as 8-byte words)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _bind(lib: ctypes.CDLL, residual: bool):
@@ -195,7 +246,7 @@ def _bind(lib: ctypes.CDLL, residual: bool):
     if fn.argtypes is None:
         if residual:
             fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                           + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         else:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -213,7 +264,7 @@ def _launch(residual: bool, x, args: tuple) -> None:
 def geglu_ffn(x, w1, b1, w2, b2):
     """GEGLU feed-forward x [..., C] -> [..., C_out]. CPU tensors take
     `geglu_ffn_plain`; CUDA tensors launch K5 (bf16; C and C_out multiples
-    of 64 up to 640, inner a multiple of 64, rows a multiple of 128;
+    of K5_STEP up to 640, inner a multiple of 64, rows a multiple of 128;
     anything else raises) and count one launch in `geglu_ffn.launches`."""
     if native.on_cpu(x, w1, b1, w2, b2):
         return geglu_ffn_plain(x, w1, b1, w2, b2)
@@ -221,7 +272,7 @@ def geglu_ffn(x, w1, b1, w2, b2):
         raise ValueError(f"geglu_ffn: unsupported device {x.device}")
     M, C, inner, c_out = _check(x, w1, b1, w2, b2, residual=False)
     # biases go in fp32: K5 adds them in fp32, as the reference does
-    b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
+    b1f, b2f = _f32(b1), _f32(b2)
     out = torch.empty(*x.shape[:-1], c_out, dtype=x.dtype, device=x.device)
     _launch(False, x, (x.data_ptr(), w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(),
                        b2f.data_ptr(), out.data_ptr(), M, C, inner, c_out))
@@ -240,12 +291,14 @@ def _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps, gate):
     if x.device.type != "cuda":
         raise ValueError(f"ln_geglu_ffn_residual: unsupported device {x.device}")
     M, C, inner, _ = _check(x, w1, b1, w2, b2, residual=True, ln=(ln_w, ln_b))
+    plan = k6_plan(C, C)
     # norm params and biases go in fp32; K6 rounds the biases to bf16 itself
-    lw, lb, b1f, b2f = (t.float().contiguous() for t in (ln_w, ln_b, b1, b2))
+    lw, lb, b1f, b2f = (_f32(t) for t in (ln_w, ln_b, b1, b2))
     out = torch.empty_like(x)
     _launch(True, x, (x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w1.data_ptr(),
                       b1f.data_ptr(), w2.data_ptr(), b2f.data_ptr(), out.data_ptr(),
-                      M, C, inner, float(eps), int(gate == "bf16")))
+                      M, C, inner, float(eps), int(gate == "bf16"), int(plan.split),
+                      plan.w1_stages, plan.w2_stages))
     if gate == "bf16":
         ln_geglu_ffn_residual.launches_bf16_gate += 1
     else:
@@ -274,8 +327,8 @@ def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
     """x + GEGLU_FF(LayerNorm(x)) over x [..., C], the gate in fp32 (K6) or,
     with `gate="bf16"`, in bf16 arithmetic (K6-bf16). CPU tensors take
     `ln_geglu_ffn_residual_plain`; CUDA tensors launch the kernel (bf16; C a
-    multiple of 64 up to 640, inner a multiple of 64, rows a multiple of
-    128; anything else raises) and count one launch in
+    multiple of C_STEP up to 640, inner a multiple of 32, rows a multiple
+    of 128; anything else raises; tiled by `k6_plan`) and count one launch in
     `ln_geglu_ffn_residual.launches` (K6) or `.launches_bf16_gate`
     (K6-bf16). With gradients wanted it goes through `LnGegluFfnResidual`
     (backward by recomputation with the exact gate, as the reference's)."""
