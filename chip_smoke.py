@@ -8,7 +8,7 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. build: every CUDA kernel of the serving and training paths, from
      wiw_tpu_torch/csrc, one nvcc per source, all at once (ptxas
      registers/spills printed; fails if ptxas serialises K7's or K6's wgmma,
-     or spills in K6)
+     or spills in K6, K8 or K4)
   3. kernels: K1 (flash attention), K2 (the reference's v1 attention, with
      and without unroll2, at S = 9216 and 144), K4 (frame attention), K5, K6
      and K6-bf16 (fused GEGLU feed-forward, fp32 and bf16 gate) each against
@@ -43,14 +43,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
      version; kernel, plain and library ms (`F.group_norm` on the
      [N, C, L] view, its internal layout copy included, then `F.silu`),
      and the kernel's device time by torch.profiler (`device_ms`: the
-     event-timed loop of a small shape is bound by the host's dispatch),
-     the bound (one read and one write of x where one batch row of x fits
-     in the 50 MB L2, two reads and one write where not) and the copy
-     kernel's GB/s at each shape; sums over a 2-row forward and over a
-     request; a row alone against the same row batched between two rows
-     offset by 1e4 (bit-equal), and in fp32 against float64: |mean|/std ~
-     1200, and rows whose mean and scale change from tile to tile with a
-     partial last tile
+     event-timed loop of a small shape is bound by the host's dispatch;
+     the kernels' time over the launches the profiler recorded), the bound
+     (one read and one write of x where one (row, group) slab of x,
+     L x C/G values, fits in the 50 MB L2, two reads and one write where
+     not) and the copy kernel's GB/s at each shape, `k8_plan`'s path,
+     slab and cluster, and a table of them by shape; sums over a 2-row
+     forward and over a request; on both paths a row alone against the
+     same row batched between two rows offset by 1e4 (bit-equal), and in
+     fp32 against float64: |mean|/std ~ 1200, and rows whose mean and
+     scale change along the positions with a partial last block
   5c. W8A8 int8 (`SVDActionWorker(quantize="int8")`): one full-width
      request through K7 (the int8 kernel count, seconds, denoise frames/s,
      peak, launches: K7's must equal the int8 layers' calls, counted by
@@ -160,18 +162,20 @@ INT8 = dict(quantize="int8")
 INT8_SMALL_ATOL, INT8_SMALL_MEAN_ATOL = 0.3, 0.04
 # K8 against float64 at |mean|/std ~ 1200 (fp32 input), the CPU test's bound
 ILL_ATOL = 2e-3
-# the H100's L2 (data sheet): K8's floor is one read of x where one batch
-# row (the unit its statistics cover) fits here, two where it does not
+# the H100's L2 (data sheet): K8's floor is one read of x where one (row,
+# group) slab (the unit its statistics cover, L x C/G values) fits here,
+# two where it does not
 L2_BYTES = 50 * 2 ** 20
 
 
 # each row's time as PERF.md §6 recorded it before this version of the
 # kernels (runs of this script on an H100 80GB HBM3 at 700 W; K6 and
-# K6-bf16: the mma.sync kernel's), printed on a line of its own before the
-# measured `kernels` line
+# K6-bf16: the mma.sync kernel's; K4 and K8: the eight-lane fp32 K4's and
+# the three-launch K8's), printed on a line of its own before the measured
+# `kernels` line
 PREV_MS = {"K1": 99.0636, "K2": 17.1462, "K2-unroll2": 19.0403, "K3": 150.7475,
-           "K4": 7.4865, "K5": 248.9817, "K6": 275.2729, "K6-bf16": 363.8384,
-           "K8": 14.3089, "K7-dense": 64.8478, "K7-conv": 91.8242,
+           "K4": 7.4117, "K5": 248.9817, "K6": 275.2729, "K6-bf16": 363.8384,
+           "K8": 14.1938, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 14.5467, "K9-noexp": 15.6669, "K9-v2": 17.7919,
            "K10": 30.3313, "K10-i8pv": 30.1647}
 PREV_FROM = "PERF.md §6, the time before this version (H100 80GB HBM3, 700 W)"
@@ -213,17 +217,24 @@ def kernel_names(fn) -> str:
                      for e in events[:3])
 
 
-def device_ms(fn, keys, reps: int) -> float:
+def device_ms(fn, keys, reps: int, launches: int = 1) -> float:
     """Device time of one call of `fn` in the kernels whose names hold one
     of `keys`, from torch.profiler over `reps` calls: the kernels' own
-    time, whatever the host's dispatch rate."""
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(self_dev(e) for e in prof.key_averages()
-               if any(k in e.key for k in keys)) / 1e3 / reps
+    time, whatever the host's dispatch rate. The profiler may drop
+    launches late in a long run, so the time is divided by the launches it
+    recorded and multiplied by `launches`, the kernel launches of a call;
+    a profile that recorded none is taken again, up to four times."""
+    for _ in range(4):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if any(k in e.key for k in keys)]
+        recorded = sum(e.count for e in events)
+        if recorded:
+            return sum(self_dev(e) for e in events) / 1e3 / recorded * launches
+    raise RuntimeError(f"the profiler recorded no kernel named {keys} in four tries")
 
 
 def bound_ms(nbytes: float, flops: float, peak: float) -> float:
@@ -510,7 +521,8 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
     {(shape, dtype, groups, eps, silu): calls} (`count_group_norms`). Each
     shape is checked with and without SiLU against the plain version and
     timed with the path's flag; the row sums one 2-row forward,
-    `request_ms` one request."""
+    `request_ms` one request; then a table by shape with `k8_plan`'s path,
+    and its sums by path."""
     import torch.nn.functional as F
 
     from wiw_tpu_torch.ops import group_norm as TG
@@ -518,15 +530,20 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
     d = row.d
     d["request_ms"] = d["request_plain_ms"] = d["request_bound_ms"] = 0.0
     d["request_library_ms"] = d["device_ms"] = d["request_device_ms"] = 0.0
-    copy_gb_s = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    copy_gb_s, table = [], []
     print("K8: library = F.group_norm on the [N, C, L] view of x (its internal "
           "copy to its layout included), then F.silu where the path has it; "
-          "bound = x read once (twice where one batch row of x exceeds the "
-          "50 MB L2) and y written once, over 3.35 TB/s", flush=True)
+          "bound = x read once (twice where one (row, group) slab of x, L x "
+          "C/G values, exceeds the 50 MB L2) and y written once, over 3.35 "
+          "TB/s; device time by torch.profiler over the launches it recorded",
+          flush=True)
     for key in sorted(set(forward) | set(request),
                       key=lambda k: -int(np.prod(k[0]))):
         shape, dtype, groups, eps, silu = key
         N, C = shape[0], shape[-1]
+        L = int(np.prod(shape[1:-1]))
+        plan = TG.k8_plan(N, L, C, groups, dtype, sms)
         x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
         w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
         b = 0.3 * torch.randn(C, generator=g, device=dev)
@@ -537,9 +554,9 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
                                  TG.group_norm_plain(x, w, b, groups, eps, flag))
         max_err = max(e for e, _ in errs.values())
         nbytes = x.numel() * x.element_size()
-        # a row's statistics precede its normalisation: a row held in L2 is
-        # read once from HBM, a larger one twice
-        passes = 2 if nbytes // N <= L2_BYTES else 3
+        # a (row, group) slab's statistics precede its normalisation: a slab
+        # that fits in L2 is read once from HBM, a larger one twice
+        passes = 2 if L * (C // groups) * x.element_size() <= L2_BYTES else 3
         bound = bound_ms(passes * nbytes, 0, BF16_FLOPS_S)
         # the library call on the [N, C, L] view it wants, weights in x's
         # dtype (its kernel's rule); F.group_norm copies to its layout inside
@@ -551,7 +568,7 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
             return F.silu(y) if silu else y
 
         reps = min(200, max(5, int(4e9 // nbytes)))
-        copy = ""
+        copy, gb_s = "", None
         if dtype == torch.bfloat16 and x.numel() % 8 == 0:
             if not torch.equal(TG.copy_plus_one(x), x + 1):
                 raise RuntimeError(f"copy_plus_one disagrees with x + 1 at {shape}")
@@ -559,9 +576,13 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
             copy_gb_s.append(gb_s)
             copy = f", copy kernel {gb_s:.0f} GB/s"
         fwd, req = forward.get(key, 0), request.get(key, 0)
+        where = (f"path {plan.path}, slab {plan.slab}, cluster {plan.cluster}"
+                 + ("" if plan.path == "R" else
+                    f", {plan.slabs_per_batch} slabs a batch, a row "
+                    f"{'within' if plan.resident else 'beyond'} the L2 share"))
         ms, plain_ms, lib = timed(
-            f"K8 {list(shape)} {str(dtype)[6:]} G={groups} silu={silu} "
-            f"({fwd} a 2-row forward, {req} a request) "
+            f"K8 {list(shape)} {str(dtype)[6:]} G={groups} silu={silu} ({where}; "
+            f"{fwd} a 2-row forward, {req} a request) "
             + errs[silu][1] + f" | other flag: max|err| {errs[not silu][0]:.6g}",
             lambda: TG.group_norm_plain(x, w, b, groups, eps, silu),
             lambda: TG.group_norm(x, w, b, groups, eps, silu), library,
@@ -571,6 +592,8 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
         dev_ms = device_ms(lambda: TG.group_norm(x, w, b, groups, eps, silu),
                            KERNEL_CLASSES[0][1], min(reps, 20))
         print(f"  its device time (torch.profiler): {dev_ms:.4f} ms a call", flush=True)
+        table.append((shape, str(dtype)[6:], plan, fwd, req, ms, dev_ms, bound,
+                      passes, passes * nbytes / dev_ms / 1e6, gb_s))
         row.add(fwd, max_err, ms, plain_ms, bound, "bytes", lib)
         d["device_ms"] += fwd * dev_ms
         d["request_device_ms"] += req * dev_ms
@@ -581,8 +604,36 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
         del x, xt
     torch.cuda.empty_cache()
     d["copy_gb_s_max"] = max(copy_gb_s)
+    print("K8 by shape (ms a call; GB/s = the floor's bytes over the device "
+          "time; copy = the copy kernel's GB/s on x):\n"
+          "  shape | dtype | path | slab | cluster | calls a forward | a "
+          "request | ms events | ms device | bound (passes) | GB/s | copy GB/s",
+          flush=True)
+    by_path = {}
+    for (shape, dt, plan, fwd, req, ms, dev_ms, bound, passes, gb, cp) in table:
+        print(f"  {list(shape)} | {dt} | {plan.path} | {plan.slab} | {plan.cluster} | "
+              f"{fwd} | {req} | {ms:.4f} | {dev_ms:.4f} | {bound:.4f} ({passes}) | "
+              f"{gb:.0f} | {'-' if cp is None else f'{cp:.0f}'}", flush=True)
+        sums = by_path.setdefault(plan.path, dict.fromkeys(
+            ("ms", "device_ms", "bound_ms", "request_device_ms",
+             "request_bound_ms", "calls"), 0.0))
+        sums["ms"] += fwd * ms
+        sums["device_ms"] += fwd * dev_ms
+        sums["bound_ms"] += fwd * bound
+        sums["request_device_ms"] += req * dev_ms
+        sums["request_bound_ms"] += req * bound
+        sums["calls"] += fwd
+    d["forward_by_path"] = by_path
+    for path, sums in sorted(by_path.items()):
+        print(f"K8 path {path}, a 2-row forward ({sums['calls']:.0f} calls): "
+              f"events {sums['ms']:.4f} ms, device {sums['device_ms']:.4f} ms, "
+              f"bound {sums['bound_ms']:.4f} ms; a request: device "
+              f"{sums['request_device_ms']:.4f} ms, bound "
+              f"{sums['request_bound_ms']:.4f} ms", flush=True)
     print(f"K8 copy kernel (x + 1, bf16): {max(copy_gb_s):.0f} GB/s at best over "
           f"the shapes above, against the 3350 GB/s data-sheet rate", flush=True)
+    print(f"K8 a 2-row forward: events {d['ms']:.4f} ms, device "
+          f"{d['device_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms", flush=True)
     print(f"K8 per request ({sum(request.values())} calls): kernel "
           f"{d['request_ms']:.4f} ms (device {d['request_device_ms']:.4f} ms), "
           f"plain {d['request_plain_ms']:.4f} ms, bound "
@@ -591,32 +642,49 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
 
 
 def k8_checks(dev, g):
-    """K8's row independence, bit for bit (a row alone against the same row
-    between two rows offset by 1e4), and its statistics in fp32 against
-    float64: at |mean|/std ~ 1200 (the CPU test's case, and at level 0),
-    and on rows whose mean and scale change from one 256-row tile to the
-    next, with a partial last tile (a tile merged with the wrong weight or
-    dropped moves the mean by about one tile's offset step)."""
+    """K8 on both of its paths: a row's bits alone and between two rows
+    offset by 1e4 (row independence), and the same on a second call (no
+    atomics); its statistics in fp32 against float64 at |mean|/std ~ 1200
+    (the CPU test's case, and at level 0) and on rows whose mean and scale
+    change along the positions with a partial last block (a block's range
+    merged with the wrong count or dropped moves the mean by about one
+    step of the ramp), on path R and path S."""
     from wiw_tpu_torch.ops import group_norm as TG
 
-    C = 320
-    w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
-    b = 0.3 * torch.randn(C, generator=g, device=dev)
-    good = torch.randn(1, 9216, C, generator=g, device=dev).bfloat16()
-    bad = (torch.randn(1, 9216, C, generator=g, device=dev) + 1e4).bfloat16()
-    alone = TG.group_norm(good, w, b, 32, 1e-5, True)
-    batched = TG.group_norm(torch.cat([bad, good, bad]), w, b, 32, 1e-5, True)
-    if not torch.equal(batched[1], alone[0]):
-        raise RuntimeError("K8: a co-batched row changed another row's bits")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def path(x, groups):
+        N, C = x.shape[0], x.shape[-1]
+        return TG.k8_plan(N, x.numel() // (N * C), C, groups, x.dtype, sms).path
+
+    paths = []
+    for shape in ((1, 9216, 320), (1, 70001, 96)):
+        C = shape[-1]
+        w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
+        b = 0.3 * torch.randn(C, generator=g, device=dev)
+        good = torch.randn(*shape, generator=g, device=dev).bfloat16()
+        bad = (torch.randn(*shape, generator=g, device=dev) + 1e4).bfloat16()
+        alone = TG.group_norm(good, w, b, 32, 1e-5, True)
+        batched = TG.group_norm(torch.cat([bad, good, bad]), w, b, 32, 1e-5, True)
+        if not torch.equal(batched[1], alone[0]):
+            raise RuntimeError(f"K8 {shape}: a co-batched row changed another row's bits")
+        if not torch.equal(TG.group_norm(good, w, b, 32, 1e-5, True), alone):
+            raise RuntimeError(f"K8 {shape}: the bits changed from one call to the next")
+        paths.append(f"{shape} path {path(good, 32)}")
     worst = {}
     for what, shape, groups in (("|mean|/std ~ 1200", (1, 64, 16), 4),
+                                ("|mean|/std ~ 1200", (2, 4000, 320), 4),
                                 ("|mean|/std ~ 1200", (2, 9216, 320), 4),
-                                ("tile-varying rows", (2, 9253, 320), 32),
-                                ("tile-varying rows", (3, 2, 2, 75, 96), 32)):
+                                ("|mean|/std ~ 1200", (2, 40000, 320), 4),
+                                ("|mean|/std ~ 1200", (1, 500001, 16), 4),
+                                ("ramped rows", (2, 9253, 320), 32),
+                                ("ramped rows", (3, 2, 2, 75, 96), 32),
+                                ("ramped rows", (2, 9253, 960), 32),
+                                ("ramped rows", (1, 500001, 16), 4)):
         x = torch.randn(*shape, generator=g, device=dev)
         Cx = shape[-1]
-        if what.startswith("tile"):
-            x = tile_varying(x)
+        if what.startswith("ramped"):
+            x = ramped(x)
         else:
             x[..., :Cx // 4] += 1200.0
         out = TG.group_norm(x, torch.ones(Cx, device=dev), torch.zeros(Cx, device=dev),
@@ -625,19 +693,22 @@ def k8_checks(dev, g):
         ref = ((g64 - g64.mean(dim=(1, 3), keepdim=True)) / torch.sqrt(
             g64.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5)).reshape(shape)
         err = ((out.double() - ref).abs() / (ILL_ATOL + ILL_ATOL * ref.abs())).max().item()
-        worst[what] = max(worst.get(what, 0.0), (out.double() - ref).abs().max().item())
+        where = f"{what}, path {path(x, groups)}"
+        worst[where] = max(worst.get(where, 0.0), (out.double() - ref).abs().max().item())
         if err > 1:
             raise RuntimeError(f"K8 on {what} {shape}: beyond {ILL_ATOL} against "
                                f"float64 (ratio {err:.3g})")
-    print("K8 checks: a row's bits equal alone and between rows offset by 1e4; "
-          "fp32 vs float64 " + ", ".join(f"{w} max|err| {e:.3g}" for w, e in worst.items())
+        del x, out, g64, ref
+    print("K8 checks: a row's bits equal alone, between rows offset by 1e4 and "
+          "on a second call (" + "; ".join(paths) + "); fp32 vs float64 "
+          + ", ".join(f"{w} max|err| {e:.3g}" for w, e in worst.items())
           + f" (tol {ILL_ATOL} + {ILL_ATOL}*|ref|)", flush=True)
 
 
-def tile_varying(x):
+def ramped(x):
     """x [N, ..., C] with every batch row's mean and scale changed from one
-    256-row tile of its [L, C] view to the next (K8's stats tile), each row
-    by another ramp: offset 4 * tile * (n + 1) - 9 n, scale 1 + tile / 8."""
+    block of 256 positions of its [L, C] view to the next, each row by
+    another ramp: offset 4 * block * (n + 1) - 9 n, scale 1 + block / 8."""
     N, C = x.shape[0], x.shape[-1]
     flat = x.reshape(N, -1, C)
     tile = (torch.arange(flat.shape[1], device=x.device) // 256).float()[None, :, None]
@@ -1437,9 +1508,9 @@ def busy_ms(prof) -> float:
 # port's hand-written kernels, products (cuBLAS, cuDNN, CUTLASS), norms,
 # and the rest (elementwise, copies, reductions)
 KERNEL_CLASSES = (
-    ("K8 GroupNorm", ("gn_stats", "gn_finalize", "gn_apply")),
+    ("K8 GroupNorm", ("gn_resident", "gn_stream")),
     ("port attention and feed-forward kernels",
-     ("flash_attn", "temporal_attn", "geglu_ffn")),
+     ("flash_attn", "frame_attn", "geglu_ffn")),
     ("K7 W8A8 product and conv", ("w8a8_wgmma", "quant_rows", "amax_abs",
                                   "quant_tensor")),
     ("GEMM and conv", ("gemm", "xmma", "nvjet", "cutlass", "cudnn", "conv",
@@ -1630,10 +1701,11 @@ def main() -> int:
               flush=True)
         if wgmma:
             raise RuntimeError(f"ptxas serialised {name}'s wgmma")
-    spills = [ln.strip() for ln in native.build_info["geglu_ffn"][1].splitlines()
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
-    if spills:
-        raise RuntimeError("ptxas spilled in geglu_ffn: " + "; ".join(spills))
+    for name in ("geglu_ffn", "group_norm", "temporal_attn"):  # K6, K8, K4
+        spills = [ln.strip() for ln in native.build_info[name][1].splitlines()
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        if spills:
+            raise RuntimeError(f"ptxas spilled in {name}: " + "; ".join(spills))
 
     rows = {
         "K1": Row("flash_attn_fwd_d64", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",

@@ -167,6 +167,35 @@ def test_frame_attention_matches_plain_on_card(cuda_device, B, F, S, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("F", [1, 7, 14, 16])
+@pytest.mark.parametrize("S,H", [(65, 5), (143, 10), (66, 20)])
+def test_frame_attention_tensor_core_kernel_on_card(cuda_device, F, S, H):
+    """The mma.sync kernel at 1..16 frames (padded to one m16 tile, frames
+    past F read as zeros and masked), at S not a multiple of the 4
+    positions a stage, at the UNet's head counts."""
+    g = torch.Generator(device=cuda_device).manual_seed(F * 1000 + S)
+    q, k, v = (torch.randn(2, F, S, H * 64, generator=g, device=cuda_device)
+               .bfloat16() for _ in range(3))
+    out = TT.frame_attention(q, k, v, H)
+    torch.cuda.synchronize()
+    _close(out, TT.frame_attention_plain(q, k, v, H))
+    assert torch.equal(TT.frame_attention(q, k, v, H), out)
+
+
+@pytest.mark.cuda
+def test_frame_attention_saturating_logits_on_card(cuda_device):
+    """q scaled by 30: logits of hundreds, softmax weights of 0 and 1 at
+    the fp32 limits; the bf16 hi + lo split of each weight keeps them."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k, v = (torch.randn(2, 14, 130, 5 * 64, generator=g, device=cuda_device)
+               for _ in range(3))
+    q, k, v = (q * 30).bfloat16(), k.bfloat16(), v.bfloat16()
+    out = TT.frame_attention(q, k, v, 5)
+    assert torch.isfinite(out.float()).all()
+    _close(out, TT.frame_attention_plain(q, k, v, 5))
+
+
+@pytest.mark.cuda
 def test_frame_attention_rejects_inputs_it_does_not_take(cuda_device):
     x = torch.zeros(1, 14, 64, 128, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(TypeError):
@@ -398,6 +427,98 @@ def test_group_norm_kernel_merges_tiles_whose_statistics_differ(cuda_device, sha
            / torch.sqrt(g.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5)
            ).reshape(shape)
     torch.testing.assert_close(out.double(), ref, atol=2e-3, rtol=2e-3)
+
+
+def _plan(dev, x, groups):
+    N, C = x.shape[0], x.shape[-1]
+    return TG.k8_plan(N, x.numel() // (N * C), C, groups, x.dtype,
+                      torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _gn64(x, groups):
+    """x normalised per (row, group) in float64, no affine."""
+    g = x.double().reshape(x.shape[0], -1, groups, x.shape[-1] // groups)
+    return ((g - g.mean(dim=(1, 3), keepdim=True))
+            / torch.sqrt(g.var(dim=(1, 3), unbiased=False, keepdim=True) + 1e-5)
+            ).reshape(x.shape)
+
+
+# K8's paths: R (a cluster holds the slab: portable, and 12 CTAs with the
+# non-portable attribute) and S (the grid walks whole rows: a row that the
+# L2 holds, and larger ones), at a ragged L, 3-channel groups, fp32
+K8_PATHS = [((2, 9253, 320), 32, torch.bfloat16, "R", True),
+            ((3, 9253, 96), 32, torch.float32, "R", True),
+            ((2, 9253, 960), 32, torch.bfloat16, "R", True),
+            ((2, 9253, 960), 32, torch.float32, "S", False),
+            ((1, 70001, 96), 32, torch.bfloat16, "S", True),
+            ((1, 600000, 32), 8, torch.bfloat16, "S", False),
+            ((1, 1000003, 16), 4, torch.bfloat16, "S", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,dtype,path,resident", K8_PATHS)
+def test_group_norm_kernel_paths_match_plain_on_card(cuda_device, shape, groups,
+                                                     dtype, path, resident):
+    x, w, b = _gn_inputs(cuda_device, shape, dtype, 6)
+    plan = _plan(cuda_device, x, groups)
+    assert (plan.path, plan.resident) == (path, resident)
+    for silu in (False, True):
+        before = TG.group_norm.launches
+        out = TG.group_norm(x, w, b, groups, 1e-6, silu)
+        torch.cuda.synchronize()
+        assert TG.group_norm.launches == before + 1
+        _close(out, TG.group_norm_plain(x, w, b, groups, 1e-6, silu))
+    # no atomics, every sum in a fixed order: the bits repeat
+    assert torch.equal(TG.group_norm(x, w, b, groups, 1e-6, True), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,path", [((1, 4000, 320), "R"), ((1, 70001, 96), "S")])
+def test_group_norm_kernel_rows_are_independent_on_both_paths(cuda_device, shape, path):
+    good, w, b = _gn_inputs(cuda_device, shape, torch.bfloat16, 1)
+    bad = _gn_inputs(cuda_device, shape, torch.bfloat16, 2, 1e4)[0]
+    assert _plan(cuda_device, good, 32).path == path
+    alone = TG.group_norm(good, w, b, 32, 1e-5, True)
+    batched = TG.group_norm(torch.cat([bad, good, bad]), w, b, 32, 1e-5, True)
+    assert torch.equal(batched[1], alone[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,path", [((2, 4000, 320), 4, "R"),
+                                               ((2, 9216, 320), 4, "R"),
+                                               ((2, 40000, 320), 4, "S"),
+                                               ((1, 500001, 16), 4, "S")])
+def test_group_norm_kernel_ill_conditioned_on_both_paths(cuda_device, shape, groups,
+                                                         path):
+    """|mean|/std ~ 1200 in fp32 against float64, on path R (clusters of
+    14) and path S (half-row slabs, and one slab a row)."""
+    x, _, _ = _gn_inputs(cuda_device, shape, torch.float32, 3)
+    x = x / 1.5
+    x[..., :shape[-1] // 4] += 1200.0
+    assert _plan(cuda_device, x, groups).path == path
+    C = shape[-1]
+    ones, zeros = torch.ones(C, device=cuda_device), torch.zeros(C, device=cuda_device)
+    out = TG.group_norm(x, ones, zeros, groups, 1e-5)
+    torch.testing.assert_close(out.double(), _gn64(x, groups), atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups", [((2, 9253, 960), 32), ((1, 500001, 16), 4)])
+def test_group_norm_kernel_path_s_merges_ranges_whose_statistics_differ(
+        cuda_device, shape, groups):
+    """Path S on rows whose mean and scale change along the positions, each
+    row by another ramp, in fp32 against float64: a block's range merged
+    with the wrong count or dropped moves the mean."""
+    x, _, _ = _gn_inputs(cuda_device, shape, torch.float32, 5)
+    N, C = shape[0], shape[-1]
+    flat = x.reshape(N, -1, C)
+    tile = (torch.arange(flat.shape[1], device=cuda_device) // 256).float()[None, :, None]
+    n = torch.arange(N, device=cuda_device).float()[:, None, None]
+    x = (flat * (1 + tile / 8) + 4 * tile * (n + 1) - 9 * n).reshape(shape)
+    assert _plan(cuda_device, x, groups).path == "S"
+    ones, zeros = torch.ones(C, device=cuda_device), torch.zeros(C, device=cuda_device)
+    out = TG.group_norm(x, ones, zeros, groups, 1e-5)
+    torch.testing.assert_close(out.double(), _gn64(x, groups), atol=2e-3, rtol=2e-3)
 
 
 @pytest.mark.cuda

@@ -15,59 +15,787 @@
 //
 // What bounds it on this card: bytes. A call does ~10 flops an element
 // against 2-4 bytes an element moved, far below the H100's ~295 flop/byte
-// ridge. The statistics of a batch row need a full pass over that row
-// before any of its elements can be normalised. Where one row of x fits in
-// the 50 MB L2 (a spatial level-0 row, [9216, 320] bf16, is 5.9 MB), a
-// kernel could normalise it while it is still there: the floor is one read
-// of x and one write of y. Where a row does not fit (a temporal level-0
-// row, [14 * 9216, 320] bf16, 82.6 MB, or the VAE's large rows), the floor
-// is two reads and one write. At 3.35 TB/s a level-0 tensor ([28, 9216,
-// 320] bf16, 165 MB) has a floor of 0.099 ms.
+// ridge. The statistics are per (row, group), so before any output is
+// written only one (row, group) slab of [L, C/G] has to stay on chip, not
+// the whole row: at every UNet shape that slab is far under the 50 MB L2
+// (a temporal level-0 group, [14 * 9216, 10] bf16, is 2.6 MB). The floor is
+// one read of x and one write of y wherever L * C/G * itemsize fits in the
+// L2, and two reads and a write beyond it.
 //
-// This design reads x twice from HBM at every shape: its statistics pass
-// covers every row before its apply pass starts, so where the whole tensor
-// exceeds the L2 (165 MB at level 0) the second read misses it. At the
-// shapes whose rows fit in L2 it so moves 1.5x its floor; taking the rows
-// in L2-sized groups, statistics then apply, would close that gap.
-//
-// Design, three launches on one stream, no host synchronisation:
-//  1. stats: one block per (256-row tile, 64-channel chunk, row n). Each
-//     thread loads 8 rows x 8 channels once (16-byte loads, neighbouring
-//     threads on neighbouring addresses) and keeps them in registers. The
-//     block takes the tile's per-channel mean from them, then the sum of
-//     squared deviations around that mean (M2) from the same registers,
-//     with the rounding correction of the corrected two-pass algorithm. So
-//     the partials are (mean, M2) of the tile, not raw (sum, sum of
-//     squares), which cancel when |mean| >> std.
-//  2. finalize: one block per (group, row n) merges the tiles' and the
-//     group's channels' partials with Chan's formula in double, in a fixed
-//     order, into per-(n, channel) fp32 scale = rstd*gamma and offset =
-//     beta - mean*rstd*gamma. Its variance has the quality of an exact
-//     two-pass, with no data-dependent second pass and no host round trip.
-//  3. apply: a grid-stride pass, 8 channels a thread, y = fma(x, scale,
-//     offset) rounded to x's dtype, then (template flag) SiLU.
-// No atomics; every sum has a fixed order; rows are independent (row n's
-// statistics read only row n), so a co-batched row never changes another
-// row's bits. Offsets are 64-bit: a VAE tensor of 14 frames at 576x1024
+// Design: one launch a call (`ops/group_norm.k8_plan` picks the path, the
+// slab, the cluster and the grid; the C entry refuses any other plan). The
+// unit of work is a (row n, slab) pair: a slab is a channel range that is
+// a whole number of groups and a multiple of 8 channels (16 bytes). Thread
+// t of a block owns the 16-byte column (t mod nv) of the slab (nv vectors a
+// position) at every (threads / nv)-th position.
+//  * Path R (resident): the slab fits the shared memory of a cluster of at
+//    most 16 CTAs (above 8 with the non-portable attribute): 92 KB a CTA,
+//    two an SM, on slabs of at least 64 bytes a position, or one an SM on
+//    slabs of at least 128. CTA k loads positions [k*rows, (k+1)*rows) of
+//    the slab by 16-byte cp.async (four commit groups, so that the first
+//    pass overlaps the loads; each thread reads back only what it loaded),
+//    takes each group's (mean, M2) over them by a corrected two-pass from
+//    shared memory, and after a cluster barrier every CTA reads every CTA's
+//    partials through distributed shared memory (one load a CTA) and merges
+//    them in the same order, so all hold the same scale and offset. Each
+//    normalises its positions from shared memory and stores y with
+//    streaming stores. x is read once, y written once.
+//  * Path S (streamed): no slab fits (the temporal rows of levels 0-1, the
+//    VAE's rows from 144x256 up, and the narrow slabs of C = 512). One
+//    cooperative launch, two blocks an SM, on half-row slabs (contiguous
+//    reads); block j always takes the same range of positions of the same
+//    slab of every row, and a batch is as many whole rows as 80 MB holds.
+//    (A) each thread streams its columns of the batch's rows from HBM under
+//    an L2 evict_last policy, four vectors in flight, keeping each
+//    channel's (mean, M2) by a two-pass over each four merged in order by
+//    Chan's formula; the block combines them into its groups' (mean, M2);
+//    the slab's last block to arrive (an arrival counter that it resets)
+//    combines the slab's partials in block order. (B) after one grid
+//    barrier, each thread reads its columns again, last loaded first (what
+//    of the batch is still in L2), and normalises them. x is read twice,
+//    less what the L2 still holds.
+// Statistics: each thread's and block's (mean, M2) is a two-pass in fp32
+// with the first pass's rounding folded back; CTAs, blocks and channels
+// combine in double, mean = sum(n_i mean_i) / n,
+// M2 = sum(M2_i + n_i (mean_i - mean)^2), summed in a fixed tree. The
+// variance so has the quality of an exact two-pass, with no data-dependent
+// pass. SiLU uses the fast exponential and division. No atomics on any
+// sum; every sum has a fixed order (bits repeat from run to run); nothing
+// that sets the arithmetic depends on N (path S's rows a batch only say
+// which rows share a barrier), so a row's bits do not depend on the rows
+// beside it. Offsets are 64-bit: a VAE tensor of 14 frames at 576x1024
 // ([14, 589824, 128] bf16) passes 2^31 bytes.
+// Measured (PERF.md): both paths run at 1.2-2 TB/s of the floor's bytes,
+// the phases of a CTA or a batch (loads, statistics, the barrier, the
+// apply) overlapping only in part; against the previous three-launch
+// design, path R is faster at most UNet shapes and path S at the VAE's,
+// slower at the UNet's temporal level-0 and level-1 rows.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kVec = 8;                         // channels a thread
-constexpr int kColThreads = 8;                  // threads across a chunk
-constexpr int kChunk = kVec * kColThreads;      // 64 channels a block
-constexpr int kRowThreads = 32;
-constexpr int kRowsPerThread = 8;
-constexpr int kTile = kRowThreads * kRowsPerThread;  // 256 rows a block
-constexpr int kStatThreads = kColThreads * kRowThreads;
-constexpr int kFinThreads = 256;
+namespace coop = cooperative_groups;
+
+constexpr int kThreadsR = 256;    // path R: two CTAs an SM where they fit
+constexpr int kThreadsS = 256;    // path S: kBlocksS blocks an SM
+constexpr int kBlocksS = 2;
+constexpr int kChunk = 4;         // path S: vectors a thread loads at a time
+constexpr int kChunks = 4;        // path R: commit groups of a shard's loads
+constexpr int kMaxCluster = 16;   // above 8 with the non-portable attribute
+constexpr int kSmemMax = 232448;   // dynamic shared memory a block may use
+constexpr int kVec = 8;            // copy kernel: bf16 a thread
 constexpr int kApplyThreads = 256;
 
+template <typename T>
+struct Vec {
+  static constexpr int n = 16 / sizeof(T);  // channels in 16 bytes
+};
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[8],
+                                       const __nv_bfloat16*) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+__device__ __forceinline__ void unpack(const uint4& u, float (&v)[4], const float*) {
+  v[0] = __uint_as_float(u.x);
+  v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z);
+  v[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[8], const __nv_bfloat16*) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  return u;
+}
+
+__device__ __forceinline__ uint4 pack(const float (&v)[4], const float*) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+
+// v rounded to T and back (the identity for fp32)
+__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+__device__ __forceinline__ float round_to(float v, const float*) { return v; }
+
+// ------------------------------------------------------------ memory access
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   sm90::smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ uint64_t l2_policy_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_policy_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint4 ld_hint(const void* p, uint64_t policy) {
+  uint4 u;
+  asm volatile("ld.global.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "l"(p), "l"(policy));
+  return u;
+}
+
+// a streaming store: y is not read again, so it should not push x out of L2
+__device__ __forceinline__ void st_stream(void* p, const uint4& u) {
+  asm volatile("st.global.cs.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"l"(p), "r"(u.x),
+               "r"(u.y), "r"(u.z), "r"(u.w)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_nctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the float at `p`'s offset in the shared memory of CTA `cta` of the cluster
+__device__ __forceinline__ float ld_cluster(const float* p, uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(sm90::smem_u32(p)), "r"(cta));
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// ---------------------------------------------------------- the slab's work
+// A thread's place in a slab of w channels: column `col` of the nv 16-byte
+// vectors of a position, positions row0, row0 + rs, ...
+struct Lanes {
+  int nv, rs, col, row0;
+  bool active;
+  __device__ Lanes(int w, int vec) {
+    nv = w / vec;
+    rs = static_cast<int>(blockDim.x) / nv;
+    col = threadIdx.x % nv;
+    row0 = threadIdx.x / nv;
+    active = row0 < rs;
+  }
+  // how many of the first `rows` positions are this thread's
+  __device__ int mine(int rows) const {
+    return active && row0 < rows ? (rows - 1 - row0) / rs + 1 : 0;
+  }
+};
+
+// fp32 scratch of a path-R CTA after its shard (see `smem_extra`)
+struct Scratch {
+  float *red1, *red2;   // [rs * w]: per-thread channel sums
+  float *seg1, *seg2;   // [max(w, threads)]: sums of row segments
+  float *sc, *of;       // [w]: per-channel scale and offset
+  float *gmean;         // [gs]: pass 1's group mean
+  float *pmean, *pm2;   // [gs]: this CTA's (mean, M2) per group
+  float *fmean, *frstd; // [gs]: the slab's mean and 1/std
+};
+
+__host__ __device__ inline int seg_floats(int w, int nt) { return w > nt ? w : nt; }
+
+// bytes of fp32 scratch a CTA of nt threads needs beside its shard
+__host__ __device__ inline int smem_extra(int w, int gs, int rs, int nt) {
+  return 4 * (2 * rs * w + 2 * seg_floats(w, nt) + 2 * w + 5 * gs);
+}
+
+__device__ Scratch carve(float* p, int rs, int w, int gs) {
+  const int nt = static_cast<int>(blockDim.x);
+  Scratch s;
+  s.red1 = p; p += rs * w;
+  s.red2 = p; p += rs * w;
+  s.seg1 = p; p += seg_floats(w, nt);
+  s.seg2 = p; p += seg_floats(w, nt);
+  s.sc = p; p += w;
+  s.of = p; p += w;
+  s.gmean = p; p += gs;
+  s.pmean = p; p += gs;
+  s.pm2 = p; p += gs;
+  s.fmean = p; p += gs;
+  s.frstd = p;
+  return s;
+}
+
+// Sums over the block's threads of each of the slab's channels (the rs row
+// threads in segments, then the segments in order), then of each group over
+// its channels in order: a[g] (and b[g] when kTwo). Fixed order throughout.
+template <int V, bool kTwo>
+__device__ void group_sums(const float (&x)[V], const float (&y)[V], const Lanes& ln,
+                           int w, int cg, int gs, const Scratch& sm, float* a,
+                           float* b) {
+  if (ln.active) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      sm.red1[ln.row0 * w + ln.col * V + e] = x[e];
+      if (kTwo) sm.red2[ln.row0 * w + ln.col * V + e] = y[e];
+    }
+  }
+  __syncthreads();
+  const int nt = static_cast<int>(blockDim.x);
+  const int segs = w >= nt ? 1 : nt / w;
+  const int seg_len = (ln.rs + segs - 1) / segs;
+  for (int t = threadIdx.x; t < w * segs; t += nt) {
+    const int c = t % w, q = t / w;
+    const int hi = min(ln.rs, (q + 1) * seg_len);
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = q * seg_len; r < hi; ++r) {
+      s1 += sm.red1[r * w + c];
+      if (kTwo) s2 += sm.red2[r * w + c];
+    }
+    sm.seg1[t] = s1;
+    if (kTwo) sm.seg2[t] = s2;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < w; c += nt) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int q = 0; q < segs; ++q) {
+      s1 += sm.seg1[q * w + c];
+      if (kTwo) s2 += sm.seg2[q * w + c];
+    }
+    sm.red1[c] = s1;  // red is free again: reuse its head for the channels
+    if (kTwo) sm.red2[c] = s2;
+  }
+  __syncthreads();
+  for (int g = threadIdx.x; g < gs; g += nt) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < cg; ++j) {
+      s1 += sm.red1[g * cg + j];
+      if (kTwo) s2 += sm.red2[g * cg + j];
+    }
+    a[g] = s1;
+    if (kTwo) b[g] = s2;
+  }
+  __syncthreads();
+}
+
+// this thread's pass-1 channel sums over its vectors i0..i1 of `buf`
+template <typename T>
+__device__ __forceinline__ void add_rows(float (&s)[Vec<T>::n], const uint4* buf,
+                                         const Lanes& ln, int i0, int i1) {
+  for (int i = i0; i < i1; ++i) {
+    float v[Vec<T>::n];
+    unpack(buf[(ln.row0 + i * ln.rs) * ln.nv + ln.col], v, static_cast<const T*>(nullptr));
+#pragma unroll
+    for (int e = 0; e < Vec<T>::n; ++e) s[e] += v[e];
+  }
+}
+
+// (mean, M2) per group of the `rows` positions held in `buf` (this thread's
+// vectors at r * nv + col), `s` being this thread's pass-1 channel sums:
+// the corrected two-pass, into sm.pmean / sm.pm2 (zeros for no rows)
+template <typename T>
+__device__ void buffer_stats(const float (&s)[Vec<T>::n], const uint4* buf, int rows,
+                             const Lanes& ln, int w, int cg, int gs,
+                             const Scratch& sm) {
+  constexpr int V = Vec<T>::n;
+  const float cnt = static_cast<float>(rows) * cg;
+  group_sums<V, false>(s, s, ln, w, cg, gs, sm, sm.gmean, nullptr);
+  for (int g = threadIdx.x; g < gs; g += blockDim.x) {
+    sm.gmean[g] = rows > 0 ? sm.gmean[g] / cnt : 0.f;
+  }
+  __syncthreads();
+  float m[V], d1[V], d2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    m[e] = sm.gmean[(ln.col * V + e) / cg];
+    d1[e] = d2[e] = 0.f;
+  }
+  const int mine = ln.mine(rows);
+  for (int i = 0; i < mine; ++i) {
+    float v[V];
+    unpack(buf[(ln.row0 + i * ln.rs) * ln.nv + ln.col], v, static_cast<const T*>(nullptr));
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const float d = v[e] - m[e];
+      d1[e] += d;
+      d2[e] += d * d;
+    }
+  }
+  group_sums<V, true>(d1, d2, ln, w, cg, gs, sm, sm.pmean, sm.pm2);
+  for (int g = threadIdx.x; g < gs; g += blockDim.x) {
+    const float a = sm.pmean[g], a2 = sm.pm2[g];
+    sm.pmean[g] = rows > 0 ? sm.gmean[g] + a / cnt : 0.f;
+    sm.pm2[g] = rows > 0 ? fmaxf(a2 - a * a / cnt, 0.f) : 0.f;
+  }
+  __syncthreads();
+}
+
+// This thread's channels over k more of its positions (u[0..k)): their
+// mean and M2 by a two-pass over the k values, merged into (cnt, mean, m2)
+// by Chan's formula.
+template <typename T, int K>
+__device__ __forceinline__ void chunk_merge(const uint4 (&u)[K], int k, float& cnt,
+                                            float (&mean)[Vec<T>::n],
+                                            float (&m2)[Vec<T>::n]) {
+  constexpr int V = Vec<T>::n;
+  const T* tag = nullptr;
+  float cm[V], c2[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) cm[e] = c2[e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    if (c < k) {
+      float v[V];
+      unpack(u[c], v, tag);
+#pragma unroll
+      for (int e = 0; e < V; ++e) cm[e] += v[e];
+    }
+  }
+  const float kf = static_cast<float>(k);
+#pragma unroll
+  for (int e = 0; e < V; ++e) cm[e] /= kf;
+#pragma unroll
+  for (int c = 0; c < K; ++c) {
+    if (c < k) {
+      float v[V];
+      unpack(u[c], v, tag);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = v[e] - cm[e];
+        c2[e] = fmaf(d, d, c2[e]);
+      }
+    }
+  }
+  const float tot = cnt + kf;
+  const float f = kf / tot;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float delta = cm[e] - mean[e];
+    mean[e] = fmaf(delta, f, mean[e]);
+    m2[e] += c2[e] + delta * delta * cnt * f;
+  }
+  cnt = tot;
+}
+
+// positions of the first `rows` that row thread r (of rs) owns
+__device__ __forceinline__ int owned(int rows, int r, int rs) {
+  return r < rows ? (rows - 1 - r) / rs + 1 : 0;
+}
+
+// The block's groups from its threads' channels (tmean / tm2, thread
+// r * nv + col holding `owned(rows, r, rs)` positions of each of its V
+// channels): mean = sum(n mean) / n, M2 = sum(M2 + n (mean_i - mean)^2) in
+// double over (row thread, channel) in a fixed order, one warp a group, the
+// lanes' sums in an xor tree; out(g, mean, M2) from lane 0.
+template <int V, typename Out>
+__device__ void block_groups(const float* tmean, const float* tm2, int rows, const Lanes& ln,
+                             int cg, int gs, const Out& out) {
+  const int lane = threadIdx.x & 31;
+  const int items = ln.rs * cg;
+  for (int g = threadIdx.x >> 5; g < gs; g += blockDim.x >> 5) {
+    double n = 0.0, nm = 0.0;
+    for (int it = lane; it < items; it += 32) {
+      const int r = it / cg, c = g * cg + it % cg;
+      const double nr = owned(rows, r, ln.rs);
+      n += nr;
+      nm += nr * tmean[(r * ln.nv + c / V) * V + c % V];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      n += __shfl_xor_sync(0xffffffffu, n, off);
+      nm += __shfl_xor_sync(0xffffffffu, nm, off);
+    }
+    const double mu = n > 0.0 ? nm / n : 0.0;
+    double s2 = 0.0;
+    for (int it = lane; it < items; it += 32) {
+      const int r = it / cg, c = g * cg + it % cg;
+      const int at = (r * ln.nv + c / V) * V + c % V;
+      const double d = tmean[at] - mu;
+      s2 += tm2[at] + owned(rows, r, ln.rs) * d * d;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    if (lane == 0) out(g, mu, s2);
+  }
+}
+
+// per-channel scale = rstd * gamma and offset = beta - mean * scale of the
+// slab starting at channel c0
+__device__ void scale_offset(const float* gamma, const float* beta, int c0, int w,
+                             int cg, const Scratch& sm) {
+  for (int c = threadIdx.x; c < w; c += blockDim.x) {
+    const int g = c / cg;
+    const float sc = sm.frstd[g] * gamma[c0 + c];
+    sm.sc[c] = sc;
+    sm.of[c] = static_cast<float>(static_cast<double>(beta[c0 + c]) -
+                                  static_cast<double>(sm.fmean[g]) * sc);
+  }
+}
+
+template <typename T, bool kSilu>
+__device__ __forceinline__ uint4 normalise(const uint4& u, const float (&sc)[Vec<T>::n],
+                                           const float (&of)[Vec<T>::n]) {
+  float v[Vec<T>::n];
+  const T* tag = nullptr;
+  unpack(u, v, tag);
+#pragma unroll
+  for (int e = 0; e < Vec<T>::n; ++e) {
+    float o = round_to(fmaf(v[e], sc[e], of[e]), tag);
+    // SiLU with the fast exponential and division (a few ulp of fp32, far
+    // below the bf16 rounding that follows): the IEEE ones cost ~20
+    // instructions a value, as many as the bytes allow for the whole call
+    if (kSilu) o = round_to(__fdividef(o, 1.f + __expf(-o)), tag);
+    v[e] = o;
+  }
+  return pack(v, tag);
+}
+
+template <typename T>
+__device__ __forceinline__ void load_scale(const Lanes& ln, const Scratch& sm,
+                                           float (&sc)[Vec<T>::n], float (&of)[Vec<T>::n]) {
+#pragma unroll
+  for (int e = 0; e < Vec<T>::n; ++e) {
+    sc[e] = sm.sc[ln.col * Vec<T>::n + e];
+    of[e] = sm.of[ln.col * Vec<T>::n + e];
+  }
+}
+
+// ------------------------------------------------------------------ path R
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(kThreadsR, 2)
+gn_resident_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                   const float* __restrict__ beta, T* __restrict__ y, int64_t L,
+                   int C, int cg, int w, int shard_rows, float eps) {
+  constexpr int V = Vec<T>::n;
+  extern __shared__ __align__(16) uint4 smem[];
+  const int K = static_cast<int>(cluster_nctarank());
+  const int rank = static_cast<int>(sm90::cluster_ctarank());
+  const int n_slabs = C / w;
+  const int gs = w / cg;
+  const int64_t unit = blockIdx.x / K;
+  const int64_t n = unit / n_slabs;
+  const int c0 = static_cast<int>(unit % n_slabs) * w;
+  const Lanes ln(w, V);
+  const int64_t r0 = static_cast<int64_t>(rank) * shard_rows;
+  const int rows = static_cast<int>(L - r0 < 0 ? 0 : (L - r0 < shard_rows ? L - r0 : shard_rows));
+  uint4* buf = smem;
+  const Scratch sm = carve(reinterpret_cast<float*>(smem + static_cast<int64_t>(shard_rows) * ln.nv),
+                           ln.rs, w, gs);
+
+  // the shard's loads in kChunks commit groups, so that the first pass
+  // starts on the first quarter while the rest is in flight
+  const T* src = x + (n * L + r0) * C + c0 + ln.col * V;
+  const int mine = ln.mine(rows);
+  const int per = (mine + kChunks - 1) / kChunks;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int hi = min(mine, (j + 1) * per);
+    for (int i = j * per; i < hi; ++i) {
+      const int r = ln.row0 + i * ln.rs;
+      cp_async16(buf + r * ln.nv + ln.col, src + static_cast<int64_t>(r) * C);
+    }
+    cp_async_commit();
+  }
+  float s[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) s[e] = 0.f;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    if (j == 0) cp_async_wait<kChunks - 1>();
+    if (j == 1) cp_async_wait<kChunks - 2>();
+    if (j == 2) cp_async_wait<kChunks - 3>();
+    if (j == 3) cp_async_wait<0>();
+    add_rows<T>(s, buf, ln, j * per, min(mine, (j + 1) * per));
+  }
+  static_assert(kChunks == 4, "the waits above are written for four groups");
+  buffer_stats<T>(s, buf, rows, ln, w, cg, gs, sm);
+
+  // every CTA's partials, merged in CTA order by every CTA: lane q of a
+  // group's warp reads CTA q's (mean, M2) once
+  sm90::cluster_sync();
+  const int lane = threadIdx.x & 31;
+  for (int g = threadIdx.x >> 5; g < gs; g += blockDim.x >> 5) {
+    double nq = 0.0, mq = 0.0, m2q = 0.0;
+    if (lane < K) {
+      const int64_t left = L - static_cast<int64_t>(lane) * shard_rows;
+      nq = static_cast<double>(left < 0 ? 0 : (left < shard_rows ? left : shard_rows)) * cg;
+      mq = ld_cluster(sm.pmean + g, static_cast<uint32_t>(lane));
+      m2q = ld_cluster(sm.pm2 + g, static_cast<uint32_t>(lane));
+    }
+    double tot = nq, nm = nq * mq;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      tot += __shfl_xor_sync(0xffffffffu, tot, off);
+      nm += __shfl_xor_sync(0xffffffffu, nm, off);
+    }
+    const double mu = nm / tot;
+    const double d = mq - mu;
+    double s2 = m2q + nq * d * d;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    if (lane == 0) {
+      sm.fmean[g] = static_cast<float>(mu);
+      sm.frstd[g] = static_cast<float>(1.0 / sqrt(s2 / tot + static_cast<double>(eps)));
+    }
+  }
+  cluster_arrive();  // done reading the other CTAs' shared memory
+  __syncthreads();
+  scale_offset(gamma, beta, c0, w, cg, sm);
+  __syncthreads();
+
+  float sc[V], of[V];
+  load_scale<T>(ln, sm, sc, of);
+  T* dst = y + (n * L + r0) * C + c0 + ln.col * V;
+  for (int i = 0; i < mine; ++i) {
+    const int r = ln.row0 + i * ln.rs;
+    st_stream(dst + static_cast<int64_t>(r) * C,
+              normalise<T, kSilu>(buf[r * ln.nv + ln.col], sc, of));
+  }
+  cluster_wait();  // no CTA leaves while another may still read its partials
+}
+
+// ------------------------------------------------------------------ path S
+// Block j of path S's grid: slab js = j / Q of every row, positions
+// [q * per, (q + 1) * per) of it (q = j mod Q, Q = P / n_slabs blocks a
+// slab, fewer positions at the end). The split depends on L, the slabs
+// and the grid only, so a row's bits depend on neither N nor the batch.
+struct Range {
+  int js, c0, Q, per;
+  int64_t lo;
+  int rows;  // positions in the range (0 for a block beyond n_slabs * Q)
+};
+
+__device__ Range range_of(int j, int P, int64_t L, int n_slabs, int w) {
+  Range r;
+  r.Q = P / n_slabs;
+  r.js = j / r.Q;
+  const int q = j % r.Q;
+  r.c0 = r.js * w;
+  r.per = static_cast<int>((L + r.Q - 1) / r.Q);
+  r.lo = static_cast<int64_t>(q) * r.per;
+  const int64_t left = L - r.lo;
+  r.rows = r.js < n_slabs ? static_cast<int>(left < 0 ? 0 : (left < r.per ? left : r.per)) : 0;
+  return r;
+}
+
+// The (mean, 1/std) of a slab's gs groups from its Q blocks' partials `in`
+// ([Q][gs] (mean, M2) pairs, block q holding `per` positions, fewer at the
+// end): mean = sum(n mean) / n, M2 = sum(M2 + n (mean_q - mean)^2), in
+// double. Thread t takes group g = t mod gsub of each run of gsub groups
+// and the partials q = t / gsub, + S, ... (S = threads / gsub), four loads
+// in flight; the S sums of a group then add in order. Into `out` [gs].
+__device__ void combine_slab(const double2* in, int Q, int per, int64_t L, int cg,
+                             int gs, float eps, float2* out, double* red_n,
+                             double* red_nm) {
+  const int nt = static_cast<int>(blockDim.x);
+  for (int g0 = 0; g0 < gs; g0 += nt) {
+    const int gsub = min(nt, gs - g0);
+    const int S = nt / gsub;
+    const int g = g0 + static_cast<int>(threadIdx.x) % gsub;
+    const int k = static_cast<int>(threadIdx.x) / gsub;
+    auto count = [&](int q) {
+      const int64_t left = L - static_cast<int64_t>(q) * per;
+      return static_cast<double>(left < 0 ? 0 : (left < per ? left : per)) * cg;
+    };
+    double n = 0.0, nm = 0.0;
+    if (k < S) {
+#pragma unroll 4
+      for (int q = k; q < Q; q += S) {
+        const double nq = count(q);
+        n += nq;
+        nm += nq * __ldcg(&in[q * gs + g].x);
+      }
+    }
+    red_n[threadIdx.x] = n;
+    red_nm[threadIdx.x] = nm;
+    __syncthreads();
+    double tot = 0.0, mu = 0.0;
+    if (k < S) {
+      double a = 0.0, b = 0.0;
+      for (int i = 0; i < S; ++i) {
+        a += red_n[i * gsub + threadIdx.x % gsub];
+        b += red_nm[i * gsub + threadIdx.x % gsub];
+      }
+      tot = a;
+      mu = b / a;
+    }
+    __syncthreads();
+    double s2 = 0.0;
+    if (k < S) {
+#pragma unroll 4
+      for (int q = k; q < Q; q += S) {
+        const double2 pq = __ldcg(&in[q * gs + g]);
+        const double d = pq.x - mu;
+        s2 += pq.y + count(q) * d * d;
+      }
+    }
+    red_n[threadIdx.x] = s2;
+    __syncthreads();
+    if (k == 0) {
+      double m2 = 0.0;
+      for (int i = 0; i < S; ++i) m2 += red_n[i * gsub + threadIdx.x];
+      out[g] = make_float2(static_cast<float>(mu),
+                           static_cast<float>(1.0 / sqrt(m2 / tot + static_cast<double>(eps))));
+    }
+    __syncthreads();
+  }
+}
+
+// Path S: one cooperative launch of kBlocksS blocks an SM walks the rows,
+// `rb` rows a batch. Per batch: (A) for each row of the batch, each thread
+// streams its column of its block's range from HBM (an L2 evict_last
+// policy, kChunk vectors in flight), keeping each channel's (mean, M2) by
+// a two-pass over each chunk merged in order by Chan's formula; the block
+// combines its threads' channels into its groups' (mean, M2) and writes
+// them; the slab's last block to arrive (an arrival counter, reset by it)
+// combines the slab's Q partials in block order into its groups' mean and
+// 1/std. (B) after one grid barrier, each thread reads its columns again,
+// last loaded first (what is still in L2), and normalises them.
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(kThreadsS, kBlocksS)
+gn_stream_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
+                 const float* __restrict__ beta, T* __restrict__ y,
+                 double2* __restrict__ part, float2* __restrict__ stats,
+                 unsigned* __restrict__ arrived, int64_t N, int64_t L, int C, int cg,
+                 int w, int rb, float eps) {
+  constexpr int V = Vec<T>::n;
+  __shared__ float tmean[kThreadsS * V], tm2[kThreadsS * V];
+  __shared__ double red_n[kThreadsS], red_nm[kThreadsS];
+  __shared__ unsigned ticket;
+  coop::grid_group grid = coop::this_grid();
+  const int j = blockIdx.x;
+  const int n_slabs = C / w;
+  const int gs = w / cg;
+  const Lanes ln(w, V);
+  const Range rg = range_of(j, gridDim.x, L, n_slabs, w);
+  const int mine = ln.active ? owned(rg.rows, ln.row0, ln.rs) : 0;
+  const uint64_t keep = l2_policy_evict_last();
+  const uint64_t drop = l2_policy_evict_first();
+  const int64_t batches = (N + rb - 1) / rb;
+
+  for (int64_t b = 0; b < batches; ++b) {
+    const int rows_b = static_cast<int>(N - b * rb < rb ? N - b * rb : rb);
+    for (int i = 0; i < rows_b; ++i) {
+      const int64_t n = b * rb + i;
+      const int64_t base = (n * L + rg.lo) * C + rg.c0 + ln.col * V;
+      // (A) this thread's channels: (mean, M2) over its positions
+      float cnt = 0.f, mean[V], m2[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) mean[e] = m2[e] = 0.f;
+      for (int i0 = 0; i0 < mine; i0 += kChunk) {
+        const int k = min(kChunk, mine - i0);
+        uint4 u[kChunk];
+#pragma unroll
+        for (int c = 0; c < kChunk; ++c) {
+          if (c < k) {
+            u[c] = ld_hint(x + base + static_cast<int64_t>(ln.row0 + (i0 + c) * ln.rs) * C,
+                           keep);
+          }
+        }
+        chunk_merge<T, kChunk>(u, k, cnt, mean, m2);
+      }
+      if (ln.active) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          tmean[threadIdx.x * V + e] = mean[e];
+          tm2[threadIdx.x * V + e] = m2[e];
+        }
+      }
+      __syncthreads();
+      // the block's groups, in a fixed order, into the batch's partials
+      const int slot = i * n_slabs + rg.js;  // (row of the batch, slab)
+      block_groups<V>(tmean, tm2, rg.rows, ln, cg, gs, [&](int g, double mu, double s2) {
+        if (rg.js < n_slabs) {
+          part[(static_cast<int64_t>(slot) * rg.Q + j % rg.Q) * gs + g] = make_double2(mu, s2);
+          __threadfence();
+        }
+      });
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        __threadfence();
+        ticket = rg.js < n_slabs ? atomicAdd(&arrived[slot], 1u) : 0u;
+      }
+      __syncthreads();
+      if (rg.js < n_slabs && ticket == static_cast<unsigned>(rg.Q - 1)) {
+        // the slab's last block: its groups from the Q blocks' partials
+        __threadfence();
+        combine_slab(part + static_cast<int64_t>(slot) * rg.Q * gs, rg.Q, rg.per, L, cg, gs,
+                     eps, stats + (static_cast<int64_t>(b & 1) * rb * n_slabs + slot) * gs,
+                     red_n, red_nm);
+        if (threadIdx.x == 0) arrived[slot] = 0u;  // for the next batch
+      }
+    }
+    grid.sync();
+    // (B) the apply, last row and last position first
+    if (mine > 0) {
+      float sc[V], of[V];
+      for (int i = rows_b - 1; i >= 0; --i) {
+        const int64_t n = b * rb + i;
+        const int64_t base = (n * L + rg.lo) * C + rg.c0 + ln.col * V;
+        const float2* st = stats + (static_cast<int64_t>(b & 1) * rb * n_slabs + i * n_slabs + rg.js) * gs;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const int c = ln.col * V + e;
+          const float2 sg = __ldcg(&st[c / cg]);
+          sc[e] = sg.y * gamma[rg.c0 + c];
+          of[e] = static_cast<float>(static_cast<double>(beta[rg.c0 + c]) -
+                                     static_cast<double>(sg.x) * sc[e]);
+        }
+        for (int i1 = mine; i1 > 0; i1 -= kChunk) {
+          const int k = min(kChunk, i1);
+          uint4 u[kChunk];
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) {
+            if (c < k) {
+              u[c] = ld_hint(x + base + static_cast<int64_t>(ln.row0 + (i1 - 1 - c) * ln.rs) * C,
+                             drop);
+            }
+          }
+#pragma unroll
+          for (int c = 0; c < kChunk; ++c) {
+            if (c < k) {
+              st_stream(y + base + static_cast<int64_t>(ln.row0 + (i1 - 1 - c) * ln.rs) * C,
+                        normalise<T, kSilu>(u[c], sc, of));
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- copy kernel
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[kVec]) {
   const uint4 u = *reinterpret_cast<const uint4*>(p);
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -79,212 +807,12 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* p, float v[kVec]) {
   }
 }
 
-__device__ __forceinline__ void load8(const float* p, float v[kVec]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
 __device__ __forceinline__ void store8(__nv_bfloat16* p, const float v[kVec]) {
   uint4 u;
   __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
   *reinterpret_cast<uint4*>(p) = u;
-}
-
-__device__ __forceinline__ void store8(float* p, const float v[kVec]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// v rounded to T and back (the identity for fp32)
-__device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ float round_to(float v, const float*) { return v; }
-
-template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part_mean,
-                float* __restrict__ part_m2, int64_t L, int C, int n_tiles) {
-  __shared__ float red[kRowThreads][kChunk + 1];
-  __shared__ float red2[kRowThreads][kChunk + 1];
-  __shared__ float tmean[kChunk];
-
-  const int tx = threadIdx.x;  // 8-channel group of the chunk
-  const int ty = threadIdx.y;  // row thread
-  const int tile = blockIdx.x;
-  const int cc = tx * kVec;    // channel in the chunk
-  const int c0 = blockIdx.y * kChunk + cc;
-  const int64_t n = blockIdx.z;
-  const int64_t r0 = static_cast<int64_t>(tile) * kTile;
-  const int rows = L - r0 < kTile ? static_cast<int>(L - r0) : kTile;
-  const bool active = c0 < C;  // C % 8 == 0: a group is all in or all out
-
-  float v[kRowsPerThread][kVec];
-  float s[kVec];
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) s[j] = 0.f;
-  const T* base = x + (n * L + r0) * C + c0;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int r = ty + i * kRowThreads;
-    if (active && r < rows) {
-      load8(base + static_cast<int64_t>(r) * C, v[i]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) v[i][j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) s[j] += v[i][j];
-  }
-
-  // pass 1: the tile's mean per channel (column sums in row order)
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) red[ty][cc + j] = s[j];
-  __syncthreads();
-  const int lin = ty * kColThreads + tx;
-  if (lin < kChunk) {
-    float acc = 0.f;
-    for (int r = 0; r < kRowThreads; ++r) acc += red[r][lin];
-    tmean[lin] = acc / rows;
-  }
-  __syncthreads();
-
-  // pass 2, from the registers: sum of d and of d^2, d = x - tile mean
-  float sd[kVec], sd2[kVec];
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) sd[j] = sd2[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    if (ty + i * kRowThreads < rows) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        const float d = v[i][j] - tmean[cc + j];
-        sd[j] += d;
-        sd2[j] += d * d;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    red[ty][cc + j] = sd[j];
-    red2[ty][cc + j] = sd2[j];
-  }
-  __syncthreads();
-  if (lin < kChunk) {
-    const int c = blockIdx.y * kChunk + lin;
-    if (c < C) {
-      float a = 0.f, a2 = 0.f;
-      for (int r = 0; r < kRowThreads; ++r) {
-        a += red[r][lin];
-        a2 += red2[r][lin];
-      }
-      // corrected two-pass: the tile mean's rounding moved into the mean,
-      // and taken out of M2
-      const int64_t at = (n * n_tiles + tile) * C + c;
-      part_mean[at] = tmean[lin] + a / rows;
-      part_m2[at] = fmaxf(a2 - a * a / rows, 0.f);
-    }
-  }
-}
-
-struct Moments {
-  double n, mean, m2;
-};
-
-// Chan et al.'s pairwise merge
-__device__ __forceinline__ Moments merge(Moments a, Moments b) {
-  if (b.n == 0.0) return a;
-  if (a.n == 0.0) return b;
-  const double n = a.n + b.n;
-  const double delta = b.mean - a.mean;
-  const double f = b.n / n;
-  return {n, a.mean + delta * f, a.m2 + b.m2 + delta * delta * a.n * f};
-}
-
-__global__ void __launch_bounds__(kFinThreads)
-gn_finalize_kernel(const float* __restrict__ part_mean,
-                   const float* __restrict__ part_m2,
-                   const float* __restrict__ gamma,
-                   const float* __restrict__ beta, float* __restrict__ scale,
-                   float* __restrict__ offset, int64_t L, int C, int groups,
-                   int n_tiles, float eps) {
-  __shared__ double sn[kFinThreads], smean[kFinThreads], sm2[kFinThreads];
-  __shared__ float s_mean, s_rstd;
-  const int grp = blockIdx.x;
-  const int64_t n = blockIdx.y;
-  const int cg = C / groups;
-  const int64_t items = static_cast<int64_t>(n_tiles) * cg;
-  const double last_rows = static_cast<double>(L - static_cast<int64_t>(n_tiles - 1) * kTile);
-
-  Moments m = {0.0, 0.0, 0.0};
-  for (int64_t i = threadIdx.x; i < items; i += kFinThreads) {
-    const int tile = static_cast<int>(i / cg);
-    const int c = grp * cg + static_cast<int>(i - static_cast<int64_t>(tile) * cg);
-    const int64_t at = (n * n_tiles + tile) * C + c;
-    m = merge(m, {tile == n_tiles - 1 ? last_rows : static_cast<double>(kTile),
-                  static_cast<double>(part_mean[at]),
-                  static_cast<double>(part_m2[at])});
-  }
-  sn[threadIdx.x] = m.n;
-  smean[threadIdx.x] = m.mean;
-  sm2[threadIdx.x] = m.m2;
-  __syncthreads();
-  for (int stride = kFinThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      const int o = threadIdx.x + stride;
-      const Moments r = merge({sn[threadIdx.x], smean[threadIdx.x], sm2[threadIdx.x]},
-                              {sn[o], smean[o], sm2[o]});
-      sn[threadIdx.x] = r.n;
-      smean[threadIdx.x] = r.mean;
-      sm2[threadIdx.x] = r.m2;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    s_mean = static_cast<float>(smean[0]);
-    s_rstd = static_cast<float>(1.0 / sqrt(sm2[0] / sn[0] + static_cast<double>(eps)));
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < cg; j += kFinThreads) {
-    const int c = grp * cg + j;
-    const float sc = s_rstd * gamma[c];
-    scale[n * C + c] = sc;
-    offset[n * C + c] = static_cast<float>(
-        static_cast<double>(beta[c]) - static_cast<double>(s_mean) * sc);
-  }
-}
-
-template <typename T, bool kSilu>
-__global__ void __launch_bounds__(kApplyThreads)
-gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ scale,
-                const float* __restrict__ offset, T* __restrict__ y,
-                int64_t L, int C) {
-  const int64_t n = blockIdx.y;
-  const int cv = C / kVec;
-  const int64_t vecs = L * cv;  // 8-channel vectors of row n
-  const T* xn = x + n * L * C;
-  T* yn = y + n * L * C;
-  const float* sc_n = scale + n * C;
-  const float* of_n = offset + n * C;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kApplyThreads + threadIdx.x;
-       i < vecs; i += static_cast<int64_t>(gridDim.x) * kApplyThreads) {
-    const int c = static_cast<int>(i % cv) * kVec;
-    float v[kVec], sc[kVec], of[kVec];
-    load8(xn + i * kVec, v);
-    load8(sc_n + c, sc);
-    load8(of_n + c, of);
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      float o = round_to(fmaf(v[j], sc[j], of[j]), xn);
-      if (kSilu) o = round_to(o / (1.f + expf(-o)), xn);
-      v[j] = o;
-    }
-    store8(yn + i * kVec, v);
-  }
 }
 
 __global__ void __launch_bounds__(kApplyThreads)
@@ -300,8 +828,6 @@ copy_plus_one_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
-int n_tiles_of(int64_t L) { return static_cast<int>((L + kTile - 1) / kTile); }
-
 // blocks of a grid-stride pass over `vecs` vectors, at most ~16 waves of
 // 132 SMs x 8 blocks
 int stride_blocks(int64_t vecs) {
@@ -309,65 +835,142 @@ int stride_blocks(int64_t vecs) {
   return static_cast<int>(want < 16896 ? want : 16896);
 }
 
+// ------------------------------------------------------------------- host
+template <typename T, bool kSilu>
+int launch_resident(const T* x, const float* gamma, const float* beta, T* y,
+                    int64_t N, int64_t L, int C, int cg, int w, int cluster,
+                    int shard_rows, float eps, int smem, cudaStream_t stream) {
+  auto kernel = gn_resident_kernel<T, kSilu>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && cluster > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(N * (C / w) * cluster));
+  cfg.blockDim = dim3(kThreadsR);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, gamma, beta, y, L, C, cg, w, shard_rows, eps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kSilu>
+int launch_stream(const T* x, const float* gamma, const float* beta, T* y, void* work,
+                  int64_t N, int64_t L, int C, int cg, int w, int blocks, int rb,
+                  float eps, cudaStream_t stream) {
+  auto kernel = gn_stream_kernel<T, kSilu>;
+  // a cooperative launch: every block resident at once, or it is refused
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsS, 0);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (blocks > sms * per_sm) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  // the scratch (ops/group_norm.k8_work_bytes): the partials of a batch's
+  // slabs, their statistics twice (by batch parity), their arrival counters
+  const int gs = w / cg;
+  const int slots = rb * (C / w);
+  const int Q = blocks / (C / w);
+  double2* part = static_cast<double2*>(work);
+  float2* stats = reinterpret_cast<float2*>(part + static_cast<int64_t>(slots) * Q * gs);
+  unsigned* arrived = reinterpret_cast<unsigned*>(stats + 2 * slots * gs);
+  err = cudaMemsetAsync(arrived, 0, slots * sizeof(unsigned), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+  cfg.blockDim = dim3(kThreadsS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, gamma, beta, y, part, stats, arrived, N, L, C,
+                           cg, w, rb, eps);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
-int launch(const void* x, const void* gamma, const void* beta, void* y,
-           void* work, int64_t N, int64_t L, int C, int groups, float eps,
-           bool silu, cudaStream_t stream) {
-  const int n_tiles = n_tiles_of(L);
-  float* part_mean = static_cast<float*>(work);
-  float* part_m2 = part_mean + N * n_tiles * C;
-  float* scale = part_m2 + N * n_tiles * C;
-  float* offset = scale + N * C;
+int launch(const void* x, const void* gamma, const void* beta, void* y, void* work,
+           int64_t N, int64_t L, int C, int groups, float eps, bool silu, int path,
+           int w, int cluster, int rows, int blocks, int spb, cudaStream_t stream) {
+  constexpr int V = Vec<T>::n;
+  const int cg = C / groups;
+  const int nt = path == 0 ? kThreadsR : kThreadsS;
+  // the plan's rules (ops/group_norm.k8_plan): whole groups of whole 16-byte
+  // vectors, at most one vector column a thread
+  if (w <= 0 || C % w || w % cg || w % 8 || w / V > nt || (path == 0 && rows <= 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int nv = w / V, rs = nt / nv;
+  const int gs = w / cg;
   const T* xt = static_cast<const T*>(x);
   T* yt = static_cast<T*>(y);
-
-  gn_stats_kernel<T><<<dim3(n_tiles, (C + kChunk - 1) / kChunk, N),
-                       dim3(kColThreads, kRowThreads), 0, stream>>>(
-      xt, part_mean, part_m2, L, C, n_tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  gn_finalize_kernel<<<dim3(groups, N), kFinThreads, 0, stream>>>(
-      part_mean, part_m2, static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), scale, offset, L, C, groups, n_tiles, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(stride_blocks(L * (C / kVec)), N);
-  if (silu) {
-    gn_apply_kernel<T, true><<<grid, kApplyThreads, 0, stream>>>(
-        xt, scale, offset, yt, L, C);
-  } else {
-    gn_apply_kernel<T, false><<<grid, kApplyThreads, 0, stream>>>(
-        xt, scale, offset, yt, L, C);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  if (path == 0) {
+    const int smem = rows * nv * 16 + smem_extra(w, gs, rs, nt);
+    if (cluster < 1 || cluster > kMaxCluster || static_cast<int64_t>(rows) * cluster < L ||
+        static_cast<int64_t>(rows) * (cluster - 1) >= L || smem > kSmemMax ||
+        N * (C / w) * cluster > 0x7fffffff) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return silu ? launch_resident<T, true>(xt, g, b, yt, N, L, C, cg, w, cluster, rows,
+                                           eps, smem, stream)
+                : launch_resident<T, false>(xt, g, b, yt, N, L, C, cg, w, cluster, rows,
+                                            eps, smem, stream);
   }
-  return static_cast<int>(cudaGetLastError());
+  // spb: the slabs of rb whole rows
+  if (path != 1 || blocks < C / w || spb < C / w || spb % (C / w) || gs > nt ||
+      work == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rb = spb / (C / w);
+  return silu ? launch_stream<T, true>(xt, g, b, yt, work, N, L, C, cg, w, blocks, rb, eps,
+                                       stream)
+              : launch_stream<T, false>(xt, g, b, yt, work, N, L, C, cg, w, blocks, rb, eps,
+                                        stream);
 }
 
 }  // namespace
 
-// fp32 scratch the wrapper allocates for one call: the tiles' (mean, M2)
-// partials and the per-(n, channel) scale and offset
-extern "C" int64_t wiw_group_norm_work_floats(int64_t N, int64_t L, int C) {
-  return 2 * N * n_tiles_of(L) * C + 2 * N * C;
-}
-
 // C entries, bound with ctypes. x, y: contiguous [N, L, C] device arrays of
 // bf16 (is_bf16 = 1) or fp32, 16-byte aligned, C a multiple of 8 and of
-// `groups`; gamma, beta: fp32 [C]; work: wiw_group_norm_work_floats fp32.
-// Launches on `stream` and returns cudaGetLastError() (cudaErrorInvalidValue
-// for shapes it refuses).
+// `groups`; gamma, beta: fp32 [C]. The plan (`ops/group_norm.k8_plan`):
+// path 0 (R) with slab width w, cluster size (up to 16) and the positions a
+// CTA holds (rows); path 1 (S) with w, the grid (blocks, all resident at
+// once) and the slabs a batch (spb), and work: `ops/group_norm.k8_work_bytes`
+// of scratch (the blocks' partials, the batch's statistics twice, and spb
+// arrival counters, zeroed here on the stream before the launch).
+// Launches once on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a shape or plan it refuses).
 extern "C" int wiw_group_norm(const void* x, const void* gamma, const void* beta,
                               void* y, void* work, int64_t N, int64_t L, int C,
-                              int groups, float eps, int is_bf16, int silu,
+                              int groups, float eps, int is_bf16, int silu, int path,
+                              int w, int cluster, int rows, int blocks, int spb,
                               void* stream) {
-  if (N <= 0 || N > 65535 || L <= 0 || C <= 0 || C % kVec || groups <= 0 ||
-      C % groups) {
+  if (N <= 0 || N > 65535 || L <= 0 || C <= 0 || C % 8 || groups <= 0 || C % groups) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(x, gamma, beta, y, work, N, L, C,
-                                         groups, eps, silu != 0, s)
-                 : launch<float>(x, gamma, beta, y, work, N, L, C, groups, eps,
-                                 silu != 0, s);
+  return is_bf16 ? launch<__nv_bfloat16>(x, gamma, beta, y, work, N, L, C, groups, eps,
+                                         silu != 0, path, w, cluster, rows, blocks, spb, s)
+                 : launch<float>(x, gamma, beta, y, work, N, L, C, groups, eps, silu != 0,
+                                 path, w, cluster, rows, blocks, spb, s);
 }
 
 // y = x + 1 in bf16 over n elements (n a multiple of 8, 16-byte aligned):

@@ -13,8 +13,13 @@ by op (~10 fp32 passes), so the port carries it on a kernel.
 - K8 (`wiw_tpu_torch/csrc/group_norm.cu`) replaces the TPU probe kernels
   `_stats_kernel` and `_affine_silu_kernel` of scripts/tune_temporal3.py
   and the glue between them; its header says what bounds it on the H100.
-  One call is three launches (tile statistics, merge into per-channel
-  scale and offset, apply), counted as one in `group_norm.launches`.
+  One call is one launch, counted in `group_norm.launches`. `k8_plan` is
+  the one place that picks its work: the slab (a channel range of whole
+  groups and whole 16-byte vectors), path R (the slab resident in the
+  shared memory of a cluster of CTAs) or path S (one cooperative grid that
+  walks whole rows, a batch of them between grid barriers), the cluster
+  size and the positions a block holds. The C entry refuses any other
+  plan.
 - `copy_plus_one` (the probe's `_copy_kernel`, x + 1 in bf16) measures the
   card's copy ceiling beside K8; its plain version is `x + 1`.
 - The gradient: `GroupNormFunction` runs K8 forward and saves only x and
@@ -23,14 +28,18 @@ by op (~10 fp32 passes), so the port carries it on a kernel.
   GroupNorm backward kernel either).
 
 `group_norm` takes CPU tensors to the plain version and launches K8 on CUDA
-tensors (bf16 or fp32 x; C a multiple of 8 and of the groups; at most 65535
-batch rows; anything else raises: no fallback). A non-contiguous x is made
+tensors (bf16 or fp32 x; C a multiple of 8 and of the groups; a group of at
+most 4 KB a position, 2048 bf16 or 1024 fp32 channels; at most 65535 batch
+rows; anything else raises: no fallback). A non-contiguous x is made
 contiguous first.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +49,127 @@ from wiw_tpu_torch.ops import native
 C_STEP = 8  # the kernel reads 8 channels a thread
 MAX_ROWS = 65535  # batch rows: a grid dimension of the kernel
 _LIB = "group_norm"
+
+# K8's plan (csrc/group_norm.cu keeps the same numbers)
+K8_THREADS_R = 256           # path R's CTAs; a thread owns one 16-byte column
+K8_BLOCKS_S = 2              # path S's blocks an SM, all resident
+K8_SMEM = 232448             # dynamic shared memory a block may use
+K8_SHARD = 92 * 1024         # path R: a CTA's positions, two CTAs an SM
+K8_CLUSTER_PORTABLE = 8      # cluster sizes every card runs
+K8_CLUSTER_MAX = 16          # with the non-portable attribute
+K8_L2_BATCH = 20 * 2 ** 20   # path S: a row this small is read back from L2
+K8_S_BATCH = 80 * 2 ** 20    # path S: bytes of x a batch of whole rows
+H100_SMS = 132
+
+
+class K8Plan(NamedTuple):
+    """K8's work for one [N, L, C] shape. path "R": the slab of `slab`
+    channels is resident in a cluster of `cluster` CTAs, each holding
+    `rows` positions; `blocks` CTAs in all. path "S": a cooperative grid of
+    `blocks` blocks walks whole rows, `slabs_per_batch` slabs (of whole
+    rows) between grid barriers, each block streaming `rows` positions of
+    one slab of each row; `resident` says whether a row fits K8_L2_BATCH,
+    so that the apply reads it back from L2 (else x is read twice from
+    HBM, less what of it the L2 still holds)."""
+    path: str
+    slab: int
+    cluster: int
+    rows: int
+    blocks: int
+    slabs_per_batch: int
+    resident: bool
+
+
+def _k8_smem_extra(w: int, gs: int, rs: int) -> int:
+    """Bytes of fp32 scratch a path-R CTA needs beside its shard (the C
+    side's `smem_extra`): its threads' channel sums twice, the sums of row
+    segments twice, the slab's scale and offset, and five values a group."""
+    return 4 * (2 * rs * w + 2 * max(w, K8_THREADS_R) + 2 * w + 5 * gs)
+
+
+def k8_smem_extra(w: int, C: int, groups: int, dtype: torch.dtype) -> int:
+    """`_k8_smem_extra` of a path-R slab of w channels."""
+    return _k8_smem_extra(w, w // (C // groups), K8_THREADS_R // (w * dtype.itemsize // 16))
+
+
+@functools.lru_cache(maxsize=None)
+def k8_plan(N: int, L: int, C: int, groups: int, dtype: torch.dtype,
+            sms: int = H100_SMS) -> K8Plan:
+    """K8's plan for x [N, L, C] with `groups` groups on a card of `sms`
+    multiprocessors. The slab is a multiple of lcm(C/G, 8) channels (whole
+    groups of whole 16-byte vectors) dividing C, at least 16 channels where
+    C allows. Path R where a slab of at least 64 bytes a position fits a
+    cluster of at most 16 CTAs of K8_SHARD bytes (two an SM), or one of at
+    least 128 bytes fits 16 CTAs one an SM, preferring a portable cluster
+    (8 at most), then whole 32-byte sectors a position, then the narrowest;
+    path S where none does, on half-row slabs, as many
+    whole rows a batch as K8_S_BATCH holds. Nothing in the plan that sets
+    the arithmetic depends on N (path S's rows a batch do, and only say
+    which rows share a barrier), so a row's bits do not depend on the rows
+    beside it. Raises for what the kernel does not take."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"group_norm kernel takes bf16 or fp32 x, got {dtype}")
+    if C <= 0 or C % C_STEP or groups <= 0 or C % groups:
+        raise ValueError(f"group_norm kernel takes C a multiple of {C_STEP} and "
+                         f"of the groups, got C={C}, groups={groups}")
+    if not 0 < N <= MAX_ROWS or L <= 0:
+        raise ValueError(f"group_norm kernel takes 1..{MAX_ROWS} rows of at least "
+                         f"one position, got N={N}, L={L}")
+    isz = dtype.itemsize
+    cg = C // groups
+    unit = math.lcm(cg, C_STEP)
+    widths = [w for w in range(unit, C + 1, unit)
+              if C % w == 0 and w * isz <= 16 * K8_THREADS_R]
+    if not widths:
+        raise ValueError(f"group_norm kernel takes groups of at most "
+                         f"{16 * K8_THREADS_R // isz} channels, got C/G={cg}")
+    widths = [w for w in widths if w >= 16] or widths
+
+    def cluster(w, shard):
+        """(CTAs, positions a CTA) of the smallest cluster whose CTAs of
+        `shard` bytes hold a slab of w channels, or None."""
+        k = -(-(L * w * isz) // shard)
+        if k > K8_CLUSTER_MAX:
+            return None
+        rows = -(-L // k)
+        return -(-L // rows), rows
+
+    # path R where a slab of at least 64 bytes a position fits a cluster
+    # of CTAs two an SM (one loads while the other computes), or one of at
+    # least 128 bytes fits CTAs one an SM; else path S (measured on an
+    # H100: one CTA an SM on narrower slabs, and 32-byte slabs, ran slower)
+    big = K8_SMEM - max(k8_smem_extra(w, C, groups, dtype) for w in widths)
+    for shard, least in ((K8_SHARD, 64), (big, 128)):
+        fits = {w: cluster(w, shard) for w in widths
+                if w * isz >= least and cluster(w, shard)}
+        if fits:
+            # a portable cluster first, then whole 32-byte sectors a
+            # position, then the narrowest
+            w = min(fits, key=lambda w: (fits[w][0] > K8_CLUSTER_PORTABLE,
+                                         w * isz % 32 != 0, w))
+            k, rows = fits[w]
+            return K8Plan("R", w, k, rows, N * (C // w) * k, 0, True)
+    # path S: half-row slabs (contiguous reads; two a row ran faster than
+    # one), Q = blocks / slabs-a-row blocks on each, as many whole rows a
+    # batch as K8_S_BATCH holds (the batch sets only which rows share a
+    # grid barrier, not the bits)
+    w = max((v for v in widths if v <= C // 2), default=widths[-1])
+    blocks = sms * K8_BLOCKS_S
+    row_bytes = L * C * isz
+    rb = max(1, min(N, K8_S_BATCH // row_bytes))
+    return K8Plan("S", w, 1, -(-L // (blocks // (C // w))), blocks, rb * (C // w),
+                  row_bytes <= K8_L2_BATCH)
+
+
+def k8_work_bytes(plan: K8Plan, C: int, groups: int) -> int:
+    """Scratch of a path-S call: each block's (mean, M2) per group for each
+    slab of a batch (float64 pairs), the batch's (mean, 1/std) per group
+    twice (by batch parity, fp32 pairs), and an arrival counter a slab."""
+    if plan.path == "R":
+        return 0
+    gs = plan.slab // (C // groups)
+    slots, Q = plan.slabs_per_batch, plan.blocks // (C // plan.slab)
+    return slots * Q * gs * 16 + 2 * slots * gs * 8 + slots * 4
 
 
 def group_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -60,29 +190,20 @@ def _bind(lib: ctypes.CDLL):
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 2
                        + [ctypes.c_int] * 2 + [ctypes.c_float]
-                       + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        work = lib.wiw_group_norm_work_floats
-        work.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
-        work.restype = ctypes.c_int64
     return fn
 
 
-def _check(x, weight, bias, groups) -> None:
+
+def _check(x, weight, bias) -> None:
     for name, t in (("weight", weight), ("bias", bias)):
         if t.device != x.device:
             raise ValueError(f"group_norm: {name} on {t.device}, x on {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"group_norm kernel takes bf16 or fp32 x, got {x.dtype}")
     if x.ndim < 2 or x.numel() == 0:
         raise ValueError(f"group_norm kernel takes a non-empty [N, ..., C] x, "
                          f"got {tuple(x.shape)}")
-    N, C = x.shape[0], x.shape[-1]
-    if C % C_STEP or C % groups:
-        raise ValueError(f"group_norm kernel takes C a multiple of {C_STEP} and "
-                         f"of the groups, got C={C}, groups={groups}")
-    if N > MAX_ROWS:
-        raise ValueError(f"group_norm kernel takes at most {MAX_ROWS} rows, got {N}")
+    C = x.shape[-1]
     if weight.shape != (C,) or bias.shape != (C,):
         raise ValueError(f"group_norm: weight {tuple(weight.shape)} and bias "
                          f"{tuple(bias.shape)} must be [{C}]")
@@ -94,22 +215,25 @@ def _group_norm(x, weight, bias, groups, eps, silu):
         return group_norm_plain(x, weight, bias, groups, eps, silu)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm: unsupported device {x.device}")
-    _check(x, weight, bias, groups)
+    _check(x, weight, bias)
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("group_norm kernel takes a 16-byte aligned x")
-    lib = native.load_library(_LIB)
-    fn = _bind(lib)
+    fn = _bind(native.load_library(_LIB))
     N, C = x.shape[0], x.shape[-1]
     L = x.numel() // (N * C)
+    plan = k8_plan(N, L, C, groups, x.dtype,
+                   torch.cuda.get_device_properties(x.device).multi_processor_count)
     w, b = weight.float().contiguous(), bias.float().contiguous()
-    work = torch.empty(lib.wiw_group_norm_work_floats(N, L, C),
-                       dtype=torch.float32, device=x.device)
+    work = torch.empty(k8_work_bytes(plan, C, groups), dtype=torch.uint8,
+                       device=x.device)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-                 work.data_ptr(), N, L, C, groups, float(eps),
-                 int(x.dtype == torch.bfloat16), int(silu),
+                 work.data_ptr() if work.numel() else None, N, L, C, groups,
+                 float(eps), int(x.dtype == torch.bfloat16), int(silu),
+                 int(plan.path == "S"), plan.slab, plan.cluster, plan.rows,
+                 plan.blocks, plan.slabs_per_batch,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{_LIB} launch failed: cudaError {err}")

@@ -11,8 +11,9 @@ same function and the dispatcher that picks one.
   replaces the TPU kernel `_kernel` (reached from
   `temporal_self_attention_pallas`). fp32 logits and fp32 softmax weights
   that are NOT rounded before the weighted sum; the output is rounded once.
-  The CUDA source is `wiw_tpu_torch/csrc/temporal_attn.cu`; its header says
-  what bounds it on the H100 and how the design answers that.
+  The CUDA source is `wiw_tpu_torch/csrc/temporal_attn.cu` (both products on
+  mma.sync tensor cores, q, k, v staged by TMA); its header says what bounds
+  it on the H100 and how the design answers that.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from wiw_tpu_torch.ops import native
 
 MODES = ("batched", "xla", "pallas")
 HEAD_DIM = 64    # the kernel's head dim
-MAX_FRAMES = 16  # the kernel keeps every frame's k and v in registers
+MAX_FRAMES = 16  # the kernel pads the frames to one m16 tile of mma.sync
 _LIB = "temporal_attn"
 
 
