@@ -7,10 +7,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. the card: nvidia-smi name and power limit; TF32 off for matmul and cuDNN
   2. build: every CUDA kernel of the serving and training paths, from
      wiw_tpu_torch/csrc, one nvcc per source, all at once (ptxas
-     registers/spills printed; fails if ptxas serialises K7's or K6's wgmma,
-     or spills in K6, K8 or K4)
+     registers/spills printed; fails if ptxas serialises K7's, K6's or
+     K10's wgmma, or spills in K6, K8, K4 or K10)
   3. kernels: K1 (flash attention), K2 (the reference's v1 attention, with
-     and without unroll2, at S = 9216 and 144), K4 (frame attention), K5, K6
+     and without unroll2, at S = 9216 and 144: both launch K1's kernel and
+     must give the same bits), K4 (frame attention), K5, K6
      and K6-bf16 (fused GEGLU feed-forward, fp32 and bf16 gate) each against
      its plain PyTorch version on the same bf16 inputs at the shapes the
      serving path gives it (max/mean |error| and relative Frobenius error
@@ -69,7 +70,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      and the share of the bound
   5d. K9 (the attention ablations floor, noexp, v2) and K10 (int8 q k^T,
      bf16 and int8 PV) at the reference probes' shape, B*H 140, S 9216,
-     against their plain versions at the kernels' kv block width (64)
+     against their plain versions at the kernels' kv block width (64 for
+     floor and noexp, 128 for v2 and K10); K10's repack of v and its kernel
+     timed apart, and the probe's decision ratio, K9-v2's time over K10's,
+     against its bar of 1.15
   6. training: K1 with its LSE output and K3 (flash-attention backward) at
      the four training shapes against the plain forward, LSE and backward
      (K1's output bits the same with and without the LSE), K6's gradients
@@ -171,13 +175,14 @@ L2_BYTES = 50 * 2 ** 20
 # each row's time as PERF.md §6 recorded it before this version of the
 # kernels (runs of this script on an H100 80GB HBM3 at 700 W; K6 and
 # K6-bf16: the mma.sync kernel's; K4 and K8: the eight-lane fp32 K4's and
-# the three-launch K8's), printed on a line of its own before the measured
-# `kernels` line
-PREV_MS = {"K1": 99.0636, "K2": 17.1462, "K2-unroll2": 19.0403, "K3": 150.7475,
+# the three-launch K8's; K2-unroll2, K10 and K10-i8pv: the mma.sync
+# kernels'), printed on a line of its own before the measured `kernels`
+# line
+PREV_MS = {"K1": 99.0636, "K2": 17.1462, "K2-unroll2": 18.9899, "K3": 150.7475,
            "K4": 7.4117, "K5": 248.9817, "K6": 275.2729, "K6-bf16": 363.8384,
            "K8": 14.1938, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 14.5467, "K9-noexp": 15.6669, "K9-v2": 17.7919,
-           "K10": 30.3313, "K10-i8pv": 30.1647}
+           "K10": 30.4349, "K10-i8pv": 30.1989}
 PREV_FROM = "PERF.md §6, the time before this version (H100 80GB HBM3, 700 W)"
 
 
@@ -345,10 +350,11 @@ def k1_phase(row: Row, dev, g):
 
 def k2_phase(rows: dict, dev, g):
     """K2, the reference's v1 attention (`flash_attention(kernel="v1")`),
-    one-tile and with unroll2, at K2_SHAPES on head views of [B, S, H*64]
-    projections, against its plain version (chunked over the batch). At
-    S = 144 (not a multiple of 128) unroll2 takes the one-tile loop, as the
-    reference does."""
+    without and with unroll2, at K2_SHAPES on head views of [B, S, H*64]
+    projections, against its plain version (chunked over the batch). Both
+    launch K1's kernel and must give the same bits; at S = 144 (not a
+    multiple of 128) unroll2 counts as v1, as the reference takes its
+    one-block loop there."""
     import torch.nn.functional as F
 
     from wiw_tpu_torch.ops import flash_attention as TFA
@@ -367,18 +373,25 @@ def k2_phase(rows: dict, dev, g):
         ref = plain()
         flops = 4 * B * H * S * S * 64
         bound = bound_ms(4 * B * H * S * 64 * 2, flops, BF16_FLOPS_S)
+        outs = {}
         for key, unroll2 in (("K2", False), ("K2-unroll2", True)):
             def kernel(unroll2=unroll2):
                 return TFA.flash_attention(q, k, v, kernel="v1", unroll2=unroll2)
 
-            max_err, err_line = compare(f"{key} S={S}", kernel(), ref)
+            outs[key] = kernel()
+            max_err, err_line = compare(f"{key} S={S}", outs[key], ref)
             ms, plain_ms, lib = timed(
                 f"{key} B*H={B * H} S={S} D=64 {err_line}", plain, kernel,
                 lambda: F.scaled_dot_product_attention(q, k, v),
                 max(3, int(3e4 // S)), 2, bound,
                 lambda ms: f"{flops / ms / 1e9:.1f} TFLOP/s")
             rows[key].add(1, max_err, ms, plain_ms, bound, "operations", lib)
-        del q, k, v, ref
+        # unroll2's pair of 64-row blocks is one of K1's 128-row stages: the
+        # same launch as v1's, so the same bits
+        if not torch.equal(outs["K2"], outs["K2-unroll2"]):
+            raise RuntimeError(f"K2-unroll2 at S={S} differs from K2's bits")
+        print(f"K2-unroll2 S={S}: bit-equal to K2 (v1)", flush=True)
+        del q, k, v, ref, outs
 
 
 def k4_phase(row: Row, dev, g):
@@ -1384,6 +1397,7 @@ def attention_probe_phase(rows: dict, dev, g):
         def ref(v=v, i8pv=i8pv):
             return TI.int8_qk_attention_plain(q8, k8, v, K10_QK_SCALE, i8pv)
 
+        # the plain version at the kernel's 128-row kv block (TI.KV_TILE)
         max_err, line = compare(f"{key} S={S}", kern(), ref())
         half = 2 * B * H * S * S * 64
         k10_bound = max(
@@ -1396,7 +1410,20 @@ def attention_probe_phase(rows: dict, dev, g):
                                 lambda ms: f"{4 * B * H * S * S * 64 / ms / 1e9:.1f}"
                                            " T(FL)OP/s")
         rows[key].add(1, max_err, ms, plain_ms, k10_bound, "operations")
-        del v
+        # the call's two steps apart: v's repack (a layout copy) and the kernel
+        packed = TI.repack_v(v, i8pv)
+        repack_ms = cuda_ms(lambda v=v, i8pv=i8pv: TI.repack_v(v, i8pv), 5)
+        kernel_ms = cuda_ms(lambda packed=packed, i8pv=i8pv: TI.int8_qk_attention_packed(
+            q8, k8, *packed, K10_QK_SCALE, i8pv), 5)
+        v2_ms = rows["K9-v2"].d["ms"]
+        print(f"  {key}: repack {repack_ms:.4f} ms ({100 * repack_ms / ms:.1f}% of "
+              f"the call), kernel alone {kernel_ms:.4f} ms; the probe's decision "
+              f"ratio, K9-v2 (K1's kernel, bf16) {v2_ms:.4f} ms / K10 {ms:.4f} ms "
+              f"= {v2_ms / ms:.3f} (kernel alone {v2_ms / kernel_ms:.3f}; the "
+              f"probe's bar to build an int8 kernel: >= 1.15)", flush=True)
+        rows[key].d.update(repack_ms=repack_ms, kernel_alone_ms=kernel_ms,
+                           decision_ratio=v2_ms / ms)
+        del v, packed
     del q8, k8
     torch.cuda.empty_cache()
 
@@ -1691,9 +1718,9 @@ def main() -> int:
         ptxas = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln]
         print(f"  {name}: {secs:.2f} s; " + "; ".join(ptxas), flush=True)
-    # K7 and K6 run their products on wgmma: ptxas must not serialise them
-    # (C7510-C7518) nor spill
-    for name in ("w8a8", "geglu_ffn"):
+    # K7, K6 and K10 run their products on wgmma: ptxas must not serialise
+    # them (C7510-C7520) nor spill
+    for name in ("w8a8", "geglu_ffn", "flash_attn_i8"):
         log = native.build_info[name][1].splitlines()
         wgmma = [ln.strip() for ln in log if "serialized" in ln or "C751" in ln]
         print(f"  {name} ptxas wgmma lines: " + ("; ".join(wgmma) if wgmma else
@@ -1701,7 +1728,7 @@ def main() -> int:
               flush=True)
         if wgmma:
             raise RuntimeError(f"ptxas serialised {name}'s wgmma")
-    for name in ("geglu_ffn", "group_norm", "temporal_attn"):  # K6, K8, K4
+    for name in ("geglu_ffn", "group_norm", "temporal_attn", "flash_attn_i8"):
         spills = [ln.strip() for ln in native.build_info[name][1].splitlines()
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         if spills:
@@ -1718,8 +1745,9 @@ def main() -> int:
         "K2-unroll2": Row("flash_attn_fwd_d64_v1_unroll2",
                           "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
                           "wiw_tpu/ops/pallas_attention.py:77",
-                          "as K2; at S = 144 (not a multiple of 128) the one-tile "
-                          "loop, as the reference; no model caller", library=True),
+                          "as K2, K1's kernel too; at S = 144 (not a multiple of "
+                          "128) counted as v1, where the reference takes its "
+                          "one-block loop; no model caller", library=True),
         "K3": Row("flash_attn_bwd_d64", "wiw_tpu_torch/csrc/flash_attn_bwd.cu",
                   "wiw_tpu/ops/attention.py:60",
                   "one 1-row training micro-batch: 16 calls", library=True),

@@ -337,8 +337,11 @@ def test_v1_kernel_matches_plain_on_card(cuda_device, BH, S, unroll2):
             TFA.flash_attention_v1.launches_unroll2) == (before[0] + (not pair),
                                                          before[1] + pair)
     _close(out, TFA.flash_attention_v1_plain(q, k, v))
-    if not unroll2:  # v1 is K1's arithmetic: the same bits
-        assert torch.equal(out, flash_attention(q, k, v))
+    # v1 is K1's arithmetic and unroll2's pair of 64-row blocks is one of
+    # K1's 128-row stages: both launch K1's kernel, so the same bits
+    assert torch.equal(out, flash_attention(q, k, v))
+    assert torch.equal(out, flash_attention(q, k, v, kernel="v1",
+                                            unroll2=not unroll2))
 
 
 @pytest.mark.cuda
@@ -806,7 +809,7 @@ def test_ablation_v2_is_k1_code_on_card(cuda_device):
     bits."""
     q, k, v = _bhsd(cuda_device, 1, 2, 576, 3)
     out = TFA.attention_v2(q, k, v)
-    ref = TFA._launch_fwd(TFA.prescale_q(q), k, v, False, 1, sm_scale=1.0)[0]
+    ref = TFA._launch_fwd(TFA.prescale_q(q), k, v, False, sm_scale=1.0)[0]
     assert torch.equal(out, ref)
     with pytest.raises(ValueError):  # Skv not a multiple of 64
         TFA.attention_noexp(q[:, :, :100], k[:, :, :100], v[:, :, :100])
@@ -814,7 +817,7 @@ def test_ablation_v2_is_k1_code_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("i8pv", [False, True])
-@pytest.mark.parametrize("BH,S", [(2, 256), (3, 1024)])
+@pytest.mark.parametrize("BH,S", [(2, 256), (3, 1024), (1, 9216)])
 def test_int8_qk_attention_kernel_matches_plain_on_card(cuda_device, i8pv, BH, S):
     from wiw_tpu_torch.ops import int8_attention as TI
 
@@ -834,6 +837,14 @@ def test_int8_qk_attention_kernel_matches_plain_on_card(cuda_device, i8pv, BH, S
     torch.cuda.synchronize()
     assert getattr(TI.int8_qk_attention, attr) == before + 1
     assert out.shape == (BH, S, 65) and out.dtype == torch.bfloat16
+    # the plain version at the kernel's 128-row kv block (TI.KV_TILE)
     _close(out, TI.int8_qk_attention_plain(q8, k8, v, 1e-3, i8pv))
     with pytest.raises(ValueError):  # v of the other PV type
         TI.int8_qk_attention(q8, k8, v, 1e-3, not i8pv)
+    with pytest.raises(ValueError, match="multiple"):  # S off the 128-row stage
+        TI.int8_qk_attention(*(t[:, :192].contiguous() for t in (q8, k8, v)),
+                             1e-3, i8pv)
+    packed = TI.repack_v(v, i8pv)
+    with pytest.raises(ValueError):  # v not as repack_v lays it out
+        TI.int8_qk_attention_packed(q8, k8, packed[1], packed[0], 1e-3, i8pv)
+    assert torch.equal(TI.int8_qk_attention_packed(q8, k8, *packed, 1e-3, i8pv), out)

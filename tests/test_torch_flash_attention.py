@@ -15,6 +15,13 @@ mode: fp32 at 2e-5, and in bf16, where both round P to bf16 before the PV
 product but against another running max, within 1e-2 on outputs of
 magnitude up to ~2 (one bf16 ulp).
 
+On the card K2's unroll2 launches K1's kernel, whose 128-row kv stage is
+the reference unroll2's pair of 64-row blocks under one running max. That
+rests on the reference's own equivalence, held here in interpret mode:
+`_attn_kernel_unroll2` at bkv 64 equals `_attn_kernel` at bkv 128 up to the
+order of its fp32 sums (2e-5 in fp32; in bf16 both round the same P to
+bf16, against the same max, so within one bf16 ulp of the output, 1e-2).
+
 The kernels themselves only run on the card: tests/test_torch_cuda.py holds
 them against these plain versions there.
 """
@@ -113,6 +120,27 @@ def test_v1_plain_matches_pallas_v1_interpret_bf16(unroll2):
     out = flash_attention_v1_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
     assert out.dtype == torch.bfloat16
     np.testing.assert_allclose(out.float().numpy(), ref, atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("B,H,S", [(1, 2, 256), (1, 3, 512)])
+def test_reference_unroll2_at_64_is_v1_at_128(B, H, S):
+    q, k, v = _qkv(B, H, S, 64, seed=6)
+    pair = np.asarray(flash_attention_bhsd(q, k, v, bq=128, bkv=64, interpret=True,
+                                           kernel="v1", unroll2=True))
+    stage = np.asarray(flash_attention_bhsd(q, k, v, bq=128, bkv=128,
+                                            interpret=True, kernel="v1"))
+    np.testing.assert_allclose(pair, stage, atol=2e-5, rtol=2e-5)
+
+
+def test_reference_unroll2_at_64_is_v1_at_128_bf16():
+    import jax.numpy as jnp
+
+    q, k, v = (jnp.asarray(a, jnp.bfloat16) for a in _qkv(1, 2, 256, 64, seed=7))
+    pair = np.asarray(flash_attention_bhsd(q, k, v, bq=128, bkv=64, interpret=True,
+                                           kernel="v1", unroll2=True), np.float32)
+    stage = np.asarray(flash_attention_bhsd(q, k, v, bq=128, bkv=128,
+                                            interpret=True, kernel="v1"), np.float32)
+    np.testing.assert_allclose(pair, stage, atol=1e-2, rtol=0)
 
 
 def test_kernel_choice_follows_the_reference():

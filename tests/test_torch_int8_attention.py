@@ -9,9 +9,16 @@ The bodies live in benchmark scripts that start a benchmark when imported
 only the FunctionDef nodes are kept and run with the scripts' constants
 (D = 64, NEG_INF = -1e30). Inputs are made with numpy from a seed, at
 B*H = 2, S = 256, q blocks of 128, and the kv block width of the port's
-kernels (64), since the values of K10's P and p8 and of K9 noexp's scale
-depend on the running max at each block. v's column 64 (K10's ones column)
-is 1.
+kernels, since the values of K10's P and p8 and of K9 noexp's scale depend
+on the running max at each block: K10's (`TI.KV_TILE`, 128, a stage of its
+TMA ring) for K10, the mma.sync kernel's (`TFA.KV_TILE`, 64) for K9's
+floor and noexp, and 64 for v2 against the reference K1 at the same width.
+v's column 64 (K10's ones column) is 1.
+
+K10 on the card reads v repacked (`repack_v`): int8 v with its kv index
+permuted within each 32 to match the kernel's s8 A fragments. The tests
+below hold that permutation to a bijection and the permuted int32 PV to
+the unpermuted one, exactly.
 
 Tolerances, on bf16 outputs: the two sides take exp and sum in another
 order (XLA's CPU exp against torch's), so a bf16 rounding of P, or an
@@ -42,7 +49,9 @@ from wiw_tpu_torch.ops import int8_attention as TI
 torch.set_num_threads(1)
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
-BH, S, D, BQ, BKV = 2, 256, 64, 128, 64
+BH, S, D, BQ = 2, 256, 64, 128
+BKV = TI.KV_TILE  # K10's kv block width
+K9_BKV = TFA.KV_TILE  # K9 floor and noexp's (the mma.sync kernel's)
 
 
 def _bodies(script: str) -> dict:
@@ -127,7 +136,7 @@ def _k9_inputs():
 def test_ablation_plain_matches_reference_body(variant):
     body = _bodies("tune_attention2.py")[f"_kern_{variant}"]
     (jq, jk, jv), (tq, tk, tv) = _k9_inputs()
-    ref = _interpret(body, jq, jk, jv, D, jnp.bfloat16, bkv=BKV)
+    ref = _interpret(body, jq, jk, jv, D, jnp.bfloat16, bkv=K9_BKV)
     fn = {"floor": TFA.attention_floor, "noexp": TFA.attention_noexp}[variant]
     before = fn.launches
     out = fn(tq, tk, tv)
@@ -147,9 +156,9 @@ def test_ablation_v2_plain_matches_reference_body_and_k1_bits():
     (jq, jk, jv), (tq, tk, tv) = _k9_inputs()
     qs = (jq.astype(jnp.float32) * D ** -0.5).astype(jnp.bfloat16)
     vp = jnp.concatenate([jv, jnp.ones((BH, S, 1), jnp.bfloat16)], axis=-1)
-    ref = _interpret(body, qs, jk, vp, D + 1, jnp.bfloat16, bkv=BKV)[..., :D]
+    ref = _interpret(body, qs, jk, vp, D + 1, jnp.bfloat16, bkv=K9_BKV)[..., :D]
     k1 = np.asarray(flash_attention_bhsd(jq[None], jk[None], jv[None], bq=BQ,
-                                         bkv=BKV, interpret=True)[0]
+                                         bkv=K9_BKV, interpret=True)[0]
                     ).astype(np.float32)
     np.testing.assert_array_equal(ref, k1)
     before = TFA.attention_v2.launches
@@ -171,3 +180,69 @@ def test_ablation_plain_versions_depend_on_the_block_width():
     floor64 = TFA.attention_floor_plain(tq, tk, tv, bkv=64).float()
     floor128 = TFA.attention_floor_plain(tq, tk, tv, bkv=128).float()
     assert (floor64 - floor128).abs().max() <= 1e-2 * floor64.abs().max()
+
+
+def test_int8_qk_attention_plain_depends_on_the_block_width():
+    """P and p8 follow the running max at each kv block: the plain version
+    takes the kernel's width (128), and 64 gives other bits."""
+    q8, k8 = _int8((BH, S, D), 6)[1], _int8((BH, S, D), 7)[1]
+    v = _int8((BH, S, D + 1), 8)[1]
+    v[..., D] = 1
+    for i8pv in (False, True):
+        vv = v if i8pv else v.bfloat16()
+        assert not torch.equal(TI.int8_qk_attention_plain(q8, k8, vv, 1e-3, i8pv),
+                               TI.int8_qk_attention_plain(q8, k8, vv, 1e-3, i8pv,
+                                                          bkv=64))
+
+
+def test_kv_permutation_is_a_bijection_within_each_32():
+    perm = TI.KV_PERM
+    assert sorted(perm) == list(range(32))
+    # logical k 4t..4t+3 of the A fragment is kv 2t, 2t+1 of two 8-wide
+    # accumulator blocks (8 apart); 16 + 4t.. likewise 16 further on
+    for t in range(4):
+        assert perm[4 * t:4 * t + 4] == (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)
+        assert perm[16 + 4 * t:20 + 4 * t] == tuple(16 + p for p in perm[4 * t:4 * t + 4])
+
+
+def test_repacked_int8_pv_equals_the_unpermuted_one_exactly():
+    """p8 read in the kernel's fragment order (`KV_PERM` applied to kv
+    within each 32) against v8 and its column as `repack_v` lays them out
+    (kv permuted alike, d along the rows) gives the int32 PV of the
+    reference's order, every one of the 65 columns."""
+    rng = np.random.default_rng(9)
+    p8 = torch.from_numpy(rng.integers(0, 128, (BH, 64, S)))
+    v = _int8((BH, S, D + 1), 10)[1]
+    want = torch.einsum("bqk,bkd->bqd", p8, v.long())
+    main, col = TI.repack_v(v, True)
+    assert main.shape == (BH, D, S) and main.dtype == torch.int8
+    assert col.shape == (BH, S) and col.dtype == torch.int8
+    assert main.is_contiguous() and col.is_contiguous()
+    np.testing.assert_array_equal(main[:, :, :32].numpy(),
+                                  v[:, list(TI.KV_PERM), :D].transpose(1, 2).numpy())
+    perm = (torch.arange(0, S, 32)[:, None] + torch.tensor(TI.KV_PERM)).reshape(S)
+    p8_fragments = p8[..., perm]  # what the kernel's A registers hold
+    assert not torch.equal(p8_fragments, p8)
+    assert torch.equal(torch.einsum("bqk,bdk->bqd", p8_fragments, main.long()),
+                       want[..., :D])
+    assert torch.equal(torch.einsum("bqk,bk->bq", p8_fragments, col.long()),
+                       want[..., D])
+
+
+def test_repacked_bf16_v_is_the_values_and_the_padded_column():
+    v = _bf16((BH, S, D + 1), 11)[1]
+    main, col = TI.repack_v(v, False)
+    assert main.is_contiguous() and col.is_contiguous()
+    assert torch.equal(main, v[..., :D])
+    assert col.shape == (BH, S, 8) and torch.equal(col[..., 0], v[..., D])
+    assert not col[..., 1:].any()
+
+
+@pytest.mark.parametrize("i8pv", [False, True])
+def test_int8_qk_attention_refuses_s_off_the_block_width(i8pv):
+    """S must be a multiple of the kernel's 128-row kv stage (192 is one of
+    the old 64-wide tile's, not of 128)."""
+    q8 = _int8((1, 192, D), 12)[1]
+    v = _int8((1, 192, D + 1), 13)[1]
+    with pytest.raises(ValueError, match="multiple"):
+        TI.int8_qk_attention(q8, q8, v if i8pv else v.bfloat16(), 1e-3, i8pv)

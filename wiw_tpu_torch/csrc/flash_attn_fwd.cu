@@ -58,20 +58,26 @@
 //     arithmetic (the scale applied to the fp32 logits, P rounded to bf16
 //     for the PV product, the denominator the fp32 sum of the unrounded P)
 //     is what K1 does.
-//   * K2's unroll2 (`_attn_kernel_unroll2`, pallas_attention.py:77) and
-//     K9's floor and noexp (`_kern_floor`, `_kern_noexp`,
+//   * K2's unroll2 (`_attn_kernel_unroll2`, pallas_attention.py:77) runs
+//     K1's kernel too. It takes two kv blocks an iteration under one running
+//     max: m_new = max(m, rowmax s0, rowmax s1), p_i = exp(s_i - m_new),
+//     acc = acc exp(m - m_new) + p0 v0 + p1 v1. Two of the port's former
+//     64-row tiles under one max are one 128-row stage of K1 (kBlockN), so
+//     the two differ only in the order of the fp32 sums. What the unrolled
+//     loop buys on the TPU (two independent q k^T products overlapping two
+//     exp passes), K1's asynchronous wgmma and its two consumer warpgroups
+//     already give here.
+//   * K9's floor and noexp (`_kern_floor`, `_kern_noexp`,
 //     tune_attention2.py:78, :95) stay on the first mma.sync kernel below
 //     (`flash_attn_fwd_d64_mma_kernel`, not redesigned): ablations with no
-//     model caller. unroll2 stages two 64-row k/v tiles an iteration and
-//     takes one running max over both (Skv a multiple of 128). floor is the
-//     two products alone: O = sum over tiles of bf16(q k^T) v, logits
-//     unscaled. noexp is the loop with exp replaced by the identity on
-//     unscaled logits (m_new = max(m, rowmax S), P = S - m_new, the running
-//     output and denominator scaled by m - m_new, the max starting at -1e30,
-//     O = acc / (denominator + 1)); its result depends on the 64-wide kv
-//     tile, which its plain version takes as `bkv`. That kernel loads k/v
-//     synchronously through registers and gathers v's fragments with scalar
-//     shared loads.
+//     model caller. floor is the two products alone: O = sum over tiles of
+//     bf16(q k^T) v, logits unscaled. noexp is the loop with exp replaced by
+//     the identity on unscaled logits (m_new = max(m, rowmax S), P = S -
+//     m_new, the running output and denominator scaled by m - m_new, the
+//     max starting at -1e30, O = acc / (denominator + 1)); its result
+//     depends on the 64-wide kv tile, which its plain version takes as
+//     `bkv`. That kernel loads k/v synchronously through registers and
+//     gathers v's fragments with scalar shared loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -285,7 +291,7 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// ------------------------------ K2's unroll2, K9's floor and noexp: mma.sync
+// ------------------------------------------- K9's floor and noexp: mma.sync
 namespace mma {
 
 constexpr int kD = 64;               // head dim (template constant of the port)
@@ -304,12 +310,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two floats -> one register of two bf16 (lo in the low half)
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // two bf16 from shared memory -> one register (lo in the low half)
 __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo,
                                               const __nv_bfloat16& hi) {
@@ -319,7 +319,7 @@ __device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo,
 
 enum Mode { kSoftmax = 0, kFloor = 1, kNoExp = 2 };
 
-template <int kTiles, int kMode>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -328,10 +328,9 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
                           int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss,
                           int64_t k_sb, int64_t k_sh, int64_t k_ss,
                           int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                          int64_t o_sb, int64_t o_sh, int64_t o_ss,
-                          float scale_log2) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kTiles * kBlockN * kLd];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTiles * kBlockN * kLd];
+                          int64_t o_sb, int64_t o_sh, int64_t o_ss) {
+  __shared__ __align__(16) __nv_bfloat16 ks[kBlockN * kLd];
+  __shared__ __align__(16) __nv_bfloat16 vs[kBlockN * kLd];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -372,47 +371,38 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int nt = 0; nt < kD / 8; ++nt) {
     acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
   }
-  // rows g and g+8 (log2 domain); kNoExp starts at the reference's -1e30
-  const float m0 = kMode == kNoExp ? -1e30f : -INFINITY;
-  float m_run[2] = {m0, m0};
+  // rows g and g+8; kNoExp starts at the reference's -1e30
+  float m_run[2] = {-1e30f, -1e30f};
   float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
 
-  for (int kv0 = 0; kv0 < Skv; kv0 += kTiles * kBlockN) {
-    __syncthreads();  // every warp is done with the previous tiles
-    // stage the k and v tiles: kTiles x 64 rows x 8 chunks of 16 bytes each
+  for (int kv0 = 0; kv0 < Skv; kv0 += kBlockN) {
+    __syncthreads();  // every warp is done with the previous tile
+    // stage the k and v tiles: 64 rows x 8 chunks of 16 bytes each
 #pragma unroll
-    for (int i = 0; i < (kTiles * kBlockN * kD / 8) / kThreads; ++i) {
+    for (int i = 0; i < (kBlockN * kD / 8) / kThreads; ++i) {
       const int c = tid + i * kThreads;
       const int row = c >> 3;
       const int col = (c & 7) * 8;
-      uint4 kval = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vval = make_uint4(0u, 0u, 0u, 0u);
-      if (kv0 + row < Skv) {
-        kval = *reinterpret_cast<const uint4*>(kp + (kv0 + row) * k_ss + col);
-        vval = *reinterpret_cast<const uint4*>(vp + (kv0 + row) * v_ss + col);
-      }
-      *reinterpret_cast<uint4*>(ks + row * kLd + col) = kval;
-      *reinterpret_cast<uint4*>(vs + row * kLd + col) = vval;
+      *reinterpret_cast<uint4*>(ks + row * kLd + col) =
+          *reinterpret_cast<const uint4*>(kp + (kv0 + row) * k_ss + col);
+      *reinterpret_cast<uint4*>(vs + row * kLd + col) =
+          *reinterpret_cast<const uint4*>(vp + (kv0 + row) * v_ss + col);
     }
     __syncthreads();
 
-    // S = q k^T for this warp's 16 rows x 64 columns of each tile
-    float s[kTiles][kBlockN / 8][4];
+    // S = q k^T for this warp's 16 rows x 64 columns of the tile
+    float s[kBlockN / 8][4];
 #pragma unroll
-    for (int u = 0; u < kTiles; ++u) {
+    for (int nt = 0; nt < kBlockN / 8; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+    }
+#pragma unroll
+    for (int kc = 0; kc < kD / 16; ++kc) {
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        s[u][nt][0] = s[u][nt][1] = s[u][nt][2] = s[u][nt][3] = 0.f;
-      }
-#pragma unroll
-      for (int kc = 0; kc < kD / 16; ++kc) {
-#pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt) {
-          const __nv_bfloat16* kr =
-              ks + (u * kBlockN + nt * 8 + g) * kLd + kc * 16 + 2 * t;
-          mma_16816(s[u][nt], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
-                    *reinterpret_cast<const uint32_t*>(kr + 8));
-        }
+        const __nv_bfloat16* kr = ks + (nt * 8 + g) * kLd + kc * 16 + 2 * t;
+        mma_16816(s[nt], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
+                  *reinterpret_cast<const uint32_t*>(kr + 8));
       }
     }
 
@@ -421,8 +411,8 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
       float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[0][nt][0], s[0][nt][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[0][nt][2], s[0][nt][3]));
+        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
       }
       float sc[2];
 #pragma unroll
@@ -436,9 +426,9 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int nt = 0; nt < kBlockN / 8; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[0][nt][e] -= mx[e >> 1];
-        rs[0] += s[0][nt][0] + s[0][nt][1];
-        rs[1] += s[0][nt][2] + s[0][nt][3];
+        for (int e = 0; e < 4; ++e) s[nt][e] -= mx[e >> 1];
+        rs[0] += s[nt][0] + s[nt][1];
+        rs[1] += s[nt][2] + s[nt][3];
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * sc[r] + rs[r];
@@ -449,76 +439,22 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
         acc[nt][2] *= sc[1];
         acc[nt][3] *= sc[1];
       }
-    } else if constexpr (kMode == kSoftmax) {
-      // scale into the log2 domain, mask the ragged tail, one row max over
-      // the iteration's tiles
-      float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-      for (int u = 0; u < kTiles; ++u) {
-#pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = kv0 + u * kBlockN + nt * 8 + 2 * t + (e & 1);
-            s[u][nt][e] = col < Skv ? s[u][nt][e] * scale_log2 : -INFINITY;
-          }
-          mx[0] = fmaxf(mx[0], fmaxf(s[u][nt][0], s[u][nt][1]));
-          mx[1] = fmaxf(mx[1], fmaxf(s[u][nt][2], s[u][nt][3]));
-        }
-      }
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        // every iteration holds at least one unmasked column, so mx is finite
-        alpha[r] = exp2f(m_run[r] - mx[r]);
-        m_run[r] = mx[r];
-      }
-
-      // P = exp2(S - m); partial row sums; rescale the running output
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int u = 0; u < kTiles; ++u) {
-#pragma unroll
-        for (int nt = 0; nt < kBlockN / 8; ++nt) {
-          s[u][nt][0] = exp2f(s[u][nt][0] - mx[0]);
-          s[u][nt][1] = exp2f(s[u][nt][1] - mx[0]);
-          s[u][nt][2] = exp2f(s[u][nt][2] - mx[1]);
-          s[u][nt][3] = exp2f(s[u][nt][3] - mx[1]);
-          rs[0] += s[u][nt][0] + s[u][nt][1];
-          rs[1] += s[u][nt][2] + s[u][nt][3];
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-      for (int nt = 0; nt < kD / 8; ++nt) {
-        acc[nt][0] *= alpha[0];
-        acc[nt][1] *= alpha[0];
-        acc[nt][2] *= alpha[1];
-        acc[nt][3] *= alpha[1];
-      }
     }  // kFloor: P is S itself
 
     // O += P v: the S accumulator of tiles (2kc, 2kc+1) is the A fragment
     // of k-chunk kc; v's B fragment is gathered from row-major shared memory
 #pragma unroll
-    for (int u = 0; u < kTiles; ++u) {
+    for (int kc = 0; kc < kBlockN / 16; ++kc) {
+      uint32_t pa[4];
+      pa[0] = sm90::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pa[1] = sm90::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pa[2] = sm90::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[3] = sm90::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 #pragma unroll
-      for (int kc = 0; kc < kBlockN / 16; ++kc) {
-        uint32_t pa[4];
-        pa[0] = pack_f32(s[u][2 * kc][0], s[u][2 * kc][1]);
-        pa[1] = pack_f32(s[u][2 * kc][2], s[u][2 * kc][3]);
-        pa[2] = pack_f32(s[u][2 * kc + 1][0], s[u][2 * kc + 1][1]);
-        pa[3] = pack_f32(s[u][2 * kc + 1][2], s[u][2 * kc + 1][3]);
-#pragma unroll
-        for (int nt = 0; nt < kD / 8; ++nt) {
-          const __nv_bfloat16* vc =
-              vs + (u * kBlockN + kc * 16 + 2 * t) * kLd + nt * 8 + g;
-          mma_16816(acc[nt], pa, pack_bf16(vc[0], vc[kLd]),
-                    pack_bf16(vc[8 * kLd], vc[9 * kLd]));
-        }
+      for (int nt = 0; nt < kD / 8; ++nt) {
+        const __nv_bfloat16* vc = vs + (kc * 16 + 2 * t) * kLd + nt * 8 + g;
+        mma_16816(acc[nt], pa, pack_bf16(vc[0], vc[kLd]),
+                  pack_bf16(vc[8 * kLd], vc[9 * kLd]));
       }
     }
   }
@@ -529,11 +465,9 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
   }
-  // kSoftmax: acc / l; kNoExp: acc / (l + 1); kFloor: acc
-  const float inv0 = kMode == kFloor ? 1.f
-                     : 1.f / (kMode == kNoExp ? l_run[0] + 1.f : l_run[0]);
-  const float inv1 = kMode == kFloor ? 1.f
-                     : 1.f / (kMode == kNoExp ? l_run[1] + 1.f : l_run[1]);
+  // kNoExp: acc / (l + 1); kFloor: acc
+  const float inv0 = kMode == kFloor ? 1.f : 1.f / (l_run[0] + 1.f);
+  const float inv1 = kMode == kFloor ? 1.f : 1.f / (l_run[1] + 1.f);
   const int row0 = q0 + g;
   const int row1 = q0 + g + 8;
 #pragma unroll
@@ -541,15 +475,14 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int col = nt * 8 + 2 * t;
     if (row0 < Sq) {
       *reinterpret_cast<uint32_t*>(op + row0 * o_ss + col) =
-          pack_f32(acc[nt][0] * inv0, acc[nt][1] * inv0);
+          sm90::pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
     }
     if (row1 < Sq) {
       *reinterpret_cast<uint32_t*>(op + row1 * o_ss + col) =
-          pack_f32(acc[nt][2] * inv1, acc[nt][3] * inv1);
+          sm90::pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
     }
   }
 }
-
 
 }  // namespace mma
 
@@ -558,26 +491,24 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // C entry, bound with ctypes. Pointers are device pointers of bf16 tensors
 // viewed as [B, H, S, 64] with unit stride on the last dim; strides are in
 // elements (multiples of 8, 16-byte aligned bases: what TMA takes). `lse` is
-// null (serving) or an fp32 [B*H, Sq] buffer (training). `tiles` is 1 (K1,
-// K2's v1, K9's v2) or 2 (K2's unroll2: Skv a multiple of 128, no LSE).
-// `mode` is kSoftmax (K1, K2, K9's v2), or K9's kFloor or kNoExp (one tile,
-// no LSE, Skv a multiple of 64). kSoftmax with one tile runs K1's wgmma
-// kernel, the rest the mma.sync kernel. Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for what it refuses, a tensor
-// map the driver refuses included).
+// null (serving) or an fp32 [B*H, Sq] buffer (training). `mode` is kSoftmax
+// (K1, K2's v1 and unroll2, K9's v2), which runs K1's wgmma kernel, or K9's
+// kFloor or kNoExp (no LSE, Skv a multiple of 64), which run the mma.sync
+// kernel. Launches on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for what it refuses, a tensor map the driver
+// refuses included).
 extern "C" int wiw_flash_attn_fwd_d64(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H,
     int Sq, int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
-    int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int tiles,
-    int mode, void* stream) {
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int mode,
+    void* stream) {
   using mma::kFloor;
   using mma::kNoExp;
   using mma::kSoftmax;
-  const float scale_log2 = sm_scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kSoftmax && tiles == 1) {
+  if (mode == kSoftmax) {
     CUtensorMap qm, km, vm;
     if (!sm90_head_map(&qm, q, B, H, Sq, q_sb, q_sh, q_ss, k1::kBlockM) ||
         !sm90_head_map(&km, k, B, H, Skv, k_sb, k_sh, k_ss, k1::kBlockN) ||
@@ -592,25 +523,21 @@ extern "C" int wiw_flash_attn_fwd_d64(
     const dim3 grid((Sq + k1::kBlockM - 1) / k1::kBlockM, B * H);
     kernel<<<grid, k1::kThreads, k1::kSmem, st>>>(
         qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-        H, Sq, Skv, o_sb, o_sh, o_ss, scale_log2);
+        H, Sq, Skv, o_sb, o_sh, o_ss, sm_scale * 1.4426950408889634f);
     return static_cast<int>(cudaGetLastError());
   }
-  if (lse != nullptr ||
-      (tiles != 1 && (tiles != 2 || Skv % (2 * mma::kBlockN) ||
-                      mode != kSoftmax)) ||
-      (mode != kSoftmax &&
-       ((mode != kFloor && mode != kNoExp) || Skv % mma::kBlockN))) {
+  if (lse != nullptr || (mode != kFloor && mode != kNoExp) ||
+      Skv % mma::kBlockN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((Sq + mma::kBlockM - 1) / mma::kBlockM, B * H);
-  auto kernel = mode == kFloor    ? mma::flash_attn_fwd_d64_mma_kernel<1, kFloor>
-                : mode == kNoExp  ? mma::flash_attn_fwd_d64_mma_kernel<1, kNoExp>
-                                  : mma::flash_attn_fwd_d64_mma_kernel<2, kSoftmax>;
+  auto kernel = mode == kFloor ? mma::flash_attn_fwd_d64_mma_kernel<kFloor>
+                               : mma::flash_attn_fwd_d64_mma_kernel<kNoExp>;
   kernel<<<grid, mma::kThreads, 0, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
       Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
-      o_sh, o_ss, scale_log2);
+      o_sh, o_ss);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels
 // K1 (flash_attn_fwd.cu) and K3 (flash_attn_bwd.cu), the int8 product K7
-// (w8a8.cu) and the fused feed-forward K6 (geglu_ffn.cu): inline PTX for
+// (w8a8.cu), the fused feed-forward K6 (geglu_ffn.cu) and the int8 q k^T
+// attention K10 (flash_attn_i8.cu): inline PTX for
 // mbarriers, TMA tensor and bulk copies (loads and stores), wgmma
 // descriptors and products (bf16 -> fp32, s8 -> s32), fences, named
 // barriers and register reallocation, plus the host-side tensor maps.
@@ -211,6 +212,18 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of shared
+// memory into contiguous global memory; tracked by the issuing thread's bulk
+// groups
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -281,6 +294,18 @@ __device__ __forceinline__ uint64_t desc_sw64(const void* p) {
          (static_cast<uint64_t>(1) << 16) |               // LBO (unused)
          (static_cast<uint64_t>(512 >> 4) << 32) |        // SBO: 8 rows
          (static_cast<uint64_t>(2) << 62);                // SW64
+}
+
+// descriptor of an operand with no swizzle starting at `p`: 8-row x 16-byte
+// core matrices, `lbo` and `sbo` bytes apart (which of the two steps along K
+// depends on the operand's major-ness: callers whose operand has a single
+// core matrix across M/N give both the K step)
+__device__ __forceinline__ uint64_t desc_plain(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);                // no swizzle
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -451,7 +476,49 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
 }
 
+// D[64 x 8] += A[64 x 16] B[16 x 8], A from registers as in
+// wgmma_m64n64k16_rs, B in shared memory
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n8k16_rs(float (&d)[4],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
 // ------------------------------------------------ wgmma products (s8 -> s32)
+// D[64 x 64] (+)= A[64 x 32] B[32 x 64], s8 x s8 -> s32, A from registers
+// (the mma.sync m16n8k32 A layout: a[0] row g, k 4t..4t+3; a[1] row g + 8;
+// a[2], a[3] the same rows at k 16 + 4t..; the lowest k in the lowest
+// byte), B K-major in shared memory (8-bit wgmma has no transpose);
+// scale_d 0 overwrites D
+__device__ __forceinline__ void wgmma_m64n64k32_s8_rs(int (&d)[32],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
 // D[64 x 128] (+)= A[64 x 32] B[32 x 128], s8 x s8 -> s32, both K-major in
 // shared memory; scale_d 0 overwrites D
 __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da,

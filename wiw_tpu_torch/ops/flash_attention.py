@@ -13,9 +13,10 @@ what bounds the kernel on the H100 and how the design answers that. K3 sums
 dQ over kv tiles by reductions in L2 (TMA reduce-add), in the order the
 CTAs reach them, so dq's last bits change from run to run.
 K2 replaces the TPU kernels `_attn_kernel` and `_attn_kernel_unroll2`
-(`flash_attention_bhsd(kernel="v1", unroll2=...)`): v1 is K1's function and
-runs K1's kernel; `unroll2` runs the same source's mma.sync kernel (two
-64-row k/v tiles an iteration, one running max over both);
+(`flash_attention_bhsd(kernel="v1", unroll2=...)`): both run K1's kernel.
+v1 is K1's function; unroll2's pair of kv blocks under one running max is
+one 128-row stage of K1, so the two differ only in the order of the fp32
+sums, and on the card unroll2's output is v1's, bit for bit.
 `flash_attention(kernel="v1")` reaches both through `flash_attention_v1`.
 No model caller uses K2, as none uses v1 in the reference.
 
@@ -50,9 +51,9 @@ import torch
 from wiw_tpu_torch.ops import native
 
 HEAD_DIM = 64  # the kernels' template constant
-KV_TILE = 64  # k/v rows a tile of the mma.sync kernel (K2's unroll2 takes
-# two an iteration, K9's floor and noexp one)
-K1_KV_TILE = 128  # k/v rows a stage of K1's wgmma kernel (K1, K2's v1, K9's v2)
+KV_TILE = 64  # k/v rows a tile of the mma.sync kernel (K9's floor and noexp)
+K1_KV_TILE = 128  # k/v rows a stage of K1's wgmma kernel (K1, K2, K9's v2):
+# two of the reference's unroll2 blocks of 64
 Q_TILE = 64  # q rows a stage of K3
 KERNELS = ("v2", "v1")
 _LIB = "flash_attn_fwd"
@@ -72,8 +73,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def flash_attention_v1_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> torch.Tensor:
     """K2's arithmetic, the reference's v1 kernels (`_attn_kernel`, and
-    `_attn_kernel_unroll2`, which differs only in the order it takes the k/v
-    blocks): logits in fp32 scaled in fp32, P = exp(logits - row max)
+    `_attn_kernel_unroll2`, which differs only in the order of its fp32
+    sums): logits in fp32 scaled in fp32, P = exp(logits - row max)
     rounded to v's dtype for the PV product, the denominator the fp32 sum of
     the unrounded P, out = (P v) / denominator rounded once. The kernels
     take the max block by block and rescale; this takes it once per row,
@@ -149,8 +150,7 @@ def _bind(lib: ctypes.CDLL):
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_int64] * 12
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -168,11 +168,10 @@ def _bind_bwd(lib: ctypes.CDLL):
 _SOFTMAX, _FLOOR, _NOEXP = 0, 1, 2
 
 
-def _launch_fwd(q, k, v, with_lse: bool, tiles: int, mode: int = _SOFTMAX,
+def _launch_fwd(q, k, v, with_lse: bool, mode: int = _SOFTMAX,
                 sm_scale: float | None = None):
-    """The forward kernel on CUDA tensors: (out, lse or None); `tiles` k/v
-    tiles an iteration (2: unroll2); `mode` K1's softmax or a K9 ablation;
-    `sm_scale` D^-0.5 unless given."""
+    """The forward kernel on CUDA tensors: (out, lse or None); `mode` K1's
+    softmax or a K9 ablation; `sm_scale` D^-0.5 unless given."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -188,7 +187,7 @@ def _launch_fwd(q, k, v, with_lse: bool, tiles: int, mode: int = _SOFTMAX,
                  None if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2],
                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                  *out.stride()[:3], D ** -0.5 if sm_scale is None else sm_scale,
-                 tiles, mode, stream)
+                 mode, stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
     return out, lse
@@ -200,7 +199,7 @@ def _forward(q, k, v, with_lse: bool):
     if native.on_cpu(q, k, v):
         out = flash_attention_plain(q, k, v)
         return out, flash_attention_lse_plain(q, k) if with_lse else None
-    out, lse = _launch_fwd(q, k, v, with_lse, tiles=1)
+    out, lse = _launch_fwd(q, k, v, with_lse)
     flash_attention.launches += 1
     return out, lse
 
@@ -276,19 +275,19 @@ class FlashAttention(torch.autograd.Function):
 def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        unroll2: bool = False) -> torch.Tensor:
     """K2, the reference's v1 forward, over [B, H, S, D] tensors. CPU tensors
-    take `flash_attention_v1_plain`. CUDA tensors launch K2 (what K1 takes;
-    no gradient, as the reference's v1 has none: an input that needs one
-    raises) and count one launch in `flash_attention_v1.launches`, or, with
-    `unroll2` and Skv a multiple of 128 (the reference's Skv % (2 * bkv)),
-    the two-tile loop in `flash_attention_v1.launches_unroll2`; with
-    `unroll2` and another Skv, the one-tile loop, as the reference does."""
+    take `flash_attention_v1_plain`. CUDA tensors launch K1's kernel (what
+    K1 takes; no gradient, as the reference's v1 has none: an input that
+    needs one raises) in every case, and count one launch in
+    `flash_attention_v1.launches`, or, with `unroll2` and Skv a multiple of
+    128 (the reference's Skv % (2 * bkv): where it takes its pair loop), in
+    `flash_attention_v1.launches_unroll2`."""
     if native.on_cpu(q, k, v):
         return flash_attention_v1_plain(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention(kernel='v1') has no gradient; use kernel='v2'")
-    pair = unroll2 and k.shape[2] % (2 * KV_TILE) == 0
-    out = _launch_fwd(q, k, v, with_lse=False, tiles=2 if pair else 1)[0]
+    pair = unroll2 and k.shape[2] % K1_KV_TILE == 0
+    out = _launch_fwd(q, k, v, with_lse=False)[0]
     if pair:
         flash_attention_v1.launches_unroll2 += 1
     else:
@@ -412,7 +411,7 @@ def _ablation(q, k, v, mode):
         raise NotImplementedError("the K9 ablations have no gradient")
     if k.shape[2] % KV_TILE:
         raise ValueError(f"K9 takes Skv a multiple of {KV_TILE}, got {k.shape[2]}")
-    return _launch_fwd(q, k, v, with_lse=False, tiles=1, mode=mode)[0]
+    return _launch_fwd(q, k, v, with_lse=False, mode=mode)[0]
 
 
 def attention_floor(q, k, v):
@@ -444,8 +443,7 @@ def attention_v2(q, k, v):
         return attention_v2_plain(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("the K9 ablations have no gradient")
-    out = _launch_fwd(prescale_q(q), k, v, with_lse=False, tiles=1,
-                      sm_scale=1.0)[0]
+    out = _launch_fwd(prescale_q(q), k, v, with_lse=False, sm_scale=1.0)[0]
     attention_v2.launches += 1
     return out
 
