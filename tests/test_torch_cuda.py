@@ -269,8 +269,17 @@ def test_ln_geglu_ffn_residual_function_launches_k6_once_on_card(cuda_device, M,
         _close(a, b)
 
 
+# K5's cases: (rows, C, C_out). Both UNet widths, both splits, C_out above
+# and below C (the output staged in more chunks than x; a split by C alone,
+# whose second warpgroup stores nothing), C and C_out off 64 (48, 96, 160,
+# 336), half-empty clusters and more tiles than one wave of 132 SMs
+K5_CASES = [(128, 320, 320), (256, 640, 640), (128, 128, 192), (384, 96, 160),
+            (256, 160, 96), (128, 48, 48), (256, 96, 336), (256, 336, 96),
+            (128, 640, 320), (38400, 64, 80), (16384, 320, 640)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,C,c_out", [(128, 320, 320), (256, 640, 640), (128, 128, 192)])
+@pytest.mark.parametrize("M,C,c_out", K5_CASES)
 def test_geglu_ffn_matches_plain_on_card(cuda_device, M, C, c_out):
     p = _ffn(cuda_device, M, C, c_out)
     args = (p["x"], p["w1"], p["b1"], p["w2"], p["b2"])
@@ -280,6 +289,29 @@ def test_geglu_ffn_matches_plain_on_card(cuda_device, M, C, c_out):
     assert TF.geglu_ffn.launches == before + 1
     assert out.shape == (M, c_out)
     _close(out, TF.geglu_ffn_plain(*args))
+
+
+@pytest.mark.cuda
+def test_geglu_ffn_c_entry_refuses_another_plan(cuda_device):
+    """K5's C entry takes `ffn_plan`'s plan only: the other split, or other
+    stage counts, return cudaErrorInvalidValue before any launch."""
+    import ctypes
+
+    from wiw_tpu_torch.ops import native
+
+    p = _ffn(cuda_device, 128, 96, 160)
+    fn = TF._bind(native.load_library(TF._LIB), residual=False)
+    b1, b2 = p["b1"].float(), p["b2"].float()
+    out = torch.empty(128, 160, dtype=torch.bfloat16, device=cuda_device)
+    plan = TF.ffn_plan(96, 160, residual=False)
+    for split, s1, s2 in ((1 - plan.split, plan.w1_stages, plan.w2_stages),
+                          (plan.split, plan.w1_stages + 1, plan.w2_stages),
+                          (plan.split, plan.w1_stages, plan.w2_stages + 1)):
+        err = fn(p["x"].data_ptr(), p["w1"].data_ptr(), b1.data_ptr(),
+                 p["w2"].data_ptr(), b2.data_ptr(), out.data_ptr(), 128, 96, 384,
+                 160, int(split), s1, s2,
+                 ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        assert err != 0
 
 
 @pytest.mark.cuda
@@ -293,6 +325,9 @@ def test_ffn_kernels_reject_inputs_they_do_not_take(cuda_device):
         TF.ln_geglu_ffn_residual(p["x"][:200], *ln, *w)
     with pytest.raises(ValueError):  # layout
         TF.geglu_ffn(p["x"], p["w1"].t().contiguous().t(), *w[1:])
+    with pytest.raises(ValueError):  # K5: C_out = 100, off the step of 16
+        q = _ffn(cuda_device, 128, 96, 100)
+        TF.geglu_ffn(q["x"], q["w1"], q["b1"], q["w2"], q["b2"])
     # C > 640; C = 100, off the kernel's step of 16
     for C in (1280, 100):
         p = _ffn(cuda_device, 128, C)
@@ -792,15 +827,16 @@ def test_ablation_kernels_match_plain_on_card(cuda_device, variant, B, H, S):
         # out = acc / (d + 1) has a pole where a row's denominator nears -1;
         # there the two sides' ~1e-6 difference in S is amplified without
         # bound: the rows with |d + 1| >= 1 are held to the tolerance, the
-        # others must be finite
-        ref, d1 = plain(q, k, v, bkv=TFA.KV_TILE, with_denominator=True)
+        # others must be finite. The reference sums in float64 (near the
+        # pole fp32 sums are off by up to ~1% on either side)
+        ref, d1 = plain(q, k, v, bkv=TFA.KV_TILE, with_denominator=True,
+                        dtype=torch.float64)
         well = (d1.abs() >= 1).expand_as(ref)
         assert bool(torch.isfinite(out).all()) and well.float().mean() > 0.99
         _close(out[well], ref[well])
     else:
-        # v2 runs K1's kernel and its 128-row kv stages
-        bkv = TFA.K1_KV_TILE if variant == "v2" else TFA.KV_TILE
-        _close(out, plain(q, k, v, bkv=bkv))
+        # all three run K1's kernel and its 128-row kv stages (KV_TILE)
+        _close(out, plain(q, k, v, bkv=TFA.KV_TILE))
 
 
 @pytest.mark.cuda
@@ -811,8 +847,15 @@ def test_ablation_v2_is_k1_code_on_card(cuda_device):
     out = TFA.attention_v2(q, k, v)
     ref = TFA._launch_fwd(TFA.prescale_q(q), k, v, False, sm_scale=1.0)[0]
     assert torch.equal(out, ref)
-    with pytest.raises(ValueError):  # Skv not a multiple of 64
-        TFA.attention_noexp(q[:, :, :100], k[:, :, :100], v[:, :, :100])
+    # floor and noexp take Skv a multiple of K1's kv stage (128) only: the
+    # wrapper refuses 100 and 192, and so does the C entry
+    for n in (100, 192):
+        for fn in (TFA.attention_noexp, TFA.attention_floor):
+            with pytest.raises(ValueError):
+                fn(q[:, :, :n], k[:, :, :n], v[:, :, :n])
+    for mode in (TFA._FLOOR, TFA._NOEXP):
+        with pytest.raises(RuntimeError):
+            TFA._launch_fwd(q, k[:, :, :192], v[:, :, :192], False, mode=mode)
 
 
 @pytest.mark.cuda

@@ -84,9 +84,30 @@ def test_frame_attention_keeps_softmax_weights_unrounded():
 C, INNER = 64, 256
 
 
-def _ffn_weights():
-    return dict(w1=_rand((C, 2 * INNER), 11, 0.05), b1=_rand((2 * INNER,), 12, 0.05),
-                w2=_rand((INNER, C), 13, 0.05), b2=_rand((C,), 14, 0.05))
+def _ffn_weights(c=C, inner=INNER, c_out=C):
+    return dict(w1=_rand((c, 2 * inner), 11, 0.05), b1=_rand((2 * inner,), 12, 0.05),
+                w2=_rand((inner, c_out), 13, 0.05), b2=_rand((c_out,), 14, 0.05))
+
+
+def test_fp32_gate_is_the_reference_erf_gate_bit_for_bit():
+    """K5's and K6's fp32 gate is the reference kernels' (`_kernel`,
+    `_lnff_kernel`): a * (b * 0.5 * (1 + _erf(b / sqrt 2))) with the
+    Abramowitz-Stegun `_erf` in fp32, not the exact erf (which puts 0.3% of
+    the rounded gates one bf16 step or more apart). Held bit for bit after
+    the bf16 rounding on 2^21 seeded bf16 pairs of std 2, the reference
+    evaluated one jnp op at a time (as `_lnff_op_by_op` runs the kernel
+    body: compiled, XLA rewrites the chain and moves a few gates an ulp)."""
+    import jax
+
+    rng = np.random.default_rng(50)
+    a, b = (torch.from_numpy(rng.standard_normal(1 << 21).astype(np.float32) * 2)
+            .bfloat16() for _ in range(2))
+    ja, jb = (jnp.asarray(t.float().numpy()) for t in (a, b))
+    with jax.disable_jit():
+        ref = ja * (jb * 0.5 * (1.0 + JF._erf(jb * jnp.float32(0.7071067811865476))))
+        ref = np.asarray(ref.astype(jnp.bfloat16).astype(jnp.float32))
+    got = TF._gate_f32(a, b).bfloat16().float().numpy()
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -103,8 +124,27 @@ def test_geglu_ffn_plain_matches_pallas_kernel(bf16):
         # (2^-8 relative; 0.0078 at 1.2): the fp32 sums run in another order
         np.testing.assert_allclose(out, ref, atol=8e-3, rtol=8e-3)
     else:
-        # the reference test's own fp32 bound (its erf is a rational
-        # approximation within 1.5e-7)
+        # the reference test's own fp32 bound (the same erf; the fp32 sums
+        # run in another order)
+        np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("c_in,c_out", [(96, 160), (160, 96)])
+def test_geglu_ffn_plain_matches_pallas_kernel_at_other_widths(bf16, c_in, c_out):
+    """K5 at C and C_out off 64 and C_out != C both ways (the kernel's step
+    is 16), inner 128: the bounds of the test above."""
+    x = _rand((256, c_in), 15)
+    p = _ffn_weights(c_in, 128, c_out)
+    ref = np.asarray(JF.geglu_ffn_pallas(
+        _j(x, bf16), _j(p["w1"], bf16), p["b1"], _j(p["w2"], bf16), p["b2"],
+        interpret=True), np.float32)
+    out = TF.geglu_ffn(_t(x, bf16), _t(p["w1"].T, bf16), _t(p["b1"]),
+                       _t(p["w2"].T, bf16), _t(p["b2"])).float().numpy()
+    assert out.shape == (256, c_out)
+    if bf16:
+        np.testing.assert_allclose(out, ref, atol=8e-3, rtol=8e-3)
+    else:
         np.testing.assert_allclose(out, ref, atol=2e-5, rtol=2e-5)
 
 
@@ -217,7 +257,7 @@ def _k6_plain_without(drop):
         xn = r("ln", TF._ln_rows(x2, ln_w, ln_b, eps))
         hb = r("bias1", r("dot1", xn @ w1.float().t()) + rnd(b1))
         a, b = hb[:, :inner], hb[:, inner:]
-        g = r("gate", a * (b * 0.5 * (1.0 + torch.erf(b * 0.7071067811865476))))
+        g = r("gate", TF._gate_f32(a, b))
         h = r("h", r("dot2", g @ w2.float().t()) + rnd(b2))
         return (x2.float() + h).to(x.dtype).reshape(x.shape)
 
@@ -498,8 +538,8 @@ def test_k6_plan_fits_the_card(C_):
     that split's shared memory to an H100 block's): row halves of 128-row
     tiles up to C_out = 320, column halves of 64-row tiles above, so that
     each warpgroup's accumulator stays 64 x 320 (160 registers a thread)."""
-    plan = TF.k6_plan(C_, C_)
-    assert plan.split == (C_ > TF.K6_NW)
+    plan = TF.ffn_plan(C_, C_)
+    assert plan.split == (C_ > TF.FFN_NW)
     assert plan.tile_rows == (64 if plan.split else 128)
     assert (plan.w1_stages, plan.w2_stages) == ((2, 1) if plan.split else (2, 3))
 
@@ -509,7 +549,32 @@ def test_k6_plan_fits_the_card(C_):
 ])
 def test_k6_plan_refuses_what_the_kernel_does_not_take(C_, C_out):
     with pytest.raises(ValueError):
-        TF.k6_plan(C_, C_out)
+        TF.ffn_plan(C_, C_out)
+
+
+@pytest.mark.parametrize("C_,C_out,split", [
+    (96, 160, False), (160, 96, False), (320, 320, False), (48, 48, False),
+    (16, 320, False), (640, 640, True), (96, 336, True), (336, 96, True),
+    (640, 16, True),
+])
+def test_ffn_plan_gives_k5_its_plan(C_, C_out, split):
+    """K5's plan: C_out may differ from C; the split follows the larger of
+    the two (a 128-row tile's accumulator holds 320 output columns, and
+    its x tile 320 input columns beside the weight rings), with the stage
+    counts built for that split."""
+    plan = TF.ffn_plan(C_, C_out, residual=False)
+    assert plan.split == split
+    assert plan.tile_rows == (64 if split else 128)
+    assert (plan.w1_stages, plan.w2_stages) == ((2, 1) if split else (2, 3))
+
+
+@pytest.mark.parametrize("C_,C_out", [
+    (0, 96), (96, 0), (100, 96), (96, 100), (8, 96), (96, 40), (656, 96), (96, 656),
+    (1280, 640),
+])
+def test_ffn_plan_refuses_what_k5_does_not_take(C_, C_out):
+    with pytest.raises(ValueError):
+        TF.ffn_plan(C_, C_out, residual=False)
 
 
 def test_k6_wrapper_refuses_shapes_before_any_launch():
@@ -528,7 +593,27 @@ def test_k6_wrapper_refuses_shapes_before_any_launch():
         with pytest.raises(ValueError):
             TF._check(*a[:1], *a[3:], residual=True, ln=a[1:3])
     a = args(128, 96, 384)
-    assert TF._check(*a[:1], *a[3:], residual=True, ln=a[1:3]) == (128, 96, 384, 96)
+    assert TF._check(*a[:1], *a[3:], residual=True, ln=a[1:3]) == (
+        128, 96, 384, 96, TF.ffn_plan(96, 96))
+
+
+def test_k5_wrapper_refuses_shapes_before_any_launch():
+    """K5's shape rules on meta tensors: C or C_out off the step of 16 or
+    above 640, inner off 32, rows off 128; C_out != C is taken."""
+    def args(M, C_, inner, c_out):
+        return (torch.empty(M, C_, dtype=torch.bfloat16, device="meta"),
+                torch.empty(2 * inner, C_, dtype=torch.bfloat16, device="meta"),
+                torch.empty(2 * inner, device="meta"),
+                torch.empty(c_out, inner, dtype=torch.bfloat16, device="meta"),
+                torch.empty(c_out, device="meta"))
+
+    for case in ((128, 100, 128, 96), (128, 96, 128, 100), (128, 656, 128, 96),
+                 (128, 96, 128, 656), (128, 96, 48, 160), (200, 96, 128, 160)):
+        with pytest.raises(ValueError):
+            TF._check(*args(*case), residual=False)
+    for C_, c_out in ((96, 160), (336, 96)):
+        assert TF._check(*args(256, C_, 128, c_out), residual=False) == (
+            256, C_, 128, c_out, TF.ffn_plan(C_, c_out, residual=False))
 
 
 def test_ln_geglu_ffn_residual_function_gradients_match_reference():

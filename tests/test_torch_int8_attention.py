@@ -11,8 +11,8 @@ only the FunctionDef nodes are kept and run with the scripts' constants
 B*H = 2, S = 256, q blocks of 128, and the kv block width of the port's
 kernels, since the values of K10's P and p8 and of K9 noexp's scale depend
 on the running max at each block: K10's (`TI.KV_TILE`, 128, a stage of its
-TMA ring) for K10, the mma.sync kernel's (`TFA.KV_TILE`, 64) for K9's
-floor and noexp, and 64 for v2 against the reference K1 at the same width.
+TMA ring) for K10, and K1's (`TFA.KV_TILE`, 128, a stage of its ring) for
+K9's floor, noexp and v2, v2 also against the reference K1 at that width.
 v's column 64 (K10's ones column) is 1.
 
 K10 on the card reads v repacked (`repack_v`): int8 v with its kv index
@@ -51,7 +51,7 @@ torch.set_num_threads(1)
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 BH, S, D, BQ = 2, 256, 64, 128
 BKV = TI.KV_TILE  # K10's kv block width
-K9_BKV = TFA.KV_TILE  # K9 floor and noexp's (the mma.sync kernel's)
+K9_BKV = TFA.KV_TILE  # K9's floor, noexp and v2's (a stage of K1's kernel)
 
 
 def _bodies(script: str) -> dict:
@@ -168,6 +168,20 @@ def test_ablation_v2_plain_matches_reference_body_and_k1_bits():
     np.testing.assert_allclose(out, ref, atol=1e-2, rtol=0)
     np.testing.assert_allclose(
         out, TFA.flash_attention_plain(tq, tk, tv)[0].float().numpy(), atol=1e-2)
+
+
+def test_noexp_plain_in_float64_is_the_same_arithmetic():
+    """The float64 option of noexp's plain version (the card's reference)
+    computes the same function: within 1e-2 of max|ref| of the fp32 one,
+    and its denominators within 1e-3 relative, on the K9 inputs."""
+    _, (tq, tk, tv) = _k9_inputs()
+    o32, d32 = TFA.attention_noexp_plain(tq, tk, tv, with_denominator=True)
+    o64, d64 = TFA.attention_noexp_plain(tq, tk, tv, with_denominator=True,
+                                         dtype=torch.float64)
+    assert o64.dtype == torch.bfloat16 and d64.dtype == torch.float64
+    o32, o64 = o32.float(), o64.float()
+    assert (o64 - o32).abs().max() <= 1e-2 * o32.abs().max()
+    assert ((d64 - d32.double()).abs() <= 1e-3 * d64.abs()).all()
 
 
 def test_ablation_plain_versions_depend_on_the_block_width():

@@ -13,8 +13,8 @@
 // exp2 and a sum on the FP32 units, which the two consumer warpgroups
 // overlap with each other's products.
 //
-// K1's design (`flash_attn_fwd_sm90_kernel`, a redesign of the first,
-// mma.sync, version of this kernel):
+// K1's design (`flash_attn_fwd_sm90_kernel`, a redesign of the port's
+// first version of this kernel), which K2 and K9 run too:
 //   * One CTA per (batch*head, 128 q rows): 3 warpgroups, 384 threads.
 //     Warpgroup 0 is the producer: it gives up registers (setmaxnreg 24)
 //     and one thread issues every TMA copy. Warpgroups 1 and 2 are the
@@ -68,16 +68,23 @@
 //     exp passes), K1's asynchronous wgmma and its two consumer warpgroups
 //     already give here.
 //   * K9's floor and noexp (`_kern_floor`, `_kern_noexp`,
-//     tune_attention2.py:78, :95) stay on the first mma.sync kernel below
-//     (`flash_attn_fwd_d64_mma_kernel`, not redesigned): ablations with no
-//     model caller. floor is the two products alone: O = sum over tiles of
-//     bf16(q k^T) v, logits unscaled. noexp is the loop with exp replaced by
-//     the identity on unscaled logits (m_new = max(m, rowmax S), P = S -
-//     m_new, the running output and denominator scaled by m - m_new, the
-//     max starting at -1e30, O = acc / (denominator + 1)); its result
-//     depends on the 64-wide kv tile, which its plain version takes as
-//     `bkv`. That kernel loads k/v synchronously through registers and
-//     gathers v's fragments with scalar shared loads.
+//     tune_attention2.py:78, :95; ablations with no model caller) are the
+//     template modes kFloor and kNoExp of the same kernel: the producer,
+//     the TMA ring and both products are K1's, only the step between the
+//     products differs. floor has none: P = bf16(q k^T) on the unscaled
+//     logits, O = the sum over stages of P v, rounded once. noexp is the
+//     loop with exp2 replaced by the identity on the unscaled logits:
+//     m_new = max(m, rowmax S) from the reference's -1e30, P = S - m_new,
+//     the output and the denominator (the fp32 sum of the unrounded P)
+//     scaled by m - m_new, O = acc / (denominator + 1). Its values depend
+//     on the running max at each kv block, so its plain version takes K1's
+//     stage of 128 as `bkv` (the reference's probe runs at 512). Both take
+//     Skv a multiple of 128: there is no ragged stage to mask.
+//     What bounds them is K1's bound, the two products on the tensor cores
+//     (3.08 ms at B*H 140, S 9216); floor converts each logit to bf16 and
+//     noexp adds K1's max, sums and rescale without its exp2, so both sit
+//     between that bound and K1's time, each warpgroup's chain (S, the step,
+//     P v) overlapped by the other warpgroup's products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,7 +109,11 @@ constexpr int kBars = kTile * (1 + 2 * kStages);
 constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;  // + alignment
 }  // namespace k1
 
-template <bool kLse>
+// the step between the two products: K1's online softmax, or K9's floor
+// (none) or noexp (the identity for exp)
+enum Mode { kSoftmax = 0, kFloor = 1, kNoExp = 2 };
+
+template <int kMode, bool kLse>
 __global__ void __launch_bounds__(k1::kThreads, 1)
 flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
@@ -166,8 +177,11 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-    float m_run[2] = {-INFINITY, -INFINITY};  // rows g, g + 8 (log2 domain)
-    float l_run[2] = {0.f, 0.f};              // this thread's partial sums
+    // rows g, g + 8 (softmax: in the log2 domain); noexp starts at the
+    // reference's -1e30
+    constexpr float kInit = kMode == kNoExp ? -1e30f : -INFINITY;
+    float m_run[2] = {kInit, kInit};
+    float l_run[2] = {0.f, 0.f};  // this thread's partial sums
 
     sm90::mbar_wait(q_full, 0);
     for (int it = 0; it < n_kv; ++it) {
@@ -189,51 +203,58 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
 
-      // scale into the log2 domain, mask kv columns past Skv, row max
-      const int kv0 = it * kBlockN;
-      float mx[2] = {m_run[0], m_run[1]};
-      if (kv0 + kBlockN > Skv) {
+      if constexpr (kMode != kFloor) {  // kFloor: P is S itself, unscaled
+        // softmax: scale into the log2 domain and mask kv columns past Skv;
+        // noexp: unscaled logits (Skv % kBlockN == 0: no column to mask)
+        if constexpr (kMode == kSoftmax) {
+          const int kv0 = it * kBlockN;
+          if (kv0 + kBlockN > Skv) {
 #pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          const int col = kv0 + 8 * (i >> 2) + 2 * t + (i & 1);
-          sc[i] = col < Skv ? sc[i] * scale_log2 : -INFINITY;
+            for (int i = 0; i < 64; ++i) {
+              const int col = kv0 + 8 * (i >> 2) + 2 * t + (i & 1);
+              sc[i] = col < Skv ? sc[i] * scale_log2 : -INFINITY;
+            }
+          } else {
+#pragma unroll
+            for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
+          }
         }
-      } else {
+        // exp2, or noexp's identity in its place
+        auto ex = [](float z) { return kMode == kSoftmax ? exp2f(z) : z; };
+        float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
-        for (int i = 0; i < 64; ++i) sc[i] *= scale_log2;
-      }
+        for (int j = 0; j < 16; ++j) {
+          mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+        float alpha[2];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
-      }
-      float alpha[2];
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          // every tile holds at least one unmasked column: mx is finite
+          alpha[r] = ex(m_run[r] - mx[r]);
+          m_run[r] = mx[r];
+        }
+        float rs[2] = {0.f, 0.f};
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        // every tile holds at least one unmasked column: mx is finite
-        alpha[r] = exp2f(m_run[r] - mx[r]);
-        m_run[r] = mx[r];
-      }
-      float rs[2] = {0.f, 0.f};
+        for (int j = 0; j < 16; ++j) {
+          sc[4 * j] = ex(sc[4 * j] - mx[0]);
+          sc[4 * j + 1] = ex(sc[4 * j + 1] - mx[0]);
+          sc[4 * j + 2] = ex(sc[4 * j + 2] - mx[1]);
+          sc[4 * j + 3] = ex(sc[4 * j + 3] - mx[1]);
+          rs[0] += sc[4 * j] + sc[4 * j + 1];
+          rs[1] += sc[4 * j + 2] + sc[4 * j + 3];
+        }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        sc[4 * j] = exp2f(sc[4 * j] - mx[0]);
-        sc[4 * j + 1] = exp2f(sc[4 * j + 1] - mx[0]);
-        sc[4 * j + 2] = exp2f(sc[4 * j + 2] - mx[1]);
-        sc[4 * j + 3] = exp2f(sc[4 * j + 3] - mx[1]);
-        rs[0] += sc[4 * j] + sc[4 * j + 1];
-        rs[1] += sc[4 * j + 2] + sc[4 * j + 3];
-      }
+        for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + rs[r];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[4 * j] *= alpha[0];
-        acc[4 * j + 1] *= alpha[0];
-        acc[4 * j + 2] *= alpha[1];
-        acc[4 * j + 3] *= alpha[1];
+        for (int j = 0; j < 8; ++j) {
+          acc[4 * j] *= alpha[0];
+          acc[4 * j + 1] *= alpha[0];
+          acc[4 * j + 2] *= alpha[1];
+          acc[4 * j + 3] *= alpha[1];
+        }
       }
       uint32_t pa[8][4];
       sm90::acc_to_a<8>(sc, pa);
@@ -254,14 +275,16 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       if (lane == 0) sm90::mbar_arrive(&empty[s]);
     }
 
-    // finish the row sums across the quad, normalise, store bf16
+    // finish the row sums across the quad, normalise (softmax: acc / l;
+    // noexp: acc / (l + 1); floor: acc), store bf16
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
       l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     }
-    const float inv0 = 1.f / l_run[0];
-    const float inv1 = 1.f / l_run[1];
+    constexpr float kOne = kMode == kNoExp ? 1.f : 0.f;
+    const float inv0 = kMode == kFloor ? 1.f : 1.f / (l_run[0] + kOne);
+    const float inv1 = kMode == kFloor ? 1.f : 1.f / (l_run[1] + kOne);
     const int row0 = q0 + 64 * c + 16 * warp + g;
     const int row1 = row0 + 8;
     __nv_bfloat16* op = o + b * o_sb + h * o_sh;
@@ -291,200 +314,6 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// ------------------------------------------- K9's floor and noexp: mma.sync
-namespace mma {
-
-constexpr int kD = 64;               // head dim (template constant of the port)
-constexpr int kWarps = 4;
-constexpr int kBlockM = 16 * kWarps; // q rows per block
-constexpr int kBlockN = 64;          // k/v rows per tile
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLd = kD + 8;          // padded shared-memory row (elements)
-
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 from shared memory -> one register (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(const __nv_bfloat16& lo,
-                                              const __nv_bfloat16& hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-enum Mode { kSoftmax = 0, kFloor = 1, kNoExp = 2 };
-
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          __nv_bfloat16* __restrict__ o, int H, int Sq,
-                          int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss,
-                          int64_t k_sb, int64_t k_sh, int64_t k_ss,
-                          int64_t v_sb, int64_t v_sh, int64_t v_ss,
-                          int64_t o_sb, int64_t o_sh, int64_t o_ss) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBlockN * kLd];
-  __shared__ __align__(16) __nv_bfloat16 vs[kBlockN * kLd];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * kBlockM + warp * 16;
-
-  const __nv_bfloat16* qp = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kp = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vp = v + b * v_sb + h * v_sh;
-  __nv_bfloat16* op = o + b * o_sb + h * o_sh;
-
-  // q as mma A fragments, loaded once: [k-chunk of 16][4 regs]
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < kD / 16; ++kc) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int row = q0 + g + rr * 8;
-        uint32_t val = 0u;
-        if (row < Sq) {
-          val = *reinterpret_cast<const uint32_t*>(
-              qp + row * q_ss + kc * 16 + half * 8 + 2 * t);
-        }
-        qf[kc][half * 2 + rr] = val;
-      }
-    }
-  }
-
-  float acc[kD / 8][4];  // O: 8 column tiles of 8 over D
-#pragma unroll
-  for (int nt = 0; nt < kD / 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  }
-  // rows g and g+8; kNoExp starts at the reference's -1e30
-  float m_run[2] = {-1e30f, -1e30f};
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
-
-  for (int kv0 = 0; kv0 < Skv; kv0 += kBlockN) {
-    __syncthreads();  // every warp is done with the previous tile
-    // stage the k and v tiles: 64 rows x 8 chunks of 16 bytes each
-#pragma unroll
-    for (int i = 0; i < (kBlockN * kD / 8) / kThreads; ++i) {
-      const int c = tid + i * kThreads;
-      const int row = c >> 3;
-      const int col = (c & 7) * 8;
-      *reinterpret_cast<uint4*>(ks + row * kLd + col) =
-          *reinterpret_cast<const uint4*>(kp + (kv0 + row) * k_ss + col);
-      *reinterpret_cast<uint4*>(vs + row * kLd + col) =
-          *reinterpret_cast<const uint4*>(vp + (kv0 + row) * v_ss + col);
-    }
-    __syncthreads();
-
-    // S = q k^T for this warp's 16 rows x 64 columns of the tile
-    float s[kBlockN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBlockN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kc = 0; kc < kD / 16; ++kc) {
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        const __nv_bfloat16* kr = ks + (nt * 8 + g) * kLd + kc * 16 + 2 * t;
-        mma_16816(s[nt], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
-                  *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-    }
-
-    if constexpr (kMode == kNoExp) {
-      // identity for exp on the unscaled logits (Skv % 64 == 0: no mask)
-      float mx[2] = {m_run[0], m_run[1]};
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
-      }
-      float sc[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        sc[r] = m_run[r] - mx[r];
-        m_run[r] = mx[r];
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < kBlockN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] -= mx[e >> 1];
-        rs[0] += s[nt][0] + s[nt][1];
-        rs[1] += s[nt][2] + s[nt][3];
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * sc[r] + rs[r];
-#pragma unroll
-      for (int nt = 0; nt < kD / 8; ++nt) {
-        acc[nt][0] *= sc[0];
-        acc[nt][1] *= sc[0];
-        acc[nt][2] *= sc[1];
-        acc[nt][3] *= sc[1];
-      }
-    }  // kFloor: P is S itself
-
-    // O += P v: the S accumulator of tiles (2kc, 2kc+1) is the A fragment
-    // of k-chunk kc; v's B fragment is gathered from row-major shared memory
-#pragma unroll
-    for (int kc = 0; kc < kBlockN / 16; ++kc) {
-      uint32_t pa[4];
-      pa[0] = sm90::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[1] = sm90::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[2] = sm90::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[3] = sm90::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int nt = 0; nt < kD / 8; ++nt) {
-        const __nv_bfloat16* vc = vs + (kc * 16 + 2 * t) * kLd + nt * 8 + g;
-        mma_16816(acc[nt], pa, pack_bf16(vc[0], vc[kLd]),
-                  pack_bf16(vc[8 * kLd], vc[9 * kLd]));
-      }
-    }
-  }
-
-  // finish the row sums across the quad, normalise, store bf16
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-  }
-  // kNoExp: acc / (l + 1); kFloor: acc
-  const float inv0 = kMode == kFloor ? 1.f : 1.f / (l_run[0] + 1.f);
-  const float inv1 = kMode == kFloor ? 1.f : 1.f / (l_run[1] + 1.f);
-  const int row0 = q0 + g;
-  const int row1 = q0 + g + 8;
-#pragma unroll
-  for (int nt = 0; nt < kD / 8; ++nt) {
-    const int col = nt * 8 + 2 * t;
-    if (row0 < Sq) {
-      *reinterpret_cast<uint32_t*>(op + row0 * o_ss + col) =
-          sm90::pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
-    }
-    if (row1 < Sq) {
-      *reinterpret_cast<uint32_t*>(op + row1 * o_ss + col) =
-          sm90::pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
-    }
-  }
-}
-
-}  // namespace mma
 
 }  // namespace
 
@@ -492,9 +321,9 @@ flash_attn_fwd_d64_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // viewed as [B, H, S, 64] with unit stride on the last dim; strides are in
 // elements (multiples of 8, 16-byte aligned bases: what TMA takes). `lse` is
 // null (serving) or an fp32 [B*H, Sq] buffer (training). `mode` is kSoftmax
-// (K1, K2's v1 and unroll2, K9's v2), which runs K1's wgmma kernel, or K9's
-// kFloor or kNoExp (no LSE, Skv a multiple of 64), which run the mma.sync
-// kernel. Launches on `stream` and returns cudaGetLastError()
+// (K1, K2's v1 and unroll2, K9's v2) or K9's kFloor or kNoExp (no LSE, Skv
+// a multiple of kBlockN: no ragged tile to mask); every mode runs the one
+// kernel above. Launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for what it refuses, a tensor map the driver
 // refuses included).
 extern "C" int wiw_flash_attn_fwd_d64(
@@ -504,40 +333,26 @@ extern "C" int wiw_flash_attn_fwd_d64(
     int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
     int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int mode,
     void* stream) {
-  using mma::kFloor;
-  using mma::kNoExp;
-  using mma::kSoftmax;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kSoftmax) {
-    CUtensorMap qm, km, vm;
-    if (!sm90_head_map(&qm, q, B, H, Sq, q_sb, q_sh, q_ss, k1::kBlockM) ||
-        !sm90_head_map(&km, k, B, H, Skv, k_sb, k_sh, k_ss, k1::kBlockN) ||
-        !sm90_head_map(&vm, v, B, H, Skv, v_sb, v_sh, v_ss, k1::kBlockN)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    auto kernel = lse != nullptr ? flash_attn_fwd_sm90_kernel<true>
-                                 : flash_attn_fwd_sm90_kernel<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k1::kSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((Sq + k1::kBlockM - 1) / k1::kBlockM, B * H);
-    kernel<<<grid, k1::kThreads, k1::kSmem, st>>>(
-        qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-        H, Sq, Skv, o_sb, o_sh, o_ss, sm_scale * 1.4426950408889634f);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (lse != nullptr || (mode != kFloor && mode != kNoExp) ||
-      Skv % mma::kBlockN) {
+  if (mode != kSoftmax &&
+      ((mode != kFloor && mode != kNoExp) || lse != nullptr || Skv % k1::kBlockN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((Sq + mma::kBlockM - 1) / mma::kBlockM, B * H);
-  auto kernel = mode == kFloor ? mma::flash_attn_fwd_d64_mma_kernel<kFloor>
-                               : mma::flash_attn_fwd_d64_mma_kernel<kNoExp>;
-  kernel<<<grid, mma::kThreads, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
-      Sq, Skv, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
-      o_sh, o_ss);
+  CUtensorMap qm, km, vm;
+  if (!sm90_head_map(&qm, q, B, H, Sq, q_sb, q_sh, q_ss, k1::kBlockM) ||
+      !sm90_head_map(&km, k, B, H, Skv, k_sb, k_sh, k_ss, k1::kBlockN) ||
+      !sm90_head_map(&vm, v, B, H, Skv, v_sb, v_sh, v_ss, k1::kBlockN)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = mode == kFloor   ? flash_attn_fwd_sm90_kernel<kFloor, false>
+                : mode == kNoExp ? flash_attn_fwd_sm90_kernel<kNoExp, false>
+                : lse != nullptr ? flash_attn_fwd_sm90_kernel<kSoftmax, true>
+                                 : flash_attn_fwd_sm90_kernel<kSoftmax, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k1::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + k1::kBlockM - 1) / k1::kBlockM, B * H);
+  kernel<<<grid, k1::kThreads, k1::kSmem, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
+      H, Sq, Skv, o_sb, o_sh, o_ss, sm_scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,14 +21,16 @@ sums, and on the card unroll2's output is v1's, bit for bit.
 No model caller uses K2, as none uses v1 in the reference.
 
 K9, the reference's attention ablations (`_kern_floor`, `_kern_noexp`,
-`_kern_v2` in scripts/tune_attention2.py), are template modes of the same
-source: `attention_floor` (no softmax: sum of bf16(q k^T) v), `attention_noexp`
+`_kern_v2` in scripts/tune_attention2.py), all run K1's kernel:
+`attention_floor` (no softmax: sum of bf16(q k^T) v) and `attention_noexp`
 (K1's loop with exp replaced by the identity, out = acc / (denominator + 1))
-and `attention_v2` (K1's function with q pre-scaled by the caller, which
-is K1's kernel with a unit scale). Their plain versions take the kv block
-width `bkv`, because noexp's (and v2's bf16 P's) values depend on the
-running max at each block: floor and noexp run the mma.sync kernel
-(KV_TILE), v2 K1's (K1_KV_TILE). No model caller, as in the reference.
+as its template modes, which change only the step between its two
+products, and `attention_v2` (K1's function with q pre-scaled by the
+caller) as K1 itself with a unit scale. Their plain versions take the kv
+block width `bkv`, because noexp's (and v2's bf16 P's) values depend on the
+running max at each block; the kernel's is KV_TILE, a stage of K1's ring
+(the reference's probe runs at 512). floor and noexp take Skv a multiple of
+KV_TILE. No model caller, as in the reference.
 
 `flash_attention(q, k, v)` takes [B, H, S, D] tensors (any strides with a
 unit stride on D, e.g. head views of [B, S, H*D] projections). On CPU
@@ -51,9 +53,8 @@ import torch
 from wiw_tpu_torch.ops import native
 
 HEAD_DIM = 64  # the kernels' template constant
-KV_TILE = 64  # k/v rows a tile of the mma.sync kernel (K9's floor and noexp)
-K1_KV_TILE = 128  # k/v rows a stage of K1's wgmma kernel (K1, K2, K9's v2):
-# two of the reference's unroll2 blocks of 64
+KV_TILE = 128  # k/v rows a stage of K1's kernel (K1, K2, K9): two of the
+# reference's unroll2 blocks of 64
 Q_TILE = 64  # q rows a stage of K3
 KERNELS = ("v2", "v1")
 _LIB = "flash_attn_fwd"
@@ -286,7 +287,7 @@ def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention(kernel='v1') has no gradient; use kernel='v2'")
-    pair = unroll2 and k.shape[2] % K1_KV_TILE == 0
+    pair = unroll2 and k.shape[2] % KV_TILE == 0
     out = _launch_fwd(q, k, v, with_lse=False)[0]
     if pair:
         flash_attention_v1.launches_unroll2 += 1
@@ -354,24 +355,30 @@ def attention_floor_plain(q, k, v, bkv: int = KV_TILE):
 
 
 def attention_noexp_plain(q, k, v, bkv: int = KV_TILE,
-                          with_denominator: bool = False):
+                          with_denominator: bool = False,
+                          dtype: torch.dtype = torch.float32):
     """`_kern_noexp`'s arithmetic: the running max m from -1e30, P = S - m
     (the identity for exp) on unscaled fp32 logits, acc and the
     denominator scaled by (m_old - m_new); out = acc / (denominator + 1).
-    `with_denominator`: (out, denominator + 1), the latter fp32 [..., Sq, 1]
-    (out has a pole where it nears 0)."""
-    qf = q.float()
+    `with_denominator`: (out, denominator + 1), the latter [..., Sq, 1]
+    (out has a pole where it nears 0). `dtype`: the logits' and sums' type,
+    the reference's fp32; float64 gives the same arithmetic (P still
+    rounded to v's dtype for the product) with near-exact sums, which the
+    card's check holds the kernel to: rows with |denominator + 1| of a few
+    units, where thousands cancel, are off by up to ~1% in fp32 on either
+    side."""
+    qf = q.to(dtype)
     shape = q.shape[:-1]
-    acc = torch.zeros(*shape, v.shape[-1], dtype=torch.float32, device=q.device)
-    m = torch.full((*shape, 1), NEG_INIT, dtype=torch.float32, device=q.device)
+    acc = torch.zeros(*shape, v.shape[-1], dtype=dtype, device=q.device)
+    m = torch.full((*shape, 1), NEG_INIT, dtype=dtype, device=q.device)
     denom = torch.zeros_like(m)
     for kb, vb in _blocks(k, v, bkv):
-        s = torch.einsum("...qd,...kd->...qk", qf, kb)
+        s = torch.einsum("...qd,...kd->...qk", qf, kb.to(dtype))
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = s - m_new
         scale = m - m_new
         acc = acc * scale + torch.einsum("...qk,...kd->...qd",
-                                         p.to(v.dtype).float(), vb.float())
+                                         p.to(v.dtype).to(dtype), vb.to(dtype))
         denom = denom * scale + p.sum(dim=-1, keepdim=True)
         m = m_new
     out = (acc / (denom + 1.0)).to(q.dtype)
@@ -415,9 +422,10 @@ def _ablation(q, k, v, mode):
 
 
 def attention_floor(q, k, v):
-    """K9 floor over [B, H, S, D] (what K1 takes, Skv a multiple of 64, no
-    gradient). CPU tensors take `attention_floor_plain`; CUDA tensors
-    launch the kernel (`attention_floor.launches`) or raise."""
+    """K9 floor over [B, H, S, D] (what K1 takes, Skv a multiple of
+    KV_TILE, no gradient). CPU tensors take `attention_floor_plain`; CUDA
+    tensors launch K1's kernel in its floor mode (`attention_floor.launches`)
+    or raise."""
     if native.on_cpu(q, k, v):
         return attention_floor_plain(q, k, v)
     out = _ablation(q, k, v, _FLOOR)

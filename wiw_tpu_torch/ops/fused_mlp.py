@@ -7,12 +7,17 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
 - K5 `geglu_ffn` (plain `geglu_ffn_plain`) replaces the TPU kernel `_kernel`
   (`geglu_ffn_pallas`): x @ W1 + b1 in fp32, rounded to the model dtype;
   hidden * gelu(gate) in fp32, rounded; @ W2 accumulated in fp32, + b2 in
-  fp32, rounded once. No model caller, as in the reference.
+  fp32, rounded once. C_out may differ from C. No model caller, as in the
+  reference.
 - K6 `ln_geglu_ffn_residual` (plain `ln_geglu_ffn_residual_plain`) replaces
   `_lnff_kernel` (`ln_geglu_ffn_residual_pallas`): x + W2 GEGLU(LN(x)),
   with the unfused pair of Linear layers' roundings: fp32 two-pass LN
   rounded; each dot rounded, then a model-dtype bias add; the gate in fp32,
   rounded; h = rounded acc + b2 in the model dtype; x + h.
+- Both kernels' fp32 gate (`_gate_f32`) is the reference kernels': their
+  Abramowitz-Stegun `_erf` in fp32, in its order of operations, not the
+  exact erf. The exact GELU stays where the reference has it: in the
+  unfused formulation and K6's backward.
 - K6-bf16, the same entry with `gate="bf16"` (the reference's
   WIW_FUSED_FF_GATE=bf16, read there inside `_lnff_kernel`): the gate in
   the model dtype's arithmetic (bf16 wherever the kernel runs), the
@@ -31,10 +36,10 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
   reference sends C > 640 to XLA, to the same function. Under the
   reference's rule (inner = 4 C a multiple of 128) every C it takes is a
   multiple of 32, so a FeedForward of the usual width never takes that
-  route. K5 keeps its first kernel, which takes C and C_out in multiples
-  of `K5_STEP` (64).
-- `k6_plan(C, C_out)` is the one place that picks K6's tile, split and
-  stage counts; the C entry refuses any other plan.
+  route. K5 takes C and C_out in multiples of `C_STEP` too, and inner in
+  multiples of `INNER_STEP`, as K6.
+- `ffn_plan(C, C_out, residual)` is the one place that picks K5's and K6's
+  tile, split and stage counts; each C entry refuses any other plan.
 - K6's gradient, as the reference's custom VJP does it: the autograd
   Function `LnGegluFfnResidual` runs K6 forward and saves only its inputs;
   its backward recomputes through the unfused differentiable formulation
@@ -44,11 +49,12 @@ GEGLU `proj`), w2 [C_out, inner]; the reference's are the transposes.
   exact GELU whatever the forward's gate, as the reference's VJP does: with
   the bf16 gate the gradient is the fp32 gate's.
 
-Both kernels are one CUDA source, `wiw_tpu_torch/csrc/geglu_ffn.cu`, whose
-header says what bounds them on the H100 and how K6 is laid out (wgmma,
-TMA through an mbarrier ring, clusters that multicast the weights; K5 on
-the first version's mma.sync template). The wrappers take CPU tensors to
-the plain versions; on CUDA tensors they launch or raise.
+Both kernels are one CUDA kernel, `geglu_ffn_sm90_kernel` in
+`wiw_tpu_torch/csrc/geglu_ffn.cu` (K5 its variant without the LayerNorm
+prologue and the residual), whose header says what bounds it on the H100
+and how it is laid out (wgmma, TMA through mbarrier rings, clusters that
+multicast the weights). The wrappers take CPU tensors to the plain
+versions; on CUDA tensors they launch or raise.
 """
 
 from __future__ import annotations
@@ -61,9 +67,8 @@ import torch
 from wiw_tpu_torch.ops import native
 
 MAX_C = 640       # K5 and K6 keep the output row's fp32 sums in registers
-C_STEP = 16       # K6 takes C in multiples of this
-K5_STEP = 64      # K5 takes C and C_out in multiples of this
-INNER_STEP = 32   # K6 walks the inner dimension 32 columns at a time (K5: 64)
+C_STEP = 16       # K5 and K6 take C and C_out in multiples of this
+INNER_STEP = 32   # they walk the inner dimension 32 columns at a time
 ROW_BLOCK = 128   # rows must come in multiples of this (the reference's rule)
 _LIB = "geglu_ffn"
 _SQRT1_2 = 0.7071067811865476
@@ -98,35 +103,48 @@ def _gate_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a * (b * half * (one + _erf_as(b * r2)))
 
 
-# K6's build (csrc/geglu_ffn.cu `Layout`, whose static_assert holds its
-# shared memory to an H100 block's): each warpgroup's output accumulator is
-# 64 rows x K6_NW columns; the W1 and W2 rings' stage counts by split
-K6_NW = 320
-K6_CLUSTER = 2   # CTAs that multicast each weight box (4 ran slower, PERF.md)
-_K6_STAGES = {False: (2, 3), True: (2, 1)}  # split -> (W1, W2) stages
+def _gate_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K5's and K6's fp32 gate a * (b * 0.5 * (1 + erf(b / sqrt 2))), fp32,
+    with the reference kernels' `_erf` evaluated in fp32 (`_kernel`,
+    `_lnff_kernel`'s fp32 gate), as the kernel computes it."""
+    a, b = a.float(), b.float()
+    return a * (b * 0.5 * (1.0 + _erf_as(b * _SQRT1_2)))
 
 
-class K6Plan(NamedTuple):
-    split: bool      # two column halves of 64-row tiles (C > 320), else two
-                     # 64-row halves of 128-row tiles
+# the build of K5 and K6 (csrc/geglu_ffn.cu `Layout`, whose static_assert
+# holds its shared memory to an H100 block's): each warpgroup's output
+# accumulator is 64 rows x FFN_NW columns; the W1 and W2 rings' stage
+# counts by split
+FFN_NW = 320
+FFN_CLUSTER = 2  # CTAs that multicast each weight box (4 ran slower, PERF.md)
+_FFN_STAGES = {False: (2, 3), True: (2, 1)}  # split -> (W1, W2) stages
+
+
+class FfnPlan(NamedTuple):
+    split: bool      # two column halves of 64-row tiles, else two 64-row
+                     # halves of 128-row tiles
     tile_rows: int
     w1_stages: int
     w2_stages: int
 
 
-def k6_plan(C: int, C_out: int) -> K6Plan:
-    """K6's plan for C input and C_out output columns (C_out == C for K6):
-    at C_out <= 320 the two warpgroups split 128-row tiles by rows, above
-    it 64-row tiles by columns, so that each keeps a 64 x 320 fp32
-    accumulator (160 registers a thread) at both of the UNet's widths.
-    Raises for what the kernel does not take: C not a positive multiple of
-    C_STEP up to MAX_C, C_out != C."""
-    if C % C_STEP or not 0 < C <= MAX_C:
-        raise ValueError(f"K6 takes C a multiple of {C_STEP} up to {MAX_C}, got {C}")
-    if C_out != C:
+def ffn_plan(C: int, C_out: int, residual: bool = True) -> FfnPlan:
+    """The plan of K6 (`residual`) or K5 for C input and C_out output
+    columns: up to 320 of each, the two warpgroups split 128-row tiles by
+    rows; above, 64-row tiles by columns, so that each keeps a 64 x 320
+    fp32 accumulator (160 registers a thread) at both of the UNet's widths
+    and a tile's x fits beside the weight rings (128 rows hold 320 columns
+    of it). Raises for what the kernels do not take: C or C_out not a
+    positive multiple of C_STEP up to MAX_C; for K6, C_out != C."""
+    name = "K6" if residual else "K5"
+    for what, n in (("C", C), ("C_out", C_out)):
+        if n % C_STEP or not 0 < n <= MAX_C:
+            raise ValueError(f"{name} takes {what} a multiple of {C_STEP} up to "
+                             f"{MAX_C}, got {n}")
+    if residual and C_out != C:
         raise ValueError(f"K6 takes C_out == C (the residual), got {C_out} and {C}")
-    split = C_out > K6_NW
-    return K6Plan(split, 64 if split else 128, *_K6_STAGES[split])
+    split = max(C, C_out) > FFN_NW
+    return FfnPlan(split, 64 if split else 128, *_FFN_STAGES[split])
 
 
 def _check_gate(gate: str) -> None:
@@ -161,8 +179,7 @@ def geglu_ffn_plain(x, w1, b1, w2, b2):
     inner, c_out = w2.shape[1], w2.shape[0]
     xf = x.reshape(-1, x.shape[-1]).float()
     h = (xf @ w1.float().t() + b1.float()).to(dt).float()
-    a, b = h[:, :inner], h[:, inner:]
-    g = a * (b * 0.5 * (1.0 + torch.erf(b * _SQRT1_2)))
+    g = _gate_f32(h[:, :inner], h[:, inner:])
     out = g.to(dt).float() @ w2.float().t() + b2.float()
     return out.to(dt).reshape(*x.shape[:-1], c_out)
 
@@ -180,8 +197,7 @@ def ln_geglu_ffn_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2,
     if gate == "bf16":
         g = _gate_bf16(h[:, :inner], h[:, inner:]).to(dt)
     else:
-        a, b = h[:, :inner].float(), h[:, inner:].float()
-        g = (a * (b * 0.5 * (1.0 + torch.erf(b * _SQRT1_2)))).to(dt)
+        g = _gate_f32(h[:, :inner], h[:, inner:]).to(dt)
     out = (g.float() @ w2.float().t()).to(dt) + b2.to(dt)
     return (x2 + out).reshape(x.shape)
 
@@ -200,7 +216,8 @@ def ln_geglu_ffn_residual_unfused(x, ln_w, ln_b, w1, b1, w2, b2,
     return x + (g.to(dt) @ w2.to(dt).t() + b2).to(dt)
 
 
-def _check(x, w1, b1, w2, b2, residual: bool, ln=()) -> tuple[int, int, int, int]:
+def _check(x, w1, b1, w2, b2, residual: bool, ln=()) -> tuple[int, int, int, int,
+                                                             FfnPlan]:
     name = "ln_geglu_ffn_residual" if residual else "geglu_ffn"
     for t in (w1, b1, w2, b2, *ln):
         if t.device != x.device:
@@ -220,18 +237,14 @@ def _check(x, w1, b1, w2, b2, residual: bool, ln=()) -> tuple[int, int, int, int
                          f"w2 {tuple(w2.shape)} b2 {tuple(b2.shape)} do not fit C={C}")
     if residual and (c_out != C or any(t.shape != (C,) for t in ln)):
         raise ValueError(f"{name}: the residual needs C_out == C and [C] norm params")
-    step, inner_step = (C_STEP, INNER_STEP) if residual else (K5_STEP, 64)
-    for what, n in (("C", C), ("C_out", c_out)):
-        if n % step or not 0 < n <= MAX_C:
-            raise ValueError(f"{name} kernel takes {what} a multiple of {step} up to "
-                             f"{MAX_C}, got {n}")
-    if inner % inner_step or inner == 0:
-        raise ValueError(f"{name} kernel takes inner a multiple of {inner_step}, "
+    plan = ffn_plan(C, c_out, residual)  # raises for C or C_out off the step
+    if inner % INNER_STEP or inner == 0:
+        raise ValueError(f"{name} kernel takes inner a multiple of {INNER_STEP}, "
                          f"got {inner}")
     if M == 0 or M % ROW_BLOCK:
         raise ValueError(f"{name} kernel takes a positive multiple of {ROW_BLOCK} "
                          f"rows, got {M}")
-    return M, C, inner, c_out
+    return M, C, inner, c_out, plan
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -248,7 +261,7 @@ def _bind(lib: ctypes.CDLL, residual: bool):
             fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                            + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         else:
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -264,18 +277,20 @@ def _launch(residual: bool, x, args: tuple) -> None:
 def geglu_ffn(x, w1, b1, w2, b2):
     """GEGLU feed-forward x [..., C] -> [..., C_out]. CPU tensors take
     `geglu_ffn_plain`; CUDA tensors launch K5 (bf16; C and C_out multiples
-    of K5_STEP up to 640, inner a multiple of 64, rows a multiple of 128;
-    anything else raises) and count one launch in `geglu_ffn.launches`."""
+    of C_STEP up to 640, inner a multiple of INNER_STEP, rows a multiple of
+    128; anything else raises; tiled by `ffn_plan`) and count one launch in
+    `geglu_ffn.launches`."""
     if native.on_cpu(x, w1, b1, w2, b2):
         return geglu_ffn_plain(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"geglu_ffn: unsupported device {x.device}")
-    M, C, inner, c_out = _check(x, w1, b1, w2, b2, residual=False)
+    M, C, inner, c_out, plan = _check(x, w1, b1, w2, b2, residual=False)
     # biases go in fp32: K5 adds them in fp32, as the reference does
     b1f, b2f = _f32(b1), _f32(b2)
     out = torch.empty(*x.shape[:-1], c_out, dtype=x.dtype, device=x.device)
     _launch(False, x, (x.data_ptr(), w1.data_ptr(), b1f.data_ptr(), w2.data_ptr(),
-                       b2f.data_ptr(), out.data_ptr(), M, C, inner, c_out))
+                       b2f.data_ptr(), out.data_ptr(), M, C, inner, c_out,
+                       int(plan.split), plan.w1_stages, plan.w2_stages))
     geglu_ffn.launches += 1
     return out
 
@@ -290,8 +305,7 @@ def _ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps, gate):
                                            gate)
     if x.device.type != "cuda":
         raise ValueError(f"ln_geglu_ffn_residual: unsupported device {x.device}")
-    M, C, inner, _ = _check(x, w1, b1, w2, b2, residual=True, ln=(ln_w, ln_b))
-    plan = k6_plan(C, C)
+    M, C, inner, _, plan = _check(x, w1, b1, w2, b2, residual=True, ln=(ln_w, ln_b))
     # norm params and biases go in fp32; K6 rounds the biases to bf16 itself
     lw, lb, b1f, b2f = (_f32(t) for t in (ln_w, ln_b, b1, b2))
     out = torch.empty_like(x)
@@ -328,7 +342,7 @@ def ln_geglu_ffn_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
     with `gate="bf16"`, in bf16 arithmetic (K6-bf16). CPU tensors take
     `ln_geglu_ffn_residual_plain`; CUDA tensors launch the kernel (bf16; C a
     multiple of C_STEP up to 640, inner a multiple of 32, rows a multiple
-    of 128; anything else raises; tiled by `k6_plan`) and count one launch in
+    of 128; anything else raises; tiled by `ffn_plan`) and count one launch in
     `ln_geglu_ffn_residual.launches` (K6) or `.launches_bf16_gate`
     (K6-bf16). With gradients wanted it goes through `LnGegluFfnResidual`
     (backward by recomputation with the exact gate, as the reference's)."""
