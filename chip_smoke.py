@@ -31,10 +31,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
      weights)
   5. slices: the full-width SVDActionWorker (1.5 B-parameter UNet with
      micro_cond, bf16, random weights from a seed) answers 576x1024,
-     14-frame, 25-step requests with output 480x480: one request in the
-     default configuration, one in the fused-kernel one (fused_ff,
-     temporal_attention='pallas'), one in the fused one with
-     WIW_FUSED_FF_GATE=bf16 (K6-bf16); per request: seconds, denoise
+     14-frame requests with output 480x480: one 25-step request in the
+     default configuration, one 10-step request (a cut depth) in the
+     fused-kernel one (fused_ff, temporal_attention='pallas'), one in the
+     fused one with WIW_FUSED_FF_GATE=bf16 (K6-bf16); per request: seconds, denoise
      frames/s, output checks, peak memory and each kernel's launches (counts
      set to 0 just before a path and read just after; K8's must equal the
      GroupNorm calls, counted by hooks); then one 2-row UNet forward of each
@@ -75,6 +75,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
      K1's stage for K9, K10's own); K10's repack of v and its kernel
      timed apart, and the probe's decision ratio, K9-v2's time over K10's,
      against its bar of 1.15
+  5e. serve (after the fused slices): the WM server's default path as
+     `python -m wiw_tpu_torch.serve.server_cli --wm_type igenex` builds it
+     (`build_executors` with the CLI's defaults: the continuous executor's
+     4 slots, W8A8 int8, 30 steps, SERVING_CFG, warmup of batch 1, which
+     also builds every kernel), a `ManagerServer` on a free local port and
+     two `WMClient` threads of 2 candidates each, the second ~3 ticks after
+     the first; each answer [2, 14, 3, 480, 480] uint8; per tick (8 UNet
+     rows, or 4 in a cond-only tail tick) CUDA events and the K1 / K7 / K8
+     launches against 16 and the int8 layer and GroupNorm calls counted by
+     hooks in that tick; each request's seconds, the tick counts and the
+     tail share, served frames/s, `phase_s`, peak memory; then K8 and K7
+     held to their plain versions at every shape that run gave them (112
+     and 56 rows, the whole-clip 14-frame decode); then the engine held to
+     the pipeline in bf16 (one request alone in the 4-slot pool against
+     `SVDPipeline.denoise` from the same initial latents); one full-width
+     action_block request (K1 32 a forward) and one igenex_manip request
+     (448x448, [1, 14, 8] poses), int8, at a cut depth
   6. training: K1 with its LSE output and K3 (flash-attention backward) at
      the four training shapes against the plain forward, LSE and backward
      (K1's output bits the same with and without the LSE), K6's gradients
@@ -98,8 +115,10 @@ import gc
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -114,6 +133,9 @@ import torch
 # K1 rounds P where its plain version rounds the softmax weights.
 ATOL_RMS, RTOL, REL_FRO = 0.05, 2.0 ** -6, 5e-3
 STEPS = 25
+# the fused-kernel slices run at a cut depth, to leave the script's time to
+# the serve phase; their per-forward figures do not depend on it
+FUSED_STEPS = 10
 FRAMES = 14
 # the UNet's spatial self-attentions at 576x1024, 14 frames, CFG pair
 # folded: (batch = 2 rows x 14 frames, heads, S, calls per UNet forward)
@@ -124,13 +146,14 @@ K4_SHAPES = [(2, 14, 9216, 5, 5), (2, 14, 2304, 10, 5), (2, 14, 576, 20, 5)]
 # feed-forwards with C <= 640 (levels 0-1): (rows x 14 x S, C, calls); five
 # transformers per level, three feed-forwards each
 FF_SHAPES = [(2 * 14 * 9216, 320, 15), (2 * 14 * 2304, 640, 15)]
-# launches per request: 16 / 15 / 30 per UNet forward x 25 forwards; every
-# other counter 0, but K8's, which must equal the GroupNorm calls, and K7's,
-# which must equal the int8 layers' calls
-PER_REQUEST = {"default": {"K1": 400},
-               "fused": {"K1": 400, "K4": 375, "K6": 750},
-               "fused-bf16": {"K1": 400, "K4": 375, "K6-bf16": 750},
-               "int8": {"K1": 400}}
+# launches per UNet forward (one forward a step, whether of 2 rows or, in
+# the stale tail, 1): 16 / 15 / 30; every other counter 0, but K8's, which
+# must equal the GroupNorm calls, and K7's, which must equal the int8
+# layers' calls
+PER_FORWARD = {"default": {"K1": 16},
+               "fused": {"K1": 16, "K4": 15, "K6": 30},
+               "fused-bf16": {"K1": 16, "K4": 15, "K6-bf16": 30},
+               "int8": {"K1": 16}}
 # K2 (no model caller): the level-0 and level-3 spatial attentions
 K2_SHAPES = [K1_SHAPES[0][:3], K1_SHAPES[3][:3]]
 # the same attentions when training at batch 1 (one row of 14 frames):
@@ -1588,9 +1611,10 @@ def print_top(prof, n: int = 12) -> None:
                   flush=True)
 
 
-def slice_phase(dev, label: str, requests: int, **config):
-    """`requests` full-width requests of one configuration (K6's gate from
-    the environment, WIW_FUSED_FF_GATE, as the worker reads it). Returns
+def slice_phase(dev, label: str, requests: int, steps: int = STEPS, **config):
+    """`requests` full-width requests of one configuration at `steps` Euler
+    steps (K6's gate from the environment, WIW_FUSED_FF_GATE, as the worker
+    reads it). Returns
     the launches, the GroupNorm and int8 layer calls of the last request
     and of a 2-row forward, the last request's frames and the forward's
     event time."""
@@ -1599,7 +1623,7 @@ def slice_phase(dev, label: str, requests: int, **config):
 
     t0 = time.perf_counter()
     worker = SVDActionWorker(
-        width=1024, height=576, num_frames=FRAMES, num_inference_steps=STEPS,
+        width=1024, height=576, num_frames=FRAMES, num_inference_steps=steps,
         out_width=480, out_height=480, action_strategy="micro_cond",
         action_input_channel=14, dtype="bfloat16", cfg_schedule="serving",
         device="cuda", seed=0, **{"fused_ff": False, "quantize": "bf16",
@@ -1660,11 +1684,13 @@ def slice_phase(dev, label: str, requests: int, **config):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         counts = launches()
-        want = expected(PER_REQUEST[label], sum(norms.values()), int8_calls)
+        want = expected({k: n * steps for k, n in PER_FORWARD[label].items()},
+                        sum(norms.values()), int8_calls)
         frames = out["pred_frames"]
         denoise_s = marks["start"].elapsed_time(marks["end"]) / 1e3
         peak = torch.cuda.max_memory_allocated() / 2**30
-        print(f"{label} request {i}: {secs:.3f} s, denoise {denoise_s:.3f} s = "
+        print(f"{label} request {i} ({steps} steps): {secs:.3f} s, denoise "
+              f"{denoise_s:.3f} s = "
               f"{FRAMES / denoise_s:.4f} frames/s, pred_frames {frames.shape} "
               f"{frames.dtype}, finite {bool(finite)}, std {frames.std():.3f}, "
               f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -1698,6 +1724,343 @@ def slice_phase(dev, label: str, requests: int, **config):
     return total, info
 
 
+# the serve phase: server_cli's defaults (igenex, the continuous executor's
+# 4 slots, W8A8 int8, 30 steps, SERVING_CFG, --warmup_batches 1), two
+# clients of 2 candidates each, the second ~3 ticks after the first
+SERVE_CLIENTS = (("A", 2, 0), ("B", 2, 3))  # (name, candidates, ticks before)
+# the engine against the pipeline (bf16, one request alone in the pool),
+# and the action_block and manipulation requests: a cut depth
+CHECK_STEPS = 8
+WORLD_STEPS = 10
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_request(n: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"b_action": rng.integers(1, 4, (n, FRAMES)),
+            "b_image": rng.integers(0, 256, (n, 3, 576, 1024), dtype=np.uint8),
+            "save_dirs": [f"c{seed}_{i}" for i in range(n)],
+            "request_model_name": "igenex", "return_objects": [True] * n}
+
+
+def shape_checks(label: str, norms: dict, int8_calls: dict, dev, g):
+    """K8 at every GroupNorm shape and K7 at every int8 call a path ran
+    (`count_group_norms`, `count_int8_calls`), each against its plain
+    version once: K8 within the tolerance, K7 bit for bit (K7-dense's plain
+    version in blocks of rows: its scales are per row)."""
+    from wiw_tpu_torch.ops import group_norm as TG
+    from wiw_tpu_torch.ops import quant as TQ
+
+    for (shape, dtype, groups, eps, silu), calls in sorted(
+            norms.items(), key=lambda kv: -int(np.prod(kv[0][0]))):
+        C = shape[-1]
+        x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
+        w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
+        b = 0.3 * torch.randn(C, generator=g, device=dev)
+        _, line = compare(f"K8 {shape}", TG.group_norm(x, w, b, groups, eps, silu),
+                          TG.group_norm_plain(x, w, b, groups, eps, silu))
+        print(f"  {label} K8 {list(shape)} {str(dtype)[6:]} G={groups} silu={silu} "
+              f"({calls} calls): {line}", flush=True)
+        del x
+    for key, calls in sorted(int8_calls.items(), key=lambda kv: -k7_ops_bytes(kv[0])[0]):
+        kind, xshape, xdtype, wshape, stride, pad, has_bias, odt = key
+        x = (torch.randn(*xshape, generator=g, device=dev) * 2).to(xdtype)
+        w8, ws = TQ.quantize_kernel(torch.randn(*wshape, generator=g, device=dev) * 0.05)
+        b = torch.randn(wshape[0], generator=g, device=dev) if has_bias else None
+        if kind == "dense":
+            out = TQ.w8a8_dense(x, w8, ws, b, odt).reshape(-1, wshape[0])
+            flat = x.reshape(-1, x.shape[-1])
+            same = all(torch.equal(out[i:i + 65536], TQ.w8a8_dense_plain(
+                flat[i:i + 65536], w8, ws, b, odt)) for i in range(0, len(flat), 65536))
+        else:
+            out = TQ.w8a8_conv(x, w8, ws, b, stride=stride, padding=pad, dtype=odt)
+            same = torch.equal(out, TQ.w8a8_conv_plain(x, w8, ws, b, stride=stride,
+                                                       padding=pad, dtype=odt))
+        print(f"  {label} K7-{kind} x {list(xshape)} w8 {list(wshape)} ({calls} "
+              f"calls): bits equal {same}", flush=True)
+        if not same:
+            raise RuntimeError(f"K7-{kind} at {xshape} differs from its plain version")
+        del x, out
+    torch.cuda.empty_cache()
+
+
+def serve_phase(rows: dict, dev, g) -> dict:
+    """The WM server's default path: `server_cli.build_executors` with the
+    CLI's defaults (warmup included), a `ManagerServer` on a free port,
+    two `WMClient` threads (SERVE_CLIENTS). Per tick (the engine's
+    `_step_once`, wrapped): CUDA events and the launches against the
+    GroupNorm and int8 calls counted by hooks in that tick, K1 16 a tick.
+    Then each request's seconds, served frames/s, the tail share, phase_s
+    and peak memory, and K8/K7 held to their plain versions at every shape
+    the run gave them (112 and 56 UNet rows, the whole-clip decode).
+    Returns the launches over the served run."""
+    from wiw_tpu_torch.ops import quant as TQ
+    from wiw_tpu_torch.serve import server_cli
+    from wiw_tpu_torch.serve.manager import ManagerServer, WMClient
+
+    t0 = time.perf_counter()
+    args, extra = server_cli.build_parser().parse_known_args(
+        ["--host", "127.0.0.1", "--port", str(free_port())])
+    execs = server_cli.build_executors(args, extra)
+    torch.cuda.synchronize()
+    ex = execs[0]
+    eng, pipe = ex.engine, ex.engine.pipe
+    n_int8 = TQ.count_quantized(pipe.unet)
+    print(f"serve: server_cli defaults (wm_type {args.wm_type}, executor "
+          f"{args.executor}, {eng.S} slots, quantize {args.quantize} ({n_int8} int8 "
+          f"weights), {eng.num_steps} steps, tail from step {eng._tail_start}, "
+          f"{eng.gen.height}x{eng.gen.width}, {eng.F} frames, out {eng.out_hw}, "
+          f"warmup batches {args.warmup_batches!r}): built and warmed in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if (len(execs), eng.S, eng.num_steps, n_int8) != (1, 4, 30, 98) or (
+            eng._tail_start is None):
+        raise RuntimeError("server_cli's defaults did not build the 4-slot int8 engine")
+
+    norms, norm_hooks = count_group_norms(pipe.unet, pipe.vae)
+    int8_calls, int8_hooks = count_int8_calls(pipe.unet, pipe.vae)
+    ticks = []
+    real_step = eng._step_once
+
+    def int8_by_kind():
+        return {k: sum(n for key, n in int8_calls.items() if key[0] == k)
+                for k in ("dense", "conv")}
+
+    def tick(state, cond_only=False):
+        before, gn, i8 = launches(), sum(norms.values()), int8_by_kind()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real_step(state, cond_only)
+        end.record()
+        after, i8_after = launches(), int8_by_kind()
+        counts = {k: after[k] - before[k] for k in after}
+        want = expected({"K1": 16}, sum(norms.values()) - gn,
+                        {("dense",): i8_after["dense"] - i8["dense"],
+                         ("conv",): i8_after["conv"] - i8["conv"]})
+        ticks.append({"cond_only": cond_only, "events": (start, end),
+                      "counts": counts, "want": want,
+                      "active": sum(s.active for s in eng._slots)})
+        return out
+
+    eng._step_once = tick
+    server = ManagerServer(execs, host="127.0.0.1", port=args.port)
+    port = server.start()
+    results, errors = {}, []
+
+    def client(name, n, after_ticks, seed):
+        try:
+            deadline = time.time() + 600
+            while len(ticks) < after_ticks and time.time() < deadline:
+                time.sleep(0.005)
+            c = WMClient(port=port)
+            t = time.perf_counter()
+            out = c.send_batch(serve_request(n, seed))
+            results[name] = (time.perf_counter() - t, len(ticks), out)
+            c.close()
+        except Exception as e:  # reported below: the phase fails
+            errors.append(f"client {name}: {e!r}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(name, n, after, i + 1))
+               for i, (name, n, after) in enumerate(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t_start
+    torch.cuda.synchronize()
+    total = launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    server.stop()
+    eng._step_once = real_step
+    for h in norm_hooks + int8_hooks:
+        h.remove()
+    if errors or any(t.is_alive() for t in threads) or len(results) != len(SERVE_CLIENTS):
+        raise RuntimeError(f"serve clients failed: {errors}")
+    frames = 0
+    for name, n, _ in SERVE_CLIENTS:
+        secs, at_tick, out = results[name]
+        pred = out.get("pred_frames")
+        print(f"serve client {name}: {n} candidates in {secs:.3f} s (answered "
+              f"after tick {at_tick}); pred_frames "
+              f"{None if pred is None else (pred.shape, str(pred.dtype))}, "
+              f"error {out.get('error')}", flush=True)
+        if pred is None or pred.shape != (n, FRAMES, 3, 480, 480) or (
+                pred.dtype != np.uint8) or pred.min() == pred.max():
+            raise RuntimeError(f"serve client {name}: bad answer {out.get('error')}")
+        frames += n * FRAMES
+    by_kind = {False: [], True: []}
+    for t in ticks:
+        by_kind[t["cond_only"]].append(t["events"][0].elapsed_time(t["events"][1]))
+        if t["counts"] != t["want"]:
+            raise RuntimeError(f"serve tick launches {t['counts']}, expected {t['want']}")
+    full, cond = by_kind[False], by_kind[True]
+    first = {c: next(t for t in ticks if t["cond_only"] == c) for c in (False, True)
+             if any(t["cond_only"] == c for t in ticks)}
+    for c, t in first.items():
+        keep = {k: t["counts"][k] for k in ("K1", "K7-dense", "K7-conv", "K8")}
+        print(f"serve launches a {'cond-only (4-row)' if c else 'full (8-row)'} "
+              f"tick: {keep}, expected {({k: t['want'][k] for k in keep})} (every "
+              f"other kernel 0)", flush=True)
+    info = {"ticks": len(ticks), "full_ticks": len(full), "cond_ticks": len(cond),
+            "tail_share": len(cond) / len(ticks),
+            "full_tick_ms": float(np.median(full)),
+            "cond_tick_ms": float(np.median(cond)) if cond else None,
+            "wall_s": wall, "frames_s": frames / wall, "peak_gib": peak,
+            "phase_s": dict(ex.phase_s),
+            "request_s": {name: results[name][0] for name, _, _ in SERVE_CLIENTS}}
+    print(f"serve: {len(ticks)} ticks, {len(full)} full (8 UNet rows) at median "
+          f"{info['full_tick_ms']:.2f} ms (mean {np.mean(full):.2f}, min "
+          f"{min(full):.2f}, max {max(full):.2f}), {len(cond)} cond-only (4 rows) at "
+          f"median {info['cond_tick_ms']} ms; tail share {info['tail_share']:.4f}; "
+          f"active slots by tick {[t['active'] for t in ticks]}; wall {wall:.3f} s, "
+          f"served {frames} frames = {info['frames_s']:.4f} frames/s; phase_s "
+          f"{info['phase_s']}; peak {peak:.2f} GiB; launches {total}", flush=True)
+    if not cond or not total["K1"] or not total["K7-dense"] or not total["K8"]:
+        raise RuntimeError("the serve run missed the tail or a kernel of its path")
+    rows["K8"].d["serve"] = rows["K7-dense"].d["serve"] = info
+    shape_checks("serve", norms, int8_calls, dev, g)
+    del execs, ex, eng, pipe, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def engine_vs_generate(dev):
+    """The engine held to the pipeline in bf16: one request alone in the
+    4-slot pool (8 UNet rows a full tick, its CFG pair beside 3 idle
+    slots), and `SVDPipeline.denoise` (2 rows) from the same initial
+    latents, noise_aug_strength 0 so that no draw enters; the denoised
+    latents before the decode within the small-input phase's bounds taken
+    relative to the latents' scale (max |ref|, mean |ref|)."""
+    from wiw_tpu_torch.serve.continuous import ContinuousEngine
+    from wiw_tpu_torch.workers.svd_action import SVDActionWorker
+
+    worker = SVDActionWorker(
+        width=1024, height=576, num_frames=FRAMES, num_inference_steps=CHECK_STEPS,
+        out_width=480, out_height=480, quantize="bf16", cfg_schedule="serving",
+        device="cuda", seed=0, fused_ff=False, temporal_attention="batched")
+    gen = dataclasses.replace(worker.gen, noise_aug_strength=0.0)
+    eng = ContinuousEngine(worker.pipe, gen, num_slots=4, out_hw=(480, 480),
+                           out_uint8=True)
+    rng = np.random.default_rng(7)
+    image = rng.uniform(-1, 1, (gen.height, gen.width, 3)).astype(np.float32)
+    actions = np.array([4, 1, 1, 2, 2, 1, 3, 3, 1, 1, 2, 1, 3, 1])
+    rid = eng.admit(image, actions, torch.Generator(device=dev).manual_seed(5))
+    init = eng._state["latents"][0].clone()
+    scale = worker.pipe.vae_config.scaling_factor
+    denoised = {}
+    dispatch = eng._dispatch_decode
+
+    def capture(request_id, i):
+        denoised[request_id] = eng._state["latents"][i] / scale
+        return dispatch(request_id, i)
+
+    eng._dispatch_decode = capture
+    t = time.perf_counter()
+    video = {}
+    while eng.busy:
+        video.update(eng.step())
+    engine_s = time.perf_counter() - t
+    s0 = eng.sigmas[0]
+    t = time.perf_counter()
+    ref = worker.pipe.denoise(
+        torch.from_numpy(image)[None], gen, torch.from_numpy(actions)[None],
+        init_latents=(init / torch.sqrt(s0 ** 2 + 1.0))[None])[0]
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t
+    out = denoised[rid]
+    diff = (out - ref).abs()
+    max_rel = (diff.max() / ref.abs().max()).item()
+    mean_rel = (diff.mean() / ref.abs().mean()).item()
+    print(f"engine vs generate (bf16, {CHECK_STEPS} steps, one request in the "
+          f"4-slot pool vs the pipeline's 2 rows, same init latents): denoised "
+          f"latents max|diff| {diff.max().item():.6g} (max|ref| "
+          f"{ref.abs().max().item():.6g}: {max_rel:.6g}, tol {SMALL_ATOL}), mean|diff| "
+          f"{diff.mean().item():.6g} (mean|ref| {ref.abs().mean().item():.6g}: "
+          f"{mean_rel:.6g}, tol {SMALL_MEAN_ATOL}); engine {engine_s:.3f} s with its "
+          f"whole-clip decode, pipeline denoise {pipe_s:.3f} s; decoded "
+          f"{video[rid].shape} {video[rid].dtype}", flush=True)
+    if not (torch.isfinite(out).all() and max_rel <= SMALL_ATOL
+            and mean_rel <= SMALL_MEAN_ATOL):
+        raise RuntimeError("the engine's denoised latents disagree with generate's")
+    if video[rid].shape != (FRAMES, 480, 480, 3) or video[rid].dtype != np.uint8:
+        raise RuntimeError(f"bad engine video {video[rid].shape}")
+    del worker, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def world_phase(dev, label: str, k1_per_forward: int, int8_weights: int,
+                **config) -> dict:
+    """One full-width request of another world through the worker (int8,
+    WORLD_STEPS steps): `action_block` (nav ids as one-hot tokens; K1 32 a
+    forward: the action branches add one self-attention a transformer) or
+    the manipulation world (`igenex_manip`: 448x448, micro_cond on the
+    10-channel pose codec, [1, 14, 8] poses). The int8 weights must number
+    `int8_weights` (the reference policy's count: tests/test_torch_actions.py
+    for action_block); launches are checked as the slices' are; returns
+    them."""
+    from wiw_tpu_torch.ops import quant as TQ
+    from wiw_tpu_torch.workers.svd_action import SVDActionWorker
+
+    kw = dict(width=1024, height=576, num_frames=FRAMES, out_width=480,
+              out_height=480, quantize="int8", cfg_schedule="serving",
+              device="cuda", seed=0, fused_ff=False, temporal_attention="batched")
+    worker = SVDActionWorker(num_inference_steps=WORLD_STEPS, **{**kw, **config})
+    n_int8 = TQ.count_quantized(worker.pipe.unet)
+    rng = np.random.default_rng(11)
+    if worker.task_type == "manipulation":
+        xyz = rng.uniform(-0.2, 0.6, (1, FRAMES, 3))
+        quat = rng.standard_normal((1, FRAMES, 4))
+        actions = np.concatenate([xyz, quat, rng.uniform(0, 1, (1, FRAMES, 1))], -1)
+    else:
+        actions = rng.integers(1, 4, (1, FRAMES))
+    h, w = worker.gen.height, worker.gen.width
+    request = {"b_action": actions,
+               "b_image": rng.integers(0, 256, (1, 3, h, w), dtype=np.uint8),
+               "save_dirs": ["unused"], "request_model_name": label,
+               "return_objects": [True]}
+    norms, norm_hooks = count_group_norms(worker.pipe.unet, worker.pipe.vae)
+    int8_calls, int8_hooks = count_int8_calls(worker.pipe.unet, worker.pipe.vae)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    out = worker(request)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    counts = launches()
+    for hk in norm_hooks + int8_hooks:
+        hk.remove()
+    want = expected({"K1": k1_per_forward * WORLD_STEPS}, sum(norms.values()),
+                    int8_calls)
+    frames = out["pred_frames"]
+    print(f"{label} request ({h}x{w}, {WORLD_STEPS} steps, "
+          f"{worker.pipe.unet_config.action_strategy}, action_input_channel "
+          f"{worker.pipe.unet_config.action_input_channel}, b_action "
+          f"{actions.shape}, {n_int8} int8 weights): {secs:.3f} s, pred_frames "
+          f"{frames.shape} {frames.dtype} std {frames.std():.3f}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {counts} "
+          f"(K1 expected {want['K1']})", flush=True)
+    if frames.shape != (1, FRAMES, 3, 480, 480) or frames.dtype != np.uint8 or (
+            frames.min() == frames.max()):
+        raise RuntimeError(f"{label}: bad pred_frames {frames.shape}")
+    if counts != want or n_int8 != int8_weights:
+        raise RuntimeError(f"{label}: launches {counts}, expected {want}; "
+                           f"{n_int8} int8 weights, expected {int8_weights}")
+    del worker
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1719,8 +2082,7 @@ def main() -> int:
           f"{sdp.mem_efficient_sdp_enabled()} cudnn {sdp.cudnn_sdp_enabled()}",
           flush=True)
 
-    libs = ("flash_attn_fwd", "flash_attn_bwd", "temporal_attn", "geglu_ffn",
-            "group_norm", "w8a8", "flash_attn_i8")
+    libs = native.LIBRARIES
     t0 = time.perf_counter()
     native.load_libraries(*libs)
     print(f"build (sm_90a, one nvcc per source in parallel): "
@@ -1852,12 +2214,20 @@ def main() -> int:
         rows["K7-dense"].d[f"int8_{key}"] = info8[key]
     rows["K7-dense"].d["int8_psnr_db_vs_bf16"] = psnr
     del info, info8
-    by_path["fused"], _ = slice_phase(dev, "fused", 1, **FUSED)
+    by_path["fused"], _ = slice_phase(dev, "fused", 1, FUSED_STEPS, **FUSED)
     os.environ["WIW_FUSED_FF_GATE"] = "bf16"  # read by the worker, as the reference's
     try:
-        by_path["fused-bf16"], _ = slice_phase(dev, "fused-bf16", 1, **FUSED)
+        by_path["fused-bf16"], _ = slice_phase(dev, "fused-bf16", 1, FUSED_STEPS,
+                                               **FUSED)
     finally:
         del os.environ["WIW_FUSED_FF_GATE"]
+    by_path["serve"] = serve_phase(rows, dev, g)
+    engine_vs_generate(dev)
+    by_path["action_block"] = world_phase(
+        dev, "action_block", 32, 98 + 16, action_strategy="action_block")
+    by_path["manipulation"] = world_phase(
+        dev, "manipulation", 16, 98, width=448, height=448,
+        task_type="manipulation", action_input_channel=10)
     by_path["train"] = train_phase(dev)
     for key, row in rows.items():
         d = row.d

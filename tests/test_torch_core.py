@@ -99,8 +99,10 @@ def test_micro_cond_action_ids():
     np.testing.assert_array_equal(out.numpy(), ref)
     np.testing.assert_array_equal(TA.encode_idx(_t(acts)).numpy(),
                                   np.asarray(JA.encode_idx(jnp.asarray(acts))))
-    with pytest.raises(NotImplementedError):
-        TA.get_action_ids(_t(acts), "action_block")
+    # the action_block codec is ported too (tests/test_torch_actions.py)
+    np.testing.assert_array_equal(
+        TA.get_action_ids(_t(acts), "action_block").numpy(),
+        np.asarray(JA.get_action_ids(jnp.asarray(acts), "action_block")))
 
 
 @pytest.mark.parametrize("angle,width", [

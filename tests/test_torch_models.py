@@ -128,8 +128,12 @@ class TestUNet:
         np.testing.assert_allclose(outs[True], outs[False], atol=1e-4, rtol=1e-4)
 
     def test_port_config_refuses_unported_strategies(self):
-        with pytest.raises(NotImplementedError):
-            TU.UNetConfig(action_strategy="action_block")
+        # every strategy of the reference is ported; an unknown one raises
+        for strategy in (None, "micro_cond", "action_block", "action_block_nocfg"):
+            assert TU.UNetConfig(action_strategy=strategy).uses_action_block == (
+                JUNetConfig(action_strategy=strategy).uses_action_block)
+        with pytest.raises(ValueError):
+            TU.UNetConfig(action_strategy="action_blocks")
         with pytest.raises(ValueError):
             TU.UNetConfig(temporal_attention="flash")
 

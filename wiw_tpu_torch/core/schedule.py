@@ -70,6 +70,10 @@ class CFGSchedule:
             raise ValueError(
                 f"tail_policy {self.tail_policy!r} not in stale|alt|cond")
 
+    @property
+    def is_full(self) -> bool:
+        return self.tail_sigma <= 0.0 and self.head_sigma == float("inf")
+
 
 # The serving schedule: stale-uncond tail below sigma 0.2 (the last 5 of 25
 # steps reuse the step-19 uncond prediction).

@@ -434,13 +434,18 @@ class Upsample2D(nn.Module):
 
 
 class TransformerSpatioTemporal(nn.Module):
-    """Spatial + temporal transformer over feature maps [B*F, H, W, C];
-    `context` is [B, S_ctx, cross_dim] CLIP embeddings (tiled per frame
-    inside). The action-block branch waits for a later port."""
+    """Spatial + temporal (+ optional action) transformer over feature maps
+    [B*F, H, W, C]; `context` is [B, S_ctx, cross_dim] CLIP embeddings
+    (tiled per frame inside). With `action_dim` set (the action_block
+    strategies) each layer adds the action branch:
+    `temporal_transformer_blocks_action_{l}`, a BasicTransformerBlock whose
+    cross-attention reads the per-frame action token `action_context`
+    [B*F, 1, action_dim], merged by `time_mixer_action` (alpha init 1.0)."""
 
     def __init__(self, ch: int, heads: int, dim_head: int, context_dim: int,
                  num_layers: int = 1, fused_ff: bool = False,
-                 temporal_attention: str = "batched", fused_ff_gate: str = "f32"):
+                 temporal_attention: str = "batched", fused_ff_gate: str = "f32",
+                 action_dim: int | None = None):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(ch, eps=1e-6)
@@ -454,11 +459,17 @@ class TransformerSpatioTemporal(nn.Module):
                                            fused_ff, temporal_attention,
                                            fused_ff_gate)
              for _ in range(num_layers)])
+        if action_dim is not None:
+            self.temporal_transformer_blocks_action = nn.ModuleList(
+                [BasicTransformerBlock(inner, heads, dim_head, action_dim,
+                                       fused_ff, fused_ff_gate)
+                 for _ in range(num_layers)])
+            self.time_mixer_action = AlphaBlender(1.0)
         self.time_pos_embed = TimestepEmbedding(ch, ch * 4, out_dim=ch)
         self.time_mixer = AlphaBlender(0.5)
         self.proj_out = Linear(inner, ch)
 
-    def forward(self, x, num_frames: int, context=None):
+    def forward(self, x, num_frames: int, context=None, action_context=None):
         BF, H, W, C = x.shape
         B = BF // num_frames
         residual = x
@@ -470,10 +481,15 @@ class TransformerSpatioTemporal(nn.Module):
                                  device=x.device)
         t_emb = timestep_embedding(frame_ids, C).to(self.proj_in.compute_dtype)
         pos = self.time_pos_embed(t_emb)  # [F, C]
-        for block, tblock in zip(self.transformer_blocks,
-                                 self.temporal_transformer_blocks):
+        actions = getattr(self, "temporal_transformer_blocks_action",
+                          [None] * len(self.transformer_blocks))
+        for block, tblock, ablock in zip(self.transformer_blocks,
+                                         self.temporal_transformer_blocks,
+                                         actions):
             h = block(h, spatial_context)
             hmix = h.reshape(B, num_frames, H * W, inner) + pos[None, :, None, :]
             hmix = tblock(hmix, context).reshape(BF, H * W, inner)
             h = self.time_mixer(h, hmix)
+            if ablock is not None:
+                h = self.time_mixer_action(h, ablock(h, action_context))
         return self.proj_out(h).reshape(BF, H, W, C) + residual

@@ -1,8 +1,11 @@
 """Action-conditioned spatio-temporal UNet (SVD-dagger).
 
-Port of `wiw_tpu/models/unet.py` with the `micro_cond` action strategy
-(Fourier action embedder added to the per-frame time embedding). The
-`action_block` strategies wait for a later port.
+Port of `wiw_tpu/models/unet.py` with both action strategies:
+  * micro_cond: a Fourier action embedder added to the per-frame time
+    embedding
+  * action_block / action_block_nocfg: per-frame action tokens
+    (`ActionEmbedderBlock`) cross-attended inside every spatio-temporal
+    transformer (`TransformerSpatioTemporal`'s action branch)
 
 Precision: Linear/Conv compute in `dtype` (the reference's flax `dtype`);
 their parameters are kept in `param_dtype` (None: the same, as in serving;
@@ -39,6 +42,9 @@ from wiw_tpu_torch.models.layers import (
 )
 from wiw_tpu_torch.ops.fused_mlp import GATES
 from wiw_tpu_torch.ops.temporal_attention import MODES
+
+ACTION_DROPPED = -1.0  # sentinel marking CFG-dropped action conditioning
+STRATEGIES = (None, "micro_cond", "action_block", "action_block_nocfg")
 
 
 def env_switches(fused_ff: Optional[bool] = None,
@@ -79,10 +85,11 @@ class UNetConfig:
     addition_time_embed_dim: int = 256
     transformer_layers_per_block: int = 1
     num_frames: int = 14
-    # None | 'micro_cond'
+    # None | 'micro_cond' | 'action_block' | 'action_block_nocfg'
     action_strategy: Optional[str] = None
     # micro_cond input channel: 14 (nav idx codec) or 10 (manip pose codec)
     action_input_channel: int = 14
+    action_attention_dim: int = 768
     dtype: str = "float32"
     # parameter dtype of Linear/Conv weights; None = `dtype`
     param_dtype: Optional[str] = None
@@ -100,9 +107,9 @@ class UNetConfig:
     temporal_attention: str = "batched"
 
     def __post_init__(self):
-        if self.action_strategy not in (None, "micro_cond"):
-            raise NotImplementedError(
-                f"action_strategy {self.action_strategy!r} is not ported yet")
+        if self.action_strategy not in STRATEGIES:
+            raise ValueError(f"action_strategy {self.action_strategy!r} not "
+                             f"in {STRATEGIES}")
         if self.temporal_attention not in MODES:
             raise ValueError(f"temporal_attention {self.temporal_attention!r} "
                              f"not in {MODES}")
@@ -116,6 +123,28 @@ class UNetConfig:
     @property
     def param_torch_dtype(self) -> torch.dtype:
         return getattr(torch, self.param_dtype or self.dtype)
+
+    @property
+    def uses_action_block(self) -> bool:
+        return self.action_strategy in ("action_block", "action_block_nocfg")
+
+
+class ActionEmbedderBlock(nn.Module):
+    """'action_block' embedder: MLP(4 -> 256 -> 512 -> out_dim) plus a
+    learned per-frame position embedding. A sample whose whole action
+    tensor equals the dropped sentinel (-1) maps to the zero embedding."""
+
+    def __init__(self, out_dim: int = 768, num_frames: int = 14):
+        super().__init__()
+        self.layers = nn.Sequential(Linear(4, 256), nn.SiLU(), Linear(256, 512),
+                                    nn.SiLU(), Linear(512, out_dim))
+        self.pos_embedding = nn.Parameter(torch.zeros(num_frames, out_dim))
+
+    def forward(self, x):  # [B, F, 4]
+        h = self.layers(x)
+        h = h + self.pos_embedding.to(h.dtype)[None]
+        dropped = (x == ACTION_DROPPED).all(dim=2).all(dim=1)  # [B]
+        return torch.where(dropped[:, None, None], torch.zeros_like(h), h)
 
 
 class ActionEmbedderFourier(nn.Module):
@@ -160,7 +189,8 @@ class UNetSpatioTemporal(nn.Module):
       timestep:        [B] continuous t = 0.25*log(sigma)
       context:         [B, S, cross_dim] CLIP image embeddings
       added_time_ids:  [B, 3] (fps-1, motion_bucket, noise_aug)
-      action_ids:      [B, F, A] for micro_cond, else None
+      action_ids:      [B, F, A] for micro_cond, [B, F, 4] for action_block,
+                       else None
     Returns fp32 [B, F, H, W, C_out].
     """
 
@@ -181,15 +211,19 @@ class UNetSpatioTemporal(nn.Module):
             self.add_embedding_action = TimestepEmbedding(256, temb)
             self.add_embedding_noise = TimestepEmbedding(
                 cfg.addition_time_embed_dim, temb)
+        elif cfg.uses_action_block:
+            self.action_proj = ActionEmbedderBlock(cfg.action_attention_dim,
+                                                   cfg.num_frames)
         self.conv_in = Conv2d(cfg.in_channels, ch0, 3, padding=1)
 
         def res(cin, cout):
             return SpatioTemporalResBlock(cin, cout, eps=1e-5, temb_ch=temb)
 
         def attn(ch, heads):
-            return TransformerSpatioTemporal(ch, heads, ch // heads, ctx, tl,
-                                             cfg.fused_ff, cfg.temporal_attention,
-                                             cfg.fused_ff_gate)
+            return TransformerSpatioTemporal(
+                ch, heads, ch // heads, ctx, tl, cfg.fused_ff,
+                cfg.temporal_attention, cfg.fused_ff_gate,
+                cfg.action_attention_dim if cfg.uses_action_block else None)
 
         n = len(cfg.block_out_channels)
         skip_ch = [ch0]
@@ -253,6 +287,7 @@ class UNetSpatioTemporal(nn.Module):
         ch0 = cfg.block_out_channels[0]
 
         emb_time = self.time_embedding(timestep_embedding(timestep, ch0).to(dt))
+        action_context = None
         if cfg.action_strategy == "micro_cond":
             if action_ids is None or action_ids.ndim != 3:
                 raise ValueError("micro_cond needs action_ids [B, F, A]")
@@ -267,6 +302,12 @@ class UNetSpatioTemporal(nn.Module):
                 added_time_ids.reshape(-1), cfg.addition_time_embed_dim
             ).reshape(B, -1).to(dt)
             emb = (emb_time + self.add_embedding(add)).repeat_interleave(Fr, dim=0)
+            if cfg.uses_action_block:
+                if action_ids is None:
+                    raise ValueError(f"{cfg.action_strategy} needs action_ids "
+                                     "[B, F, 4]")
+                action_context = self.action_proj(action_ids).reshape(
+                    B * Fr, 1, cfg.action_attention_dim)  # [B*F, 1, D]
 
         x = self.conv_in(sample.to(dt).reshape(B * Fr, H, W, sample.shape[-1]))
         skips = [x]
@@ -275,21 +316,21 @@ class UNetSpatioTemporal(nn.Module):
             for i, resnet in enumerate(block.resnets):
                 x = run(resnet, x, Fr, emb)
                 if block.attention(i) is not None:
-                    x = run(block.attention(i), x, Fr, context)
+                    x = run(block.attention(i), x, Fr, context, action_context)
                 skips.append(x)
             if hasattr(block, "downsamplers"):
                 x = block.downsamplers[0](x)
                 skips.append(x)
 
         x = run(self.mid_block.resnets[0], x, Fr, emb)
-        x = run(self.mid_block.attentions[0], x, Fr, context)
+        x = run(self.mid_block.attentions[0], x, Fr, context, action_context)
         x = run(self.mid_block.resnets[1], x, Fr, emb)
 
         for block in self.up_blocks:
             for i, resnet in enumerate(block.resnets):
                 x = run(resnet, torch.cat([x, skips.pop()], dim=-1), Fr, emb)
                 if block.attention(i) is not None:
-                    x = run(block.attention(i), x, Fr, context)
+                    x = run(block.attention(i), x, Fr, context, action_context)
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
 

@@ -33,6 +33,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every kernel source of csrc/, by library name
+LIBRARIES = ("flash_attn_fwd", "flash_attn_bwd", "temporal_attn", "geglu_ffn",
+             "group_norm", "w8a8", "flash_attn_i8")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent in nvcc, 0.0 when reused; ptxas report)
 build_info: dict[str, tuple[float, str]] = {}

@@ -17,12 +17,17 @@ Port of `wiw_tpu/sampling/pipeline.py`:
     loaded, before the cast to the serving dtype, as the reference
     quantises its fp32 tree; those layers then run kernel K7
 
+Actions: [B, F] nav ids or [B, F, 8] manipulation poses, encoded for the
+UNet's strategy (core/actions.get_action_ids); under `action_block` the
+CFG uncond half takes the dropped-action sentinel.
+
 The reference's 'alt' segment, `past_images`, the mesh and `shard_clip`
 paths are not ported yet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional
 
@@ -38,7 +43,11 @@ from wiw_tpu_torch.models.clip import (
 )
 from wiw_tpu_torch.models.convert import load_flax_params
 from wiw_tpu_torch.models.layers import cast_matmul_weights
-from wiw_tpu_torch.models.unet import UNetConfig, UNetSpatioTemporal
+from wiw_tpu_torch.models.unet import (
+    ACTION_DROPPED,
+    UNetConfig,
+    UNetSpatioTemporal,
+)
 from wiw_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
 from wiw_tpu_torch.ops import quant as Q
 from wiw_tpu_torch.ops.resize import resize_cubic
@@ -85,9 +94,11 @@ def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights_(module: torch.nn.Module, generator: torch.Generator) -> None:
     """Random-init with flax's initialiser families: lecun-normal
     Linear/Conv kernels, zero biases, unit/zero norms, mix factors at their
-    initial alpha, CLIP embeddings ~ N(0, 0.02)."""
+    initial alpha, CLIP embeddings ~ N(0, 0.02), the action-block position
+    embedding ~ N(0, 1)."""
     from wiw_tpu_torch.models import clip as C
     from wiw_tpu_torch.models import layers as L
+    from wiw_tpu_torch.models.unet import ActionEmbedderBlock
 
     for m in module.modules():
         if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d, torch.nn.Conv3d)):
@@ -102,6 +113,8 @@ def init_weights_(module: torch.nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, C.CLIPEmbeddings):
             m.class_embedding.normal_(0.0, 0.02, generator=generator)
             m.position_embedding.weight.normal_(0.0, 0.02, generator=generator)
+        elif isinstance(m, ActionEmbedderBlock):
+            m.pos_embedding.normal_(0.0, 1.0, generator=generator)
 
 
 class SVDPipeline:
@@ -171,6 +184,18 @@ class SVDPipeline:
             self._place(tower).load_state_dict(sd, strict=True)
         self._finish()
 
+    def replica(self, device: torch.device | str) -> "SVDPipeline":
+        """This pipeline with a copy of its towers on `device`, the weights
+        as they are (int8 layers included): one replica per card for
+        per-device serving."""
+        twin = copy.copy(self)
+        twin.device = torch.device(device)
+        twin.unet, twin.vae, twin.clip = (
+            copy.deepcopy(t).to(twin.device)
+            for t in (self.unet, self.vae, self.clip))
+        twin._int8 = dict(self._int8)
+        return twin
+
     def _before_weights(self, name: str) -> None:
         if not self.unet.conv_in.weight.is_meta:
             raise RuntimeError(
@@ -199,11 +224,15 @@ class SVDPipeline:
 
     # ------------------------------------------------------------------
     def _prepare_action_ids(self, actions):
-        """micro_cond: both CFG halves share the same encoded ids."""
+        """Encode raw actions and build the CFG-duplicated tensor:
+        action_block's uncond half is the dropped (-1) sentinel; micro_cond
+        (and action_block_nocfg) share the same ids in both halves."""
         cfg = self.unet_config
         if cfg.action_strategy is None or actions is None:
             return None
         encoded = get_action_ids(actions, cfg.action_strategy)
+        if cfg.action_strategy == "action_block":
+            return torch.cat([torch.full_like(encoded, ACTION_DROPPED), encoded])
         return torch.cat([encoded, encoded], dim=0)
 
     @torch.inference_mode()
@@ -217,11 +246,27 @@ class SVDPipeline:
         init_latents: Optional[torch.Tensor] = None,
         out_uint8_hw: Optional[tuple] = None,
     ) -> torch.Tensor:
-        """image: [B, H, W, 3] in [-1, 1]; actions: [B, F] ids or None.
-        Returns fp32 video [B, F, H, W, 3] in [0, 1], or uint8
-        [B, F, oh, ow, 3] with `out_uint8_hw=(oh, ow)` (resize and uint8 on
-        the device). Noise comes from `generator` (on the device) unless
-        `init_latents` [B, F, h, w, 4] is injected."""
+        """image: [B, H, W, 3] in [-1, 1]; actions: [B, F] ids, [B, F, 8]
+        poses or None. Returns fp32 video [B, F, H, W, 3] in [0, 1], or
+        uint8 [B, F, oh, ow, 3] with `out_uint8_hw=(oh, ow)` (resize and
+        uint8 on the device). Noise comes from `generator` (on the device)
+        unless `init_latents` [B, F, h, w, 4] is injected."""
+        latents = self.denoise(image, gen, actions, generator=generator,
+                               init_latents=init_latents)
+        return self._decode_chunked(latents, gen, out_uint8_hw)
+
+    @torch.inference_mode()
+    def denoise(
+        self,
+        image: torch.Tensor,
+        gen: GenerationConfig,
+        actions: Optional[torch.Tensor] = None,
+        *,
+        generator: Optional[torch.Generator] = None,
+        init_latents: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """`generate` up to the decode: the denoised latents divided by the
+        VAE's scaling factor, fp32 [B, F, h, w, 4]."""
         dev = self.device
         image = image.to(dev, torch.float32)
         B, H, W, _ = image.shape
@@ -299,8 +344,7 @@ class SVDPipeline:
                 else:  # cond
                     pred = unet_rows(latents, sigma, False)
                 latents = advance(latents, pred, sigma, sigma_next)
-        latents = latents / self.vae_config.scaling_factor
-        return self._decode_chunked(latents, gen, out_uint8_hw)
+        return latents / self.vae_config.scaling_factor
 
     def _decode_chunked(self, latents, gen: GenerationConfig, out_hw=None):
         """Chunked VAE decode; each chunk is one temporal unit."""

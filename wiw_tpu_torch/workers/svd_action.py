@@ -1,9 +1,15 @@
 """The action-conditioned SVD world-model worker, on PyTorch.
 
-Port of `wiw_tpu/workers/svd_action.py`, with the same contract:
-  in : {b_action [B, F], save_dirs, request_model_name,
-        b_image? [B, C, H, W] uint8, return_objects?}
+Port of `wiw_tpu/workers/svd_action.py` (`igenex`, and `igenex_manip` with
+task_type="manipulation"), with the same contract:
+  in : {b_action [B, F] nav ids or [B, F, 8] poses, save_dirs,
+        request_model_name, b_image? [B, C, H, W] uint8, return_objects?}
   out: {save_dirs, pred_frames? uint8 [B, T, C, H, W]}
+
+Action strategies as the reference's: micro_cond (the default; nav ids or,
+with action_input_channel 10, manipulation poses) and action_block /
+action_block_nocfg (nav ids as one-hot tokens cross-attended in every
+transformer).
 
 Runs in-process (`worker(input_dict)`) or as a subprocess through the
 port's copy of the worker SDK (`wiw_tpu_torch.serve.worker`), whose wire
@@ -70,6 +76,26 @@ def resolve_switches(cfg_schedule: str = "", quantize: str = "",
             **env_switches(fused_ff, temporal_attention)}
 
 
+def cond_images(input_dict: dict, height: int, width: int) -> np.ndarray:
+    """[B, H, W, 3] fp32 in [-1, 1] on the host, from b_image or
+    <save_dir>/cond_rgb.png, as the reference makes it: truncated to uint8,
+    resized to (height, width) by PIL's default filter, then scaled."""
+    from PIL import Image
+
+    if input_dict.get("b_image") is not None:
+        imgs = np.asarray(input_dict["b_image"])
+        if imgs.ndim == 4 and imgs.shape[1] in (3, 4):  # BCHW -> BHWC
+            imgs = np.transpose(imgs[:, :3], (0, 2, 3, 1))
+    else:
+        imgs = np.stack([
+            np.asarray(Image.open(osp.join(d, "cond_rgb.png")).convert("RGB"))
+            for d in input_dict["save_dirs"]])
+    resized = np.stack([
+        np.asarray(Image.fromarray(im.astype(np.uint8)).resize((width, height)))
+        for im in imgs])
+    return resized.astype(np.float32) / 127.5 - 1.0
+
+
 class SVDActionWorker:
     def __init__(
         self,
@@ -96,6 +122,7 @@ class SVDActionWorker:
         left unset take the environment, as `resolve_switches` says."""
         sw = resolve_switches(cfg_schedule, quantize, fused_ff,
                               temporal_attention)
+        self.task_type = task_type
         self.out_size = (out_width, out_height)
         self.device = torch.device(device)
         self.gen = GenerationConfig(
@@ -138,26 +165,39 @@ class SVDActionWorker:
             load_safetensors_dir(unet_dir),
             load_safetensors_dir(osp.join(svd_path, "vae")), clip)
 
-    def _load_cond_images(self, input_dict: dict) -> torch.Tensor:
-        """[B, H, W, 3] fp32 in [-1, 1] on the device, from b_image or
-        <save_dir>/cond_rgb.png, as the reference makes it on the host:
-        truncated to uint8, resized to the generation size by PIL's default
-        filter, then scaled."""
-        from PIL import Image
+    def warmup(self, batch_sizes=(1,)) -> None:
+        """Run one generation per batch size before serving, so the first
+        client does not pay for the first calls; on the card this first
+        builds every CUDA kernel of the package (one nvcc per source, in
+        parallel)."""
+        if self.device.type == "cuda":
+            from wiw_tpu_torch.ops import native
 
-        if input_dict.get("b_image") is not None:
-            imgs = np.asarray(input_dict["b_image"])
-            if imgs.ndim == 4 and imgs.shape[1] in (3, 4):  # BCHW -> BHWC
-                imgs = np.transpose(imgs[:, :3], (0, 2, 3, 1))
-        else:
-            imgs = np.stack([
-                np.asarray(Image.open(osp.join(d, "cond_rgb.png")).convert("RGB"))
-                for d in input_dict["save_dirs"]])
-        H, W = self.gen.height, self.gen.width
-        resized = np.stack([
-            np.asarray(Image.fromarray(im.astype(np.uint8)).resize((W, H)))
-            for im in imgs])
-        return torch.from_numpy(resized).to(self.device, torch.float32) / 127.5 - 1.0
+            native.load_libraries(*native.LIBRARIES)
+        F = self.gen.num_frames
+        for b in batch_sizes:
+            img = torch.zeros((b, self.gen.height, self.gen.width, 3),
+                              device=self.device)
+            cfg = self.pipe.unet_config
+            if cfg.action_strategy is None:
+                acts = None
+            elif self.task_type == "manipulation" and not cfg.uses_action_block:
+                # poses at the identity rotation (xyz, quaternion xyzw, grip)
+                acts = torch.zeros((b, F, 8))
+                acts[..., 6] = 1.0
+            else:
+                acts = torch.full((b, F), 1, dtype=torch.int64)
+            self.pipe.generate(img, self.gen, actions=acts,
+                               generator=torch.Generator(
+                                   device=self.device).manual_seed(0))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            print(f"[svd_action] warmed batch={b}", flush=True)
+
+    def _load_cond_images(self, input_dict: dict) -> torch.Tensor:
+        """`cond_images` at the generation size, on the device."""
+        return torch.from_numpy(cond_images(
+            input_dict, self.gen.height, self.gen.width)).to(self.device)
 
     def __call__(self, input_dict: dict) -> dict:
         actions = torch.as_tensor(np.asarray(input_dict["b_action"]))
