@@ -92,6 +92,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
      `SVDPipeline.denoise` from the same initial latents); one full-width
      action_block request (K1 32 a forward) and one igenex_manip request
      (448x448, [1, 14, 8] poses), int8, at a cut depth
+  5f. rollouts: the serving target, 8 concurrent closed-loop agent
+     rollouts: 8 threads of the port's `serve.benchmarks.run_benchmark`
+     (heuristic candidates -> WM request -> pick -> step; 2 decision steps
+     of 2 candidates, 14 frames) against `server_cli`'s default engine (4
+     slots, int8, SERVING_CFG) at 10 steps (a cut depth); every answer
+     [2, 14, 3, 480, 480] uint8, no error, no worker restart, each tick's
+     K1 / K7 / K8 launches against hooks; the benchmark's own keys
+     (rollout steps/s, latency p50 / p95), served frames/s, the tick
+     figures, the idle-slot share, phase_s and the peak
+  5g. eval: a trajectory tree (2 clips of 14 PNG frames at 576x1024),
+     random LPIPS and I3D weights in the upstream layouts named by
+     WIW_LPIPS_WEIGHTS / WIW_I3D_WEIGHTS; `eval.inference_cli` at full
+     width and 10 steps (random weights: the metrics check the route, not
+     quality) whose metrics.json must hold psnr, ssim, lpips and fvd;
+     `eval.video_metrics_cli --fvd` on PNG directories of the same frames
+     (the same numbers); I3D features, LPIPS distances and
+     `frechet_distance` on the card against the CPU (tolerances stated
+     below)
+  5h. past_images + alt: one full-width request through
+     `SVDPipeline.generate` with Np = 2 past images and the 'alt' CFG tail
+     (odd), 10 steps; seconds, peak, K1's launches against the count hooks
+     make; then K1 against its plain version at Skv = 3 and at the
+     temporal fold of level 0, split into two launches (B*H 92160 > 65535)
+     (the small-input phase also runs past_images + alt, tiny, against the
+     CPU in fp32)
   6. training: K1 with its LSE output and K3 (flash-attention backward) at
      the four training shapes against the plain forward, LSE and backward
      (K1's output bits the same with and without the LSE), K6's gradients
@@ -1068,6 +1093,32 @@ def small_reference_phase(dev):
         if took != (True, label == "fused", label == "fused", label == "int8", True):
             raise RuntimeError(f"small-input {label} run took the wrong kernels: {counts}")
         del card
+    # past_images (Np = 2: three context tokens, every cross-attention
+    # multi-token) with the 'alt' tail (5 steps: full 0-2, alt 2-5, odd), on
+    # the default configuration's weights, against the CPU in fp32
+    from wiw_tpu_torch.core.schedule import CFGSchedule
+
+    gen_alt = dataclasses.replace(gen, num_inference_steps=5, cfg=CFGSchedule(
+        tail_sigma=20.0, tail_policy="alt"))
+    past = torch.from_numpy(rng.uniform(-1, 1, (1, 2, 64, 64, 3)).astype(np.float32))
+    card = SVDPipeline(*bf16, device=dev)
+    card.load_state_dicts(cpu.unet.state_dict(), cpu.vae.state_dict(),
+                          cpu.clip.state_dict())
+    want = cpu.generate(image, gen_alt, actions, past, init_latents=noise)
+    reset_launches()
+    got = card.generate(image, gen_alt, actions, past, init_latents=noise)
+    counts = launches()
+    diff = (got.float().cpu() - want).abs()
+    print(f"small input past_images + alt (3f 64x64, Np 2, 5 steps, segments "
+          f"{segments_of(gen_alt)}): card bf16 vs CPU fp32 max|diff| "
+          f"{diff.max().item():.6g} mean|diff| {diff.mean().item():.6g} (tol "
+          f"{SMALL_ATOL} / mean {SMALL_MEAN_ATOL}); launches {counts}", flush=True)
+    if not (torch.isfinite(got).all() and diff.max() <= SMALL_ATOL
+            and diff.mean() <= SMALL_MEAN_ATOL):
+        raise RuntimeError("small-input past_images + alt run disagrees with the CPU")
+    if counts != expected({"K1": counts["K1"]}, counts["K8"]) or not counts["K1"]:
+        raise RuntimeError(f"small-input past_images + alt took the wrong kernels: {counts}")
+    del card
 
 
 def count_int8_calls(*towers):
@@ -1732,6 +1783,34 @@ SERVE_CLIENTS = (("A", 2, 0), ("B", 2, 3))  # (name, candidates, ticks before)
 # and the action_block and manipulation requests: a cut depth
 CHECK_STEPS = 8
 WORLD_STEPS = 10
+# the rollouts phase: the serving target of at least 8 concurrent
+# closed-loop agent rollouts (BASELINE.md), against server_cli's default
+# engine at a cut depth of 10 steps (its default is 30)
+ROLLOUT_CLIENTS, ROLLOUT_DECISIONS, ROLLOUT_CANDIDATES = 8, 2, 2
+ROLLOUT_STEPS = 10
+# the eval phase: inference_cli on EVAL_CLIPS clips at a cut depth; LPIPS
+# held card vs CPU on LPIPS_FRAMES frame pairs at 576x1024
+EVAL_CLIPS, EVAL_STEPS, LPIPS_FRAMES = 2, 10, 4
+EVAL_HW = (576, 1024)  # inference_cli's default size
+# the eval towers on the card against the CPU, fp32 with TF32 off: both sum
+# fp32 products in their own orders through ~22 layers (I3D) or 5 (AlexNet),
+# ~1e-6 relative a layer, so every element within TOWER_REL of max |ref|
+# and a relative Frobenius error within TOWER_REL. frechet_distance (which
+# computes on the host): FD_REL relative on well-conditioned features
+# (256 x 64) given on the card and on the CPU; on the run's own
+# features (2 clips a side: rank-1 400 x 400 covariances, whose fp32
+# eigendecomposition is ~1% of their traces off float64 on either side,
+# tests/test_torch_eval.py) within FD_TRACE_REL of the traces' sum
+TOWER_REL, FD_REL, FD_TRACE_REL = 1e-4, 1e-4, 2e-2
+# the past_images + alt request: 10 steps (a cut depth); tail from sigma
+# 1.0 makes the segments full 0-7, alt 7-10 (odd: stale, full, stale)
+PAST_STEPS, PAST_TAIL_SIGMA = 10, 1.0
+
+
+def segments_of(gen) -> tuple:
+    from wiw_tpu_torch.core.schedule import cfg_row_segments
+
+    return cfg_row_segments(gen.num_inference_steps, gen.cfg, gen.edm)
 
 
 def free_port() -> int:
@@ -1789,38 +1868,39 @@ def shape_checks(label: str, norms: dict, int8_calls: dict, dev, g):
     torch.cuda.empty_cache()
 
 
-def serve_phase(rows: dict, dev, g) -> dict:
-    """The WM server's default path: `server_cli.build_executors` with the
-    CLI's defaults (warmup included), a `ManagerServer` on a free port,
-    two `WMClient` threads (SERVE_CLIENTS). Per tick (the engine's
-    `_step_once`, wrapped): CUDA events and the launches against the
-    GroupNorm and int8 calls counted by hooks in that tick, K1 16 a tick.
-    Then each request's seconds, served frames/s, the tail share, phase_s
-    and peak memory, and K8/K7 held to their plain versions at every shape
-    the run gave them (112 and 56 UNet rows, the whole-clip decode).
-    Returns the launches over the served run."""
+def build_server(*flags):
+    """`server_cli.build_executors` with the CLI's defaults and `flags`, on
+    a free local port (warmup included): (args, executors, the default
+    continuous executor, its engine, the engine's pipeline, int8 weights)."""
     from wiw_tpu_torch.ops import quant as TQ
     from wiw_tpu_torch.serve import server_cli
-    from wiw_tpu_torch.serve.manager import ManagerServer, WMClient
 
     t0 = time.perf_counter()
     args, extra = server_cli.build_parser().parse_known_args(
-        ["--host", "127.0.0.1", "--port", str(free_port())])
+        ["--host", "127.0.0.1", "--port", str(free_port()), *flags])
     execs = server_cli.build_executors(args, extra)
     torch.cuda.synchronize()
     ex = execs[0]
     eng, pipe = ex.engine, ex.engine.pipe
     n_int8 = TQ.count_quantized(pipe.unet)
-    print(f"serve: server_cli defaults (wm_type {args.wm_type}, executor "
-          f"{args.executor}, {eng.S} slots, quantize {args.quantize} ({n_int8} int8 "
-          f"weights), {eng.num_steps} steps, tail from step {eng._tail_start}, "
-          f"{eng.gen.height}x{eng.gen.width}, {eng.F} frames, out {eng.out_hw}, "
-          f"warmup batches {args.warmup_batches!r}): built and warmed in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    if (len(execs), eng.S, eng.num_steps, n_int8) != (1, 4, 30, 98) or (
-            eng._tail_start is None):
+    print(f"server_cli {' '.join(flags) or 'defaults'} (wm_type {args.wm_type}, "
+          f"executor {args.executor}, {eng.S} slots, quantize {args.quantize} "
+          f"({n_int8} int8 weights), {eng.num_steps} steps, tail from step "
+          f"{eng._tail_start}, {eng.gen.height}x{eng.gen.width}, {eng.F} frames, out "
+          f"{eng.out_hw}, warmup batches {args.warmup_batches!r}): built and warmed "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    if (len(execs), eng.S, eng.num_steps, n_int8) != (1, 4, args.num_inference_steps,
+                                                       98) or eng._tail_start is None:
         raise RuntimeError("server_cli's defaults did not build the 4-slot int8 engine")
+    return args, execs, ex, eng, pipe
 
+
+def watch_ticks(eng, pipe):
+    """Wraps the engine's `_step_once`: per tick CUDA events, the active
+    slots and the launches, with what they must be (K1 16 a tick, K8 the
+    GroupNorm calls and K7 the int8 layer calls hooks counted in that
+    tick, every other kernel 0). Returns (the ticks, the GroupNorm and int8
+    call counters, a function that undoes it all)."""
     norms, norm_hooks = count_group_norms(pipe.unet, pipe.vae)
     int8_calls, int8_hooks = count_int8_calls(pipe.unet, pipe.vae)
     ticks = []
@@ -1846,7 +1926,57 @@ def serve_phase(rows: dict, dev, g) -> dict:
                       "active": sum(s.active for s in eng._slots)})
         return out
 
+    def restore():
+        del eng._step_once  # the class's method again: no cycle through eng
+        for h in norm_hooks + int8_hooks:
+            h.remove()
+
     eng._step_once = tick
+    return ticks, norms, int8_calls, restore
+
+
+def tick_summary(label: str, ticks: list, slots: int) -> dict:
+    """Checks every tick's launches against what it must be, prints the
+    first full and cond-only tick's, and returns the tick figures: counts,
+    median ms of each kind, the tail share, the active slots by tick and
+    the idle-slot share (slot-ticks computed with no request in them)."""
+    by_kind = {False: [], True: []}
+    for t in ticks:
+        by_kind[t["cond_only"]].append(t["events"][0].elapsed_time(t["events"][1]))
+        if t["counts"] != t["want"]:
+            raise RuntimeError(f"{label} tick launches {t['counts']}, expected {t['want']}")
+    full, cond = by_kind[False], by_kind[True]
+    first = {c: next(t for t in ticks if t["cond_only"] == c) for c in (False, True)
+             if any(t["cond_only"] == c for t in ticks)}
+    for c, t in first.items():
+        keep = {k: t["counts"][k] for k in ("K1", "K7-dense", "K7-conv", "K8")}
+        print(f"{label} launches a {'cond-only (4-row)' if c else 'full (8-row)'} "
+              f"tick: {keep}, expected {({k: t['want'][k] for k in keep})} (every "
+              f"other kernel 0)", flush=True)
+    active = [t["active"] for t in ticks]
+    return {"ticks": len(ticks), "full_ticks": len(full), "cond_ticks": len(cond),
+            "tail_share": len(cond) / len(ticks),
+            "full_tick_ms": float(np.median(full)),
+            "full_tick_ms_range": (float(np.mean(full)), min(full), max(full)),
+            "cond_tick_ms": float(np.median(cond)) if cond else None,
+            "active": active, "ticks_s": (sum(full) + sum(cond)) / 1e3,
+            "idle_slot_share": 1.0 - sum(active) / (slots * len(ticks))}
+
+
+def serve_phase(rows: dict, dev, g) -> dict:
+    """The WM server's default path: `server_cli.build_executors` with the
+    CLI's defaults (warmup included), a `ManagerServer` on a free port,
+    two `WMClient` threads (SERVE_CLIENTS). Per tick (the engine's
+    `_step_once`, wrapped): CUDA events and the launches against the
+    GroupNorm and int8 calls counted by hooks in that tick, K1 16 a tick.
+    Then each request's seconds, served frames/s, the tail share, phase_s
+    and peak memory, and K8/K7 held to their plain versions at every shape
+    the run gave them (112 and 56 UNet rows, the whole-clip decode).
+    Returns the launches over the served run."""
+    from wiw_tpu_torch.serve.manager import ManagerServer, WMClient
+
+    args, execs, ex, eng, pipe = build_server()
+    ticks, norms, int8_calls, restore = watch_ticks(eng, pipe)
     server = ManagerServer(execs, host="127.0.0.1", port=args.port)
     port = server.start()
     results, errors = {}, []
@@ -1879,9 +2009,7 @@ def serve_phase(rows: dict, dev, g) -> dict:
     total = launches()
     peak = torch.cuda.max_memory_allocated() / 2**30
     server.stop()
-    eng._step_once = real_step
-    for h in norm_hooks + int8_hooks:
-        h.remove()
+    restore()
     if errors or any(t.is_alive() for t in threads) or len(results) != len(SERVE_CLIENTS):
         raise RuntimeError(f"serve clients failed: {errors}")
     frames = 0
@@ -1896,37 +2024,116 @@ def serve_phase(rows: dict, dev, g) -> dict:
                 pred.dtype != np.uint8) or pred.min() == pred.max():
             raise RuntimeError(f"serve client {name}: bad answer {out.get('error')}")
         frames += n * FRAMES
-    by_kind = {False: [], True: []}
-    for t in ticks:
-        by_kind[t["cond_only"]].append(t["events"][0].elapsed_time(t["events"][1]))
-        if t["counts"] != t["want"]:
-            raise RuntimeError(f"serve tick launches {t['counts']}, expected {t['want']}")
-    full, cond = by_kind[False], by_kind[True]
-    first = {c: next(t for t in ticks if t["cond_only"] == c) for c in (False, True)
-             if any(t["cond_only"] == c for t in ticks)}
-    for c, t in first.items():
-        keep = {k: t["counts"][k] for k in ("K1", "K7-dense", "K7-conv", "K8")}
-        print(f"serve launches a {'cond-only (4-row)' if c else 'full (8-row)'} "
-              f"tick: {keep}, expected {({k: t['want'][k] for k in keep})} (every "
-              f"other kernel 0)", flush=True)
-    info = {"ticks": len(ticks), "full_ticks": len(full), "cond_ticks": len(cond),
-            "tail_share": len(cond) / len(ticks),
-            "full_tick_ms": float(np.median(full)),
-            "cond_tick_ms": float(np.median(cond)) if cond else None,
-            "wall_s": wall, "frames_s": frames / wall, "peak_gib": peak,
-            "phase_s": dict(ex.phase_s),
-            "request_s": {name: results[name][0] for name, _, _ in SERVE_CLIENTS}}
-    print(f"serve: {len(ticks)} ticks, {len(full)} full (8 UNet rows) at median "
-          f"{info['full_tick_ms']:.2f} ms (mean {np.mean(full):.2f}, min "
-          f"{min(full):.2f}, max {max(full):.2f}), {len(cond)} cond-only (4 rows) at "
-          f"median {info['cond_tick_ms']} ms; tail share {info['tail_share']:.4f}; "
-          f"active slots by tick {[t['active'] for t in ticks]}; wall {wall:.3f} s, "
-          f"served {frames} frames = {info['frames_s']:.4f} frames/s; phase_s "
-          f"{info['phase_s']}; peak {peak:.2f} GiB; launches {total}", flush=True)
-    if not cond or not total["K1"] or not total["K7-dense"] or not total["K8"]:
+    info = tick_summary("serve", ticks, eng.S)
+    info.update({"wall_s": wall, "frames_s": frames / wall, "peak_gib": peak,
+                 "phase_s": dict(ex.phase_s),
+                 "request_s": {name: results[name][0] for name, _, _ in SERVE_CLIENTS}})
+    mean, lo, hi = info.pop("full_tick_ms_range")
+    print(f"serve: {info['ticks']} ticks, {info['full_ticks']} full (8 UNet rows) at "
+          f"median {info['full_tick_ms']:.2f} ms (mean {mean:.2f}, min {lo:.2f}, max "
+          f"{hi:.2f}), {info['cond_ticks']} cond-only (4 rows) at median "
+          f"{info['cond_tick_ms']} ms; tail share {info['tail_share']:.4f}; active "
+          f"slots by tick {info['active']}; wall {wall:.3f} s, served {frames} frames "
+          f"= {info['frames_s']:.4f} frames/s; phase_s {info['phase_s']}; peak "
+          f"{peak:.2f} GiB; launches {total}", flush=True)
+    if not info["cond_ticks"] or not total["K1"] or not total["K7-dense"] or not total["K8"]:
         raise RuntimeError("the serve run missed the tail or a kernel of its path")
     rows["K8"].d["serve"] = rows["K7-dense"].d["serve"] = info
     shape_checks("serve", norms, int8_calls, dev, g)
+    del execs, ex, eng, pipe, server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def rollouts_phase(rows: dict) -> dict:
+    """The serving target, concurrent closed-loop rollouts: ROLLOUT_CLIENTS
+    threads of the port's `serve.benchmarks.run_benchmark` (each agent:
+    heuristic candidates -> one WM request -> pick -> step, ROLLOUT_DECISIONS
+    times, ROLLOUT_CANDIDATES candidates of 14 frames) against one
+    `server_cli` default engine at ROLLOUT_STEPS steps (a cut depth).
+    Every answer must be [2, 14, 3, 480, 480] uint8 with no error, no
+    worker restarted, and every tick's launches what hooks say (as the
+    serve phase's). Prints the benchmark's own figures, served frames/s,
+    the tick figures, the idle-slot share, phase_s and the peak. Returns
+    the launches over the run."""
+    import shutil
+    import tempfile
+
+    from wiw_tpu_torch.serve import benchmarks
+    from wiw_tpu_torch.serve.manager import ManagerServer, WMClient
+
+    args, execs, ex, eng, pipe = build_server(
+        "--num_inference_steps", str(ROLLOUT_STEPS))
+    ticks, norms, int8_calls, restore = watch_ticks(eng, pipe)
+    answers, lock = [], threading.Lock()
+    real_send = WMClient.send_batch
+
+    def send(self, input_dict):  # every client's answers, for the checks
+        out = real_send(self, input_dict)
+        with lock:
+            answers.append(out)
+        return out
+
+    server = ManagerServer(execs, host="127.0.0.1", port=args.port)
+    port = server.start()
+    root = tempfile.mkdtemp(prefix="wiw_rollouts_")
+    WMClient.send_batch = send
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        bench = benchmarks.run_benchmark(
+            port, clients=ROLLOUT_CLIENTS, steps=ROLLOUT_DECISIONS,
+            candidates=ROLLOUT_CANDIDATES, frames=FRAMES, save_root=root)
+    finally:
+        wall = time.perf_counter() - t0
+        WMClient.send_batch = real_send
+        torch.cuda.synchronize()
+        total = launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        stats = server.get_stats()
+        server.stop()
+        restore()
+        shutil.rmtree(root, ignore_errors=True)
+    requests = ROLLOUT_CLIENTS * ROLLOUT_DECISIONS
+    bad = [(a.get("error"), None if a.get("pred_frames") is None else
+            (a["pred_frames"].shape, str(a["pred_frames"].dtype))) for a in answers
+           if "error" in a or a.get("pred_frames") is None
+           or a["pred_frames"].shape != (ROLLOUT_CANDIDATES, FRAMES, 3, 480, 480)
+           or a["pred_frames"].dtype != np.uint8]
+    print(f"rollouts ({ROLLOUT_CLIENTS} clients x {ROLLOUT_DECISIONS} decision "
+          f"steps x {ROLLOUT_CANDIDATES} candidates, server_cli defaults at "
+          f"{ROLLOUT_STEPS} steps, a cut depth): run_benchmark {json.dumps(bench)}; "
+          f"{len(answers)} answers, {len(bad)} bad; manager stats requests "
+          f"{stats['requests']} items {stats['items']} errors {stats['errors']} "
+          f"worker restarts {stats['worker_restarts']} workers alive "
+          f"{stats['workers_alive']}", flush=True)
+    if bad or len(answers) != requests or stats["errors"] or stats["worker_restarts"] or (
+            stats["requests"], stats["items"]) != (requests, requests * ROLLOUT_CANDIDATES):
+        raise RuntimeError(f"rollouts: bad answers {bad[:3]} or stats {stats}")
+    info = tick_summary("rollouts", ticks, eng.S)
+    frames = requests * ROLLOUT_CANDIDATES * FRAMES
+    mean, lo, hi = info.pop("full_tick_ms_range")
+    info.update({**bench, "wall_s": wall, "frames_s": frames / wall, "peak_gib": peak,
+                 "phase_s": dict(ex.phase_s), "steps": ROLLOUT_STEPS})
+    print(f"rollouts: {info['ticks']} ticks, {info['full_ticks']} full (8 UNet rows) at "
+          f"median {info['full_tick_ms']:.2f} ms (mean {mean:.2f}, min {lo:.2f}, max "
+          f"{hi:.2f}), {info['cond_ticks']} cond-only (4 rows) at median "
+          f"{info['cond_tick_ms']} ms; tail share {info['tail_share']:.4f}; active "
+          f"slots by tick {info['active']}; idle-slot share "
+          f"{info['idle_slot_share']:.4f}; wall {wall:.3f} s, served {frames} frames "
+          f"= {info['frames_s']:.4f} frames/s; rollout steps/s "
+          f"{bench['rollout_steps_per_sec']}, latency p50 {bench['latency_p50_s']} s "
+          f"p95 {bench['latency_p95_s']} s; the ticks' device time {info['ticks_s']:.3f} "
+          f"s of the engine phase's {info['phase_s']['engine']:.3f} s (host clock: the "
+          f"rest is the whole-clip decodes and host waits between ticks); phase_s "
+          f"{info['phase_s']}; peak "
+          f"{peak:.2f} GiB; launches {total}", flush=True)
+    if not total["K1"] or not total["K7-dense"] or not total["K7-conv"] or not total["K8"]:
+        raise RuntimeError("the rollouts missed a kernel of their path")
+    rows["K1"].d["rollouts"] = info
     del execs, ex, eng, pipe, server
     gc.collect()
     torch.cuda.empty_cache()
@@ -2057,6 +2264,319 @@ def world_phase(dev, label: str, k1_per_forward: int, int8_weights: int,
                            f"{n_int8} int8 weights, expected {int8_weights}")
     del worker
     gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def count_k1_and_norms():
+    """A global forward pre-hook: the K1 launches each attention call must
+    make (a `CrossAttention` proper: self-attention, or a multi-token
+    context, positions folded into the batch on 4-D inputs, one launch a
+    range of `batch_splits`; a one-token context takes no kernel) and the
+    GroupNorm calls (K8 one each). Returns (the counts, the handle)."""
+    from wiw_tpu_torch.models.layers import CrossAttention, GroupNorm
+    from wiw_tpu_torch.ops.flash_attention import batch_splits
+
+    n = {"K1": 0, "K8": 0}
+
+    def pre(m, args):
+        if type(m) is CrossAttention:
+            x, ctx = args[0], args[1] if len(args) > 1 else None
+            if ctx is None or ctx.shape[-2] > 1:
+                rows = x.shape[0] * (x.shape[2] if x.ndim == 4 else 1)
+                n["K1"] += len(batch_splits(rows, m.heads))
+        elif isinstance(m, GroupNorm):
+            n["K8"] += 1
+
+    return n, torch.nn.modules.module.register_module_forward_pre_hook(pre)
+
+
+def upstream_weights(tower: str, seed: int) -> dict:
+    """Random weights in the upstream key layouts (eval/manifest.py): the
+    lpips heads with torchvision's AlexNet trunk, or pytorch-i3d's
+    i3d_pretrained_400 (convs scaled so 22 ReLU layers keep their scale,
+    BatchNorm statistics away from the identity)."""
+    from wiw_tpu_torch.eval import manifest
+
+    g = torch.Generator().manual_seed(seed)
+    if tower == "lpips":
+        return {k: (torch.rand(sh, generator=g) * 0.1 if k.startswith("lin")
+                    else torch.randn(sh, generator=g) / np.sqrt(np.prod(sh[1:])))
+                for k, sh in manifest.expected_lpips_keys().items()}
+    sd = {}
+    for k, sh in manifest.expected_i3d_keys().items():
+        if k.endswith(("running_var", "bn.weight")):
+            sd[k] = torch.rand(sh, generator=g) + 0.5
+        elif k.endswith("running_mean"):
+            sd[k] = torch.randn(sh, generator=g) * 0.3
+        elif k.endswith("bias"):
+            sd[k] = torch.randn(sh, generator=g) * 0.05
+        else:
+            sd[k] = torch.randn(sh, generator=g) * (1.2 / np.sqrt(np.prod(sh[1:])))
+    return sd
+
+
+def write_trajectories(root: str, clips: int, frames: int, h: int, w: int, seed: int):
+    """A trajectory tree in the layout the datasets read
+    (<scene>/traj-<i>/waypoint-0/step-<k>_type-rgb.png + metadata.json with
+    each step's action): `clips` trajectories of `frames` smooth frames
+    moving across the image, actions from a seed."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    names = ["stop", "move_forward", "turn_left", "turn_right"]
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    for c in range(clips):
+        d = os.path.join(root, "sceneA", f"traj-{c}", "waypoint-0")
+        os.makedirs(d)
+        phase = rng.uniform(0, 6.28, 3).astype(np.float32)
+        steps = {}
+        for k in range(frames):
+            img = 127.5 + 100 * np.sin(xx[..., None] / (40 + 10 * c) + yy[..., None] / 55
+                                       + phase + 0.3 * k)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(d, f"step-{k}_type-rgb.png"))
+            steps[f"step-{k}"] = {"action": names[0] if k == 0 else
+                                  names[int(rng.integers(1, 4))], "coord": [0, 0, 0]}
+        with open(os.path.join(d, "metadata.json"), "w") as f:
+            json.dump({"steps": {"waypoint-0": steps}}, f)
+
+
+def eval_phase(dev) -> dict:
+    """The offline evaluation path at full width: a trajectory tree of
+    EVAL_CLIPS clips of 14 frames at 576x1024, random upstream-layout LPIPS
+    and I3D checkpoints named by WIW_LPIPS_WEIGHTS / WIW_I3D_WEIGHTS (set
+    before the towers' modules are first imported: they read them once),
+    `inference_cli.main` (SVD-dagger with random weights, EVAL_STEPS steps)
+    whose metrics.json must hold psnr, ssim, lpips and fvd, then
+    `video_metrics_cli --fvd` on PNG directories of the same frames (the
+    same numbers), then the towers on the card held to the same modules on
+    the CPU (fp32, TF32 off; the tolerances above). Random weights: the
+    numbers check the route, not the quality. Returns the launches of the
+    inference_cli run."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="wiw_eval_")
+    try:
+        root, out = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        write_trajectories(root, EVAL_CLIPS, FRAMES, *EVAL_HW, seed=21)
+        paths = {"lpips": os.path.join(tmp, "lpips.pth"),
+                 "i3d": os.path.join(tmp, "i3d_pretrained_400.pt")}
+        for tower, path in paths.items():
+            torch.save(upstream_weights(tower, seed=3), path)
+        if any(m in sys.modules for m in ("wiw_tpu_torch.eval.lpips",
+                                          "wiw_tpu_torch.eval.fvd")):
+            raise RuntimeError("the eval towers were imported before their weights were named")
+        os.environ["WIW_LPIPS_WEIGHTS"], os.environ["WIW_I3D_WEIGHTS"] = (
+            paths["lpips"], paths["i3d"])
+        from wiw_tpu_torch.agents import saver
+        from wiw_tpu_torch.eval import fvd, inference_cli, lpips, video_metrics_cli
+        from wiw_tpu_torch.eval.metrics import frechet_distance
+
+        stitched, real_save = [], saver.save_video
+
+        def capture(path, frames, fps=7):  # the gen | gt clips inference_cli saves
+            stitched.append(frames.copy())
+            return real_save(path, frames, fps)
+
+        saver.save_video = capture
+        n, handle = count_k1_and_norms()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t = time.perf_counter()
+        try:
+            metrics = inference_cli.main([
+                "--data_root", root, "--out_dir", out, "--num_clips", str(EVAL_CLIPS),
+                "--num_inference_steps", str(EVAL_STEPS)])
+        finally:
+            saver.save_video = real_save
+            handle.remove()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = launches()
+        want = expected({"K1": n["K1"]}, n["K8"])
+        with open(os.path.join(out, "metrics.json")) as f:
+            saved = json.load(f)
+        print(f"eval: inference_cli at {EVAL_HW[0]}x{EVAL_HW[1]}, {EVAL_CLIPS} clips of {FRAMES} frames, "
+              f"{EVAL_STEPS} steps (a cut depth), random weights (the numbers check "
+              f"the route, not quality): {secs:.3f} s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; metrics.json "
+              f"{json.dumps(saved)}; files {sorted(os.listdir(out))}; launches "
+              f"{counts} (K1 expected {want['K1']}, K8 {want['K8']})", flush=True)
+        if set(saved) != {"psnr", "ssim", "lpips", "fvd"} or not all(
+                np.isfinite(v) for v in saved.values()) or saved != metrics:
+            raise RuntimeError(f"eval: metrics.json {saved}")
+        if counts != want or not counts["K1"] or not counts["K8"]:
+            raise RuntimeError(f"eval: launches {counts}, expected {want}")
+
+        gen_dirs, gt_dirs = [], []
+        w = EVAL_HW[1]
+        for i, clip in enumerate(stitched):  # [T, H, W + 4 + W, 3]: gen | gt
+            for name, part, dirs in (("gen", clip[:, :, :w], gen_dirs),
+                                     ("gt", clip[:, :, w + 4:], gt_dirs)):
+                d = os.path.join(tmp, f"{name}{i}")
+                for k, frame in enumerate(part):
+                    saver.save_image(os.path.join(d, f"{k:03d}.png"), frame)
+                dirs.append(d)
+        vm = video_metrics_cli.main(["--gen", *gen_dirs, "--gt", *gt_dirs, "--fvd"])
+        same = {k: abs(vm[k] - saved[k]) <= 1e-6 * max(1.0, abs(saved[k])) for k in saved}
+        print(f"eval: video_metrics_cli --fvd on PNG directories of the same frames: "
+              f"{json.dumps(vm)}; the same as metrics.json (1e-6 relative): {same}",
+              flush=True)
+        if set(vm) != set(saved) or not all(same.values()):
+            raise RuntimeError("video_metrics_cli disagrees with inference_cli")
+
+        # the towers on the card against the same modules on the CPU
+        clips = torch.stack([torch.from_numpy(video_metrics_cli.load_clip(d))
+                             for d in gen_dirs + gt_dirs]).to(dev).float() / 255.0
+        card_ev = fvd.FVDEvaluator()
+        cpu_ev = fvd.FVDEvaluator(model=fvd.load_i3d_weights(paths["i3d"]))
+        feats = {"card": card_ev.features(clips)}
+        feats["cpu"] = cpu_ev.features(clips.cpu())
+        _, line = tower_check("I3D features (FVDEvaluator.features)", feats["card"],
+                              feats["cpu"])
+        print(f"eval: {line}", flush=True)
+        lp_card = lpips.default_lpips()
+        lp_cpu = lpips.load_lpips_weights(paths["lpips"])
+        a, b = clips[0, :LPIPS_FRAMES], clips[EVAL_CLIPS, :LPIPS_FRAMES]
+        d_card = lp_card(a, b)
+        with torch.no_grad():
+            d_cpu = lp_cpu(a.cpu(), b.cpu())
+        _, line = tower_check(f"LPIPS distances ({LPIPS_FRAMES} frame pairs at "
+                              f"{EVAL_HW[0]}x{EVAL_HW[1]})", d_card, d_cpu)
+        print(f"eval: {line}", flush=True)
+        half = EVAL_CLIPS
+        fd = {k: frechet_distance(f[:half], f[half:]).item() for k, f in feats.items()}
+        f64 = feats["cpu"].double()
+        traces = float(torch.cov(f64[:half].T).trace() + torch.cov(f64[half:].T).trace())
+        g = torch.Generator().manual_seed(5)
+        w1, w2 = torch.randn(256, 64, generator=g), torch.randn(256, 64, generator=g) * 1.3
+        well = {"card": frechet_distance(w1.to(dev), w2.to(dev)).item(),
+                "cpu": frechet_distance(w1, w2).item()}
+        ok_fd = abs(fd["card"] - fd["cpu"]) <= FD_TRACE_REL * traces
+        ok_well = abs(well["card"] - well["cpu"]) <= FD_REL * abs(well["cpu"])
+        # why frechet_distance runs on the host: fp32 eigh of one of those
+        # 64 x 64 covariances on the card (cuSOLVER) and on the CPU (LAPACK)
+        cov = torch.cov(w1.T)
+        errs = {}
+        for where, m in (("card", cov.to(dev)), ("cpu", cov)):
+            lam, vec = torch.linalg.eigh(m)
+            lam64, _ = torch.linalg.eigh(cov.double())
+            errs[where] = ((lam.cpu().double() - lam64).abs().max().item(),
+                           (vec.T @ vec - torch.eye(64, device=vec.device)).abs().max().item())
+        print(f"eval: fp32 eigh of a 64 x 64 covariance (max eigenvalue "
+              f"{lam64.max().item():.4g}): eigenvalues' max|err| against float64 "
+              f"and orthogonality max|V^T V - I|, card (cuSOLVER) {errs['card'][0]:.3g} / "
+              f"{errs['card'][1]:.3g}, CPU (LAPACK) {errs['cpu'][0]:.3g} / "
+              f"{errs['cpu'][1]:.3g}", flush=True)
+        print(f"eval: frechet_distance (on the host) of this run's card and CPU "
+              f"features {fd['card']:.6g} / {fd['cpu']:.6g} (tol {FD_TRACE_REL} x the "
+              f"covariances' traces {traces:.6g}: {ok_fd}); of 256 x 64 normal "
+              f"features on the card and the CPU {well['card']:.6g} / "
+              f"{well['cpu']:.6g} (tol {FD_REL} relative: {ok_well})", flush=True)
+        if not (ok_fd and ok_well):
+            raise RuntimeError("frechet_distance on the card disagrees with the CPU")
+    finally:
+        for k in ("WIW_LPIPS_WEIGHTS", "WIW_I3D_WEIGHTS"):
+            os.environ.pop(k, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tower_check(name: str, out, ref) -> tuple[float, str]:
+    """An eval tower's output on the card against the CPU's: within
+    TOWER_REL of max |ref| at every element and in relative Frobenius
+    error; raises beyond."""
+    out, ref = out.float().cpu(), ref.float()
+    err = (out - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    rel_fro = (torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)).item()
+    line = (f"{name}, card vs CPU (fp32, TF32 off): max|err| {err:.6g} (max|ref| "
+            f"{scale:.6g}), rel_fro {rel_fro:.6g}; tol {TOWER_REL} of max|ref| and "
+            f"rel_fro {TOWER_REL}")
+    if not torch.isfinite(out).all() or err > TOWER_REL * scale or rel_fro > TOWER_REL:
+        raise RuntimeError(f"{line}: disagrees")
+    return err, line
+
+
+def past_alt_phase(dev, g) -> dict:
+    """One full-width request through `SVDPipeline.generate` with
+    past_images (Np = 2: every cross-attention takes 3 context tokens, so
+    K1 runs the spatial ones at Skv 3 and the temporal ones on positions
+    folded into the batch, split by `batch_splits` where B*H passes 65535)
+    and the 'alt' CFG tail (an odd tail: stale, full, stale), PAST_STEPS
+    steps; its seconds, peak and launches (K1's must equal the count
+    hooks make). Then K1 held to its plain version at Skv 3 and at the
+    split fold of level 0. Returns the request's launches."""
+    from wiw_tpu_torch.core.schedule import CFGSchedule
+    from wiw_tpu_torch.models.unet import UNetConfig
+    from wiw_tpu_torch.ops import flash_attention as TFA
+    from wiw_tpu_torch.sampling.pipeline import GenerationConfig, SVDPipeline
+
+    gen = GenerationConfig(num_inference_steps=PAST_STEPS, cfg=CFGSchedule(
+        tail_sigma=PAST_TAIL_SIGMA, tail_policy="alt"))
+    segs = segments_of(gen)
+    if segs[-1][0] != "alt" or (segs[-1][2] - segs[-1][1]) % 2 == 0:
+        raise RuntimeError(f"past+alt: the tail is not an odd alt segment: {segs}")
+    t0 = time.perf_counter()
+    pipe = SVDPipeline(UNetConfig(action_strategy="micro_cond", dtype="bfloat16"),
+                       device=dev)
+    pipe.init_params(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(13)
+    image = torch.from_numpy(rng.uniform(-1, 1, (1, 576, 1024, 3)).astype(np.float32))
+    past = torch.from_numpy(rng.uniform(-1, 1, (1, 2, 576, 1024, 3)).astype(np.float32))
+    actions = torch.tensor([[4, 1, 1, 2, 2, 1, 3, 3, 1, 1, 2, 1, 3, 1]])
+    built = time.perf_counter() - t0
+    n, handle = count_k1_and_norms()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    try:
+        video = pipe.generate(image, gen, actions, past, out_uint8_hw=(480, 480),
+                              generator=torch.Generator(device=dev).manual_seed(1))
+        torch.cuda.synchronize()
+    finally:
+        handle.remove()
+    secs = time.perf_counter() - t
+    counts = launches()
+    want = expected({"K1": n["K1"]}, n["K8"])
+    video = video.cpu().numpy()
+    print(f"past_images + alt (576x1024, Np 2, {PAST_STEPS} steps, segments {segs}; "
+          f"pipeline built in {built:.1f} s): {secs:.3f} s, video {video.shape} "
+          f"{video.dtype} std {video.std():.3f}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1 launches "
+          f"{counts['K1']} (hooks: {n['K1']}), launches {counts}", flush=True)
+    if video.shape != (1, FRAMES, 480, 480, 3) or video.dtype != np.uint8 or (
+            video.min() == video.max()):
+        raise RuntimeError(f"past+alt: bad video {video.shape}")
+    if counts != want or not counts["K1"]:
+        raise RuntimeError(f"past+alt: launches {counts}, expected {want}")
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def heads(rows, S, H):
+        x = torch.randn(rows, S, H * 64, generator=g, device=dev).to(torch.bfloat16)
+        return x.view(rows, S, H, 64).transpose(1, 2)
+
+    for label, (rows, H, Sq) in (("spatial, Skv 3 (level 0)", (28, 5, 9216)),
+                                 ("temporal fold of level 0", (2 * 9216, 5, FRAMES))):
+        q, k, v = heads(rows, Sq, H), heads(rows, 3, H), heads(rows, 3, H)
+        before = TFA.flash_attention.launches
+        out = TFA.flash_attention(q, k, v)
+        made = TFA.flash_attention.launches - before
+        splits = TFA.batch_splits(rows, H)
+        _, line = compare(f"K1 {label}", out, TFA.flash_attention_plain(q, k, v))
+        print(f"  past+alt K1 {label}: q [{rows}, {H}, {Sq}, 64], kv 3 tokens: "
+              f"{made} launches (batch_splits: {splits}); {line}", flush=True)
+        if made != len(splits):
+            raise RuntimeError(f"K1 {label}: {made} launches, expected {len(splits)}")
+        del q, k, v, out
     torch.cuda.empty_cache()
     return counts
 
@@ -2228,6 +2748,9 @@ def main() -> int:
     by_path["manipulation"] = world_phase(
         dev, "manipulation", 16, 98, width=448, height=448,
         task_type="manipulation", action_input_channel=10)
+    by_path["rollouts"] = rollouts_phase(rows)
+    by_path["eval"] = eval_phase(dev)
+    by_path["past_alt"] = past_alt_phase(dev, g)
     by_path["train"] = train_phase(dev)
     for key, row in rows.items():
         d = row.d

@@ -73,6 +73,46 @@ def test_kernel_reads_strided_heads_and_rejects_bad_inputs(cuda_device):
         flash_attention(d80, d80, d80)
 
 
+def _heads(rows, S, H, g, dev):
+    """[rows, H, S, 64] head views of a bf16 [rows, S, H*64] projection."""
+    x = torch.randn(rows, S, H * 64, generator=g, device=dev).to(torch.bfloat16)
+    return x.view(rows, S, H, 64).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,H", [(9216, 5), (2304, 10), (144, 20)])
+def test_kernel_at_three_kv_tokens_on_card(cuda_device, S, H):
+    """K1 as past_images' spatial cross-attention gives it (Np = 2): the
+    2 x 14 frames' queries against Skv = Np + 1 = 3 context tokens, one
+    launch, within the tolerance of its plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = _heads(28, S, H, g, cuda_device), *(_heads(28, 3, H, g, cuda_device)
+                                                  for _ in range(2))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    _close(out, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+def test_split_temporal_fold_on_card(cuda_device):
+    """The temporal cross-attention's fold at level 0 of a 2-row forward:
+    2 x 9216 positions of 14 frames, 5 heads, against 3 tokens, B*H 92160
+    above the grid's 65535: `batch_splits` gives two launches, and the
+    whole output is within the tolerance of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    B, H = 2 * 9216, 5
+    q, k, v = _heads(B, 14, H, g, cuda_device), *(_heads(B, 3, H, g, cuda_device)
+                                                  for _ in range(2))
+    assert TFA.batch_splits(B, H) == [(0, 13107), (13107, B)]
+    before = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    _close(out, flash_attention_plain(q, k, v))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Sq,Skv", [
     (1, 3, 144, 144), (2, 2, 200, 72), (1, 2, 1000, 1000), (1, 2, 64, 64),

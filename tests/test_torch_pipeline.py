@@ -10,8 +10,9 @@ reference's own draws do not enter. Decoding runs in chunks of 2 frames
 
 Also here: the import guard and a static scan (no module of wiw_tpu_torch,
 nor chip_smoke.py, imports jax, flax or wiw_tpu), one generate with the
-fused-kernel configuration (K4, K6) on the same weights, and one in W8A8
-int8 (`quantize_unet()` on both sides).
+fused-kernel configuration (K4, K6) on the same weights, one in W8A8
+int8 (`quantize_unet()` on both sides), the 'alt' CFG tail at an even and
+an odd length, and `past_images` (Np = 2), each against the reference.
 """
 
 import ast
@@ -27,6 +28,7 @@ import torch
 
 from test_models import TINY_CLIP, TINY_UNET, TINY_VAE
 from wiw_tpu.core.schedule import SERVING_CFG as J_SERVING_CFG
+from wiw_tpu.core.schedule import CFGSchedule as J_CFGSchedule
 from wiw_tpu.sampling.pipeline import GenerationConfig as JGen
 from wiw_tpu.sampling.pipeline import SVDPipeline as JPipe
 from wiw_tpu_torch.core import schedule as TS
@@ -54,11 +56,12 @@ def port_cfg(cls, jcfg, **over):
 
 
 @pytest.fixture(scope="module")
-def runs():
+def tiny():
+    """The reference's tiny pipeline, its weights (numpy) and the inputs."""
+    jpipe = JPipe(J_UNET, TINY_VAE, TINY_CLIP)
     jgen = JGen(height=64, width=64, num_frames=3, num_inference_steps=STEPS,
                 noise_aug_strength=0.0, decode_chunk_frames=2,
                 cfg=J_SERVING_CFG)
-    jpipe = JPipe(J_UNET, TINY_VAE, TINY_CLIP)
     params = jpipe.init_params(jax.random.PRNGKey(0), jgen)
     rng = np.random.default_rng(0)
     image = rng.uniform(-1, 1, (1, 64, 64, 3)).astype(np.float32)
@@ -66,6 +69,36 @@ def runs():
     scale = 2 ** (len(TINY_VAE.block_out_channels) - 1)
     noise = rng.standard_normal((1, 3, 64 // scale, 64 // scale, 4)).astype(
         np.float32)
+    return dict(jpipe=jpipe, jparams=params,
+                params=jax.tree_util.tree_map(np.asarray, params),
+                image=image, actions=actions, noise=noise)
+
+
+def ref_generate(tiny, jgen, **kw) -> np.ndarray:
+    """The reference's generate on its fp32 weights (`runs` quantises the
+    pipeline's tree), from the shared init latents."""
+    jpipe = tiny["jpipe"]
+    jpipe.params = tiny["jparams"]
+    return np.asarray(jpipe.generate(
+        jax.random.PRNGKey(1), tiny["image"], jgen, actions=tiny["actions"],
+        init_latents=tiny["noise"], **kw))
+
+
+def port_pipe(tiny, **unet_over) -> SVDPipeline:
+    pipe = SVDPipeline(port_cfg(UNetConfig, J_UNET, **unet_over),
+                       port_cfg(VAEConfig, TINY_VAE),
+                       port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
+    pipe.load_flax_params(tiny["params"])
+    return pipe
+
+
+@pytest.fixture(scope="module")
+def runs(tiny):
+    jgen = JGen(height=64, width=64, num_frames=3, num_inference_steps=STEPS,
+                noise_aug_strength=0.0, decode_chunk_frames=2,
+                cfg=J_SERVING_CFG)
+    jpipe, params = tiny["jpipe"], tiny["params"]
+    image, actions, noise = tiny["image"], tiny["actions"], tiny["noise"]
     key = jax.random.PRNGKey(1)
     ref = {
         "video": np.asarray(jpipe.generate(key, image, jgen, actions=actions,
@@ -78,10 +111,7 @@ def runs():
     gen = GenerationConfig(height=64, width=64, num_frames=3,
                            num_inference_steps=STEPS, noise_aug_strength=0.0,
                            decode_chunk_frames=2, cfg=TS.SERVING_CFG)
-    pipe = SVDPipeline(port_cfg(UNetConfig, J_UNET),
-                       port_cfg(VAEConfig, TINY_VAE),
-                       port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
-    pipe.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
+    pipe = port_pipe(tiny)
     args = (torch.from_numpy(image), gen)
     kw = dict(actions=torch.from_numpy(actions),
               init_latents=torch.from_numpy(noise))
@@ -91,11 +121,7 @@ def runs():
     }
     # the fused-kernel configuration on the same weights: on the CPU K4's
     # and K6's plain versions where the reference's rules allow the kernels
-    fused = SVDPipeline(port_cfg(UNetConfig, J_UNET, fused_ff=True,
-                                 temporal_attention="pallas"),
-                        port_cfg(VAEConfig, TINY_VAE),
-                        port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
-    fused.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
+    fused = port_pipe(tiny, fused_ff=True, temporal_attention="pallas")
     out["fused"] = fused.generate(*args, **kw).numpy()
     # W8A8: each side quantises the fp32 weights it holds (the reference
     # its tree, the port the values it loads)
@@ -103,7 +129,7 @@ def runs():
                        port_cfg(VAEConfig, TINY_VAE),
                        port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
     out["int8_count"] = int8.quantize_unet()
-    int8.load_flax_params(jax.tree_util.tree_map(np.asarray, params))
+    int8.load_flax_params(params)
     out["int8"] = int8.generate(*args, **kw).numpy()
     ref["int8_count"] = jpipe.quantize_unet()
     ref["int8"] = np.asarray(jpipe.generate(key, image, jgen, actions=actions,
@@ -160,18 +186,60 @@ def test_generate_uint8_frames_within_one_level(runs):
     assert diff.max() <= 1
 
 
-def test_alt_tail_policy_is_not_ported_yet():
-    gen = GenerationConfig(height=16, width=16, num_frames=3,
-                           num_inference_steps=4,
-                           cfg=TS.CFGSchedule(tail_sigma=6.4, tail_policy="alt"))
-    pipe = SVDPipeline(port_cfg(UNetConfig, J_UNET),
-                       port_cfg(VAEConfig, TINY_VAE),
-                       port_cfg(CLIPVisionConfig, TINY_CLIP), device="cpu")
-    pipe.init_params(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        pipe.generate(torch.zeros(1, 16, 16, 3), gen,
-                      actions=torch.tensor([[4, 1, 1]]),
-                      generator=torch.Generator().manual_seed(1))
+ALT_STEPS = 5  # sigmas 700, 134.9, 15.6, 0.678, 0.002
+
+
+@pytest.mark.parametrize("tail_sigma,segments", [
+    (1.0, (("full", 0, 3), ("alt", 3, 5))),    # an even tail: (stale, full)
+    (20.0, (("full", 0, 2), ("alt", 2, 5))),   # odd: (stale, full), stale
+])
+def test_alt_tail_policy_matches_reference(tiny, tail_sigma, segments):
+    """The 'alt' CFG tail (pairs of a stale and a full step, one stale step
+    more when the tail is odd; the full step refreshes the carried uncond)
+    against the reference's generate at 5 steps, from the same init latents
+    with noise_aug_strength 0. Tolerance: the default configuration's, 1e-4
+    absolute on frames in [0, 1] (fp32 at random weights)."""
+    assert TS.cfg_row_segments(ALT_STEPS, TS.CFGSchedule(
+        tail_sigma=tail_sigma, tail_policy="alt")) == segments
+    kw = dict(height=64, width=64, num_frames=3, num_inference_steps=ALT_STEPS,
+              noise_aug_strength=0.0, decode_chunk_frames=2)
+    jgen = JGen(**kw, cfg=J_CFGSchedule(tail_sigma=tail_sigma, tail_policy="alt"))
+    ref = ref_generate(tiny, jgen)
+    gen = GenerationConfig(**kw, cfg=TS.CFGSchedule(tail_sigma=tail_sigma,
+                                                    tail_policy="alt"))
+    out = port_pipe(tiny).generate(
+        torch.from_numpy(tiny["image"]), gen,
+        actions=torch.from_numpy(tiny["actions"]),
+        init_latents=torch.from_numpy(tiny["noise"])).numpy()
+    assert out.shape == ref.shape == (1, 3, 64, 64, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+def test_past_images_generate_matches_reference(tiny):
+    """generate with past_images [B, Np=2, H, W, 3]: their CLIP tokens go
+    before the image's in the context (uncond zeros), so every spatial and
+    temporal cross-attention is multi-token. Against the reference's
+    generate under the serving schedule, same init latents,
+    noise_aug_strength 0. Tolerance: 1e-4 absolute on frames in [0, 1], the
+    default configuration's."""
+    past = np.random.default_rng(5).uniform(-1, 1, (1, 2, 64, 64, 3)).astype(
+        np.float32)
+    jgen = JGen(height=64, width=64, num_frames=3, num_inference_steps=STEPS,
+                noise_aug_strength=0.0, decode_chunk_frames=2,
+                cfg=J_SERVING_CFG)
+    ref = ref_generate(tiny, jgen, past_images=past)
+    gen = GenerationConfig(height=64, width=64, num_frames=3,
+                           num_inference_steps=STEPS, noise_aug_strength=0.0,
+                           decode_chunk_frames=2, cfg=TS.SERVING_CFG)
+    pipe = port_pipe(tiny)
+    args = (torch.from_numpy(tiny["image"]), gen, torch.from_numpy(tiny["actions"]))
+    out = pipe.generate(*args, torch.from_numpy(past),
+                        init_latents=torch.from_numpy(tiny["noise"])).numpy()
+    assert out.shape == ref.shape == (1, 3, 64, 64, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+    # the past tokens move the frames: the check is not vacuous
+    alone = pipe.generate(*args, init_latents=torch.from_numpy(tiny["noise"]))
+    assert np.abs(alone.numpy() - out).max() > 1e-3
 
 
 def test_quantize_comes_before_the_weights():
@@ -228,7 +296,9 @@ print(len(mods))
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 24  # ops/quant, ops/int8_attention too
+    # ops/quant, ops/int8_attention, eval/, serve/benchmarks, agents/solver
+    # and workers/base too
+    assert int(r.stdout.split()[-1]) >= 57
 
 
 def _reference_imports(source: str) -> list:
@@ -257,7 +327,17 @@ def test_no_reference_import_anywhere_in_port_source():
     assert len(files) > 20
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"wiw_tpu_torch/ops/quant.py",
-            "wiw_tpu_torch/ops/int8_attention.py"} <= names
+            "wiw_tpu_torch/ops/int8_attention.py",
+            "wiw_tpu_torch/serve/benchmarks.py",
+            "wiw_tpu_torch/agents/solver.py",
+            "wiw_tpu_torch/workers/base.py",
+            "wiw_tpu_torch/eval/manifest.py",
+            "wiw_tpu_torch/eval/lpips.py",
+            "wiw_tpu_torch/eval/fvd.py",
+            "wiw_tpu_torch/eval/metrics.py",
+            "wiw_tpu_torch/eval/video_metrics_cli.py",
+            "wiw_tpu_torch/eval/inference_cli.py",
+            "wiw_tpu_torch/sampling/eval_cli.py"} <= names
     bad = [(f.relative_to(REPO), hit) for f in files
            for hit in _reference_imports(f.read_text())]
     assert not bad, bad

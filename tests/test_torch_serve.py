@@ -451,6 +451,39 @@ def test_wrong_shape_item_errors_alone_through_port_manager(pipe):
         server.stop()
 
 
+def test_stop_ends_the_accept_thread_and_frees_the_model():
+    """`stop` wakes the threads blocked in accept() and in a connected
+    client's recv() (a close alone does not, on Linux) and returns when the
+    server's, its handlers' and its executors' threads have ended: nothing
+    of the server, its executors or their model is left alive after it, so
+    a process that builds servers in turn (chip_smoke's serve and rollouts
+    phases) gets the card's memory back."""
+    import gc
+    import weakref
+
+    class Model:
+        def __call__(self, d):
+            return {"save_dirs": d["save_dirs"]}
+
+    model = Model()
+    ref = weakref.ref(model)
+    ex = TM.InProcessExecutor(model)
+    server = TM.ManagerServer([ex], port=18280)
+    port = server.start()
+    client = TM.WMClient(port=port)  # stays connected through the stop
+    assert client.send_batch(_request(1))["save_dirs"] == ["d0"]
+    (handler,) = server._clients.values()
+    del model
+    server.stop()
+    assert not any(t.is_alive() for t in (server._acceptor, server._router,
+                                          ex._thread, handler))
+    client.close()
+    del server, ex, handler
+    gc.collect()
+    assert ref() is None
+    TM.ManagerServer([]).stop()  # never started: nothing to stop
+
+
 @pytest.fixture
 def tiny_worlds(monkeypatch):
     """SVDActionWorker builds the tiny towers (the given UNetConfig with

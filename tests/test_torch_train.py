@@ -528,8 +528,30 @@ def test_psnr_ssim_match_reference():
     assert got.keys() == want.keys()
     for k in got:
         assert got[k] == pytest.approx(want[k], rel=1e-5)
-    with pytest.raises(NotImplementedError, match="M8"):
-        TM.evaluate_video_metrics(ta, tb, metrics=("lpips",))
+    # LPIPS through `lpips_fn`, the same random upstream-layout weights in
+    # both packages (64x64 frames: AlexNet's trunk takes no less than ~63);
+    # 1e-4 relative, fp32 convolutions
+    from test_torch_eval import lpips_state_dict
+    from wiw_tpu.eval import lpips as JLP
+    from wiw_tpu_torch.eval import lpips as TLP
+
+    sd = lpips_state_dict(seed=1)
+    params = {"net": {}}
+    for n, name in {0: "conv0", 3: "conv1", 6: "conv2", 8: "conv3", 10: "conv4"}.items():
+        params["net"][name] = {
+            "kernel": sd[f"net.features.{n}.weight"].numpy().transpose(2, 3, 1, 0),
+            "bias": sd[f"net.features.{n}.bias"].numpy()}
+    for i in range(5):
+        params[f"lin{i}"] = sd[f"lin{i}.model.1.weight"].numpy().reshape(-1)
+    a = rng.uniform(0, 1, (1, 2, 64, 64, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.05, a.shape), 0, 1).astype(np.float32)
+    got = TM.evaluate_video_metrics(torch.from_numpy(a), torch.from_numpy(b),
+                                    metrics=("lpips",),
+                                    lpips_fn=TLP.lpips_with_params(sd))
+    want = JM.evaluate_video_metrics(a, b, metrics=("lpips",),
+                                     lpips_fn=JLP.lpips_with_params(params))
+    assert set(got) == set(want) == {"lpips"}
+    assert got["lpips"] == pytest.approx(want["lpips"], rel=1e-4)
 
 
 # -------------------------------------------- the environment's switches

@@ -1,9 +1,12 @@
-"""Video quality metrics: PSNR and SSIM.
+"""Video quality metrics: PSNR, SSIM, LPIPS and the Frechet distance.
 
-Port of the part of `wiw_tpu/eval/metrics.py` that the training CLI's
-validation uses: per-(batch, frame) PSNR and SSIM over channels-last
-[B, T, H, W, C] videos in [0, 1], and `evaluate_video_metrics` for
-("psnr", "ssim"). LPIPS and FVD wait for the rest of M8 (ROADMAP).
+Port of `wiw_tpu/eval/metrics.py`: per-(batch, frame) PSNR and SSIM over
+channels-last [B, T, H, W, C] videos in [0, 1]; `frechet_distance` with
+the symmetric matrix square root by eigendecomposition (the reference's
+replacement of scipy's sqrtm); `evaluate_video_metrics`, the harness's
+per-metric means, LPIPS through `lpips_fn` or the weights WIW_LPIPS_WEIGHTS
+names (eval/lpips.py). FVD is computed apart (eval/fvd.py), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -48,16 +51,51 @@ def ssim(video1: torch.Tensor, video2: torch.Tensor) -> torch.Tensor:
     return m.reshape(B, T, C, -1).mean(dim=(2, 3))
 
 
+def frechet_distance(feats1: torch.Tensor, feats2: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """Frechet distance between feature sets [N1, D], [N2, D]:
+    ||mu1 - mu2||^2 + tr(S1 + S2 - 2 sqrt(S1 S2)), the cross term as the
+    symmetric sqrt(S1^1/2 S2 S1^1/2) by eigendecomposition (exact for PSD
+    inputs); covariances unbiased, eps on their diagonals, fp32. Computed
+    on the host whatever the features' device (a CPU scalar): on the H100,
+    cuSOLVER's fp32 `eigh` is ~20x less exact than LAPACK's (chip_smoke.py's
+    eval phase prints both), and D <= 1024 matrices once an evaluation
+    cost the card nothing worth keeping."""
+    f1, f2 = feats1.detach().float().cpu(), feats2.detach().float().cpu()
+    eye = torch.eye(f1.shape[1], dtype=f1.dtype, device=f1.device)
+    c1 = torch.cov(f1.T) + eps * eye
+    c2 = torch.cov(f2.T) + eps * eye
+
+    def psd_sqrt(m):
+        w, v = torch.linalg.eigh(m)
+        return (v * torch.sqrt(w.clamp_min(0.0))) @ v.T
+
+    s1h = psd_sqrt(c1)
+    cross = psd_sqrt(s1h @ c2 @ s1h)
+    diff = f1.mean(0) - f2.mean(0)
+    return diff @ diff + torch.trace(c1) + torch.trace(c2) - 2.0 * torch.trace(cross)
+
+
 def evaluate_video_metrics(videos1: torch.Tensor, videos2: torch.Tensor,
-                           metrics: tuple[str, ...] = ("ssim", "psnr")) -> dict:
-    """Per-metric means over [B, T, H, W, C] videos in [0,1]."""
-    unknown = set(metrics) - {"psnr", "ssim"}
-    if unknown:
-        raise NotImplementedError(
-            f"metrics {sorted(unknown)} are not ported yet (ROADMAP M8)")
+                           metrics: tuple[str, ...] = ("ssim", "psnr", "lpips"),
+                           lpips_fn=None) -> dict:
+    """Per-metric means over [B, T, H, W, C] videos in [0, 1]. LPIPS takes
+    `lpips_fn` ((img1, img2) -> [N]) or else `default_lpips()`, and is left
+    out only when that finds no weights, as in the reference; an error in
+    the tower raises."""
     out = {}
     if "psnr" in metrics:
         out["psnr"] = float(psnr(videos1, videos2).mean())
     if "ssim" in metrics:
         out["ssim"] = float(ssim(videos1, videos2).mean())
+    if "lpips" in metrics:
+        if lpips_fn is None:
+            from wiw_tpu_torch.eval.lpips import default_lpips
+
+            lpips_fn = default_lpips()
+        if lpips_fn is not None:
+            B, T = videos1.shape[:2]
+            out["lpips"] = float(lpips_fn(videos1.reshape(B * T, *videos1.shape[2:]),
+                                          videos2.reshape(B * T, *videos2.shape[2:])
+                                          ).mean())
     return out

@@ -223,10 +223,18 @@ class CrossAttention(nn.Module):
             o = self.to_out[0](self.to_v(context))  # [B, 1, C]
             o = o.reshape(o.shape[0], *([1] * (x.ndim - 2)), o.shape[-1])
             return o.expand(x.shape)
-        if x.ndim != 3:
-            raise NotImplementedError(
-                "multi-token cross-attention on [B, F, S, C] (past_images) "
-                "is not ported yet")
+        if x.ndim == 4:
+            # temporal cross-attention with a multi-token context (the
+            # past_images tokens) on [B, F, S, C]: positions folded into the
+            # batch, each row's context repeated per position as the
+            # reference repeats it (projected first: the projection is per
+            # token, so the values are the same)
+            B, F_, S, C = x.shape
+            xq = x.transpose(1, 2).reshape(B * S, F_, C)
+            k, v = (p(context).repeat_interleave(S, dim=0)
+                    for p in (self.to_k, self.to_v))
+            out = self.to_out[0](attention_bsd(self.to_q(xq), k, v, self.heads))
+            return out.reshape(B, S, F_, C).transpose(1, 2)
         context = x if context is None else context
         out = attention_bsd(self.to_q(x), self.to_k(context),
                             self.to_v(context), self.heads)

@@ -56,6 +56,7 @@ HEAD_DIM = 64  # the kernels' template constant
 KV_TILE = 128  # k/v rows a stage of K1's kernel (K1, K2, K9): two of the
 # reference's unroll2 blocks of 64
 Q_TILE = 64  # q rows a stage of K3
+GRID_Y = 65535  # the forward kernel's grid puts B*H on y, which takes at most this
 KERNELS = ("v2", "v1")
 _LIB = "flash_attn_fwd"
 _BWD_LIB = "flash_attn_bwd"
@@ -142,8 +143,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          f"v {tuple(v.shape)} do not match")
     if Sq == 0 or k.shape[2] == 0:
         raise ValueError("empty sequence")
-    if B * H > 65535:
-        raise ValueError(f"B*H = {B * H} exceeds the kernel's grid limit 65535")
+    if H > GRID_Y:
+        raise ValueError(f"H = {H} exceeds the kernel's grid limit {GRID_Y}")
 
 
 def _bind(lib: ctypes.CDLL):
@@ -169,10 +170,21 @@ def _bind_bwd(lib: ctypes.CDLL):
 _SOFTMAX, _FLOOR, _NOEXP = 0, 1, 2
 
 
+def batch_splits(B: int, H: int) -> list[tuple[int, int]]:
+    """The batch ranges [b0, b1) of the forward kernel's launches over a
+    [B, H, S, D] call: one launch unless B*H exceeds GRID_Y (the temporal
+    cross-attention's fold of positions into the batch gives 2 x 9216 x 5 =
+    92160 at level 0 of a full-width request), else as few as keep each
+    launch's (b1 - b0) * H within it."""
+    per = max(1, GRID_Y // H)
+    return [(b, min(b + per, B)) for b in range(0, B, per)]
+
+
 def _launch_fwd(q, k, v, with_lse: bool, mode: int = _SOFTMAX,
                 sm_scale: float | None = None):
-    """The forward kernel on CUDA tensors: (out, lse or None); `mode` K1's
-    softmax or a K9 ablation; `sm_scale` D^-0.5 unless given."""
+    """The forward kernel on CUDA tensors: (out, lse or None, launches),
+    one launch a range of `batch_splits`; `mode` K1's softmax or a K9
+    ablation; `sm_scale` D^-0.5 unless given."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check(q, k, v)
@@ -182,16 +194,18 @@ def _launch_fwd(q, k, v, with_lse: bool, mode: int = _SOFTMAX,
     out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
            if with_lse else None)
+    splits = batch_splits(B, H)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(), B, H, Sq, k.shape[2],
-                 *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                 *out.stride()[:3], D ** -0.5 if sm_scale is None else sm_scale,
-                 mode, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
-    return out, lse
+        for b0, b1 in splits:  # slices of the batch: the same strides
+            part = [t[b0:b1] for t in (q, k, v, out)]
+            err = fn(*(t.data_ptr() for t in part),
+                     None if lse is None else lse[b0:b1].data_ptr(), b1 - b0, H,
+                     Sq, k.shape[2], *(s for t in part for s in t.stride()[:3]),
+                     D ** -0.5 if sm_scale is None else sm_scale, mode, stream)
+            if err != 0:
+                raise RuntimeError(f"flash_attn_fwd launch failed: cudaError {err}")
+    return out, lse, len(splits)
 
 
 def _forward(q, k, v, with_lse: bool):
@@ -200,8 +214,8 @@ def _forward(q, k, v, with_lse: bool):
     if native.on_cpu(q, k, v):
         out = flash_attention_plain(q, k, v)
         return out, flash_attention_lse_plain(q, k) if with_lse else None
-    out, lse = _launch_fwd(q, k, v, with_lse)
-    flash_attention.launches += 1
+    out, lse, n = _launch_fwd(q, k, v, with_lse)
+    flash_attention.launches += n
     return out, lse
 
 
@@ -278,8 +292,8 @@ def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K2, the reference's v1 forward, over [B, H, S, D] tensors. CPU tensors
     take `flash_attention_v1_plain`. CUDA tensors launch K1's kernel (what
     K1 takes; no gradient, as the reference's v1 has none: an input that
-    needs one raises) in every case, and count one launch in
-    `flash_attention_v1.launches`, or, with `unroll2` and Skv a multiple of
+    needs one raises) in every case, and count its launches (one a range
+    of `batch_splits`) in `flash_attention_v1.launches`, or, with `unroll2` and Skv a multiple of
     128 (the reference's Skv % (2 * bkv): where it takes its pair loop), in
     `flash_attention_v1.launches_unroll2`."""
     if native.on_cpu(q, k, v):
@@ -288,11 +302,11 @@ def flash_attention_v1(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise NotImplementedError(
             "flash_attention(kernel='v1') has no gradient; use kernel='v2'")
     pair = unroll2 and k.shape[2] % KV_TILE == 0
-    out = _launch_fwd(q, k, v, with_lse=False)[0]
+    out, _, n = _launch_fwd(q, k, v, with_lse=False)
     if pair:
-        flash_attention_v1.launches_unroll2 += 1
+        flash_attention_v1.launches_unroll2 += n
     else:
-        flash_attention_v1.launches += 1
+        flash_attention_v1.launches += n
     return out
 
 
@@ -308,7 +322,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     there).
 
     With "v2", CPU tensors take the plain versions. CUDA tensors launch K1
-    (bf16, D = 64; anything else raises) and count one launch in
+    (bf16, D = 64; anything else raises) once a range of `batch_splits`
+    (once, unless B*H exceeds GRID_Y) and count each launch in
     `flash_attention.launches`; with gradients wanted, the backward
     launches K3. The output is a [B, H, Sq, D] view of a contiguous
     [B, Sq, H, D] tensor, so merging heads back is free.
@@ -418,7 +433,8 @@ def _ablation(q, k, v, mode):
         raise NotImplementedError("the K9 ablations have no gradient")
     if k.shape[2] % KV_TILE:
         raise ValueError(f"K9 takes Skv a multiple of {KV_TILE}, got {k.shape[2]}")
-    return _launch_fwd(q, k, v, with_lse=False, mode=mode)[0]
+    out, _, n = _launch_fwd(q, k, v, with_lse=False, mode=mode)
+    return out, n
 
 
 def attention_floor(q, k, v):
@@ -428,8 +444,8 @@ def attention_floor(q, k, v):
     or raise."""
     if native.on_cpu(q, k, v):
         return attention_floor_plain(q, k, v)
-    out = _ablation(q, k, v, _FLOOR)
-    attention_floor.launches += 1
+    out, n = _ablation(q, k, v, _FLOOR)
+    attention_floor.launches += n
     return out
 
 
@@ -438,8 +454,8 @@ def attention_noexp(q, k, v):
     in `attention_noexp.launches`."""
     if native.on_cpu(q, k, v):
         return attention_noexp_plain(q, k, v)
-    out = _ablation(q, k, v, _NOEXP)
-    attention_noexp.launches += 1
+    out, n = _ablation(q, k, v, _NOEXP)
+    attention_noexp.launches += n
     return out
 
 
@@ -451,8 +467,8 @@ def attention_v2(q, k, v):
         return attention_v2_plain(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("the K9 ablations have no gradient")
-    out = _launch_fwd(prescale_q(q), k, v, with_lse=False, sm_scale=1.0)[0]
-    attention_v2.launches += 1
+    out, _, n = _launch_fwd(prescale_q(q), k, v, with_lse=False, sm_scale=1.0)
+    attention_v2.launches += n
     return out
 
 

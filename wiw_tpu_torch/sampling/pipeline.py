@@ -1,14 +1,16 @@
 """Image-to-video generation pipeline (SVD-dagger) on one device.
 
 Port of `wiw_tpu/sampling/pipeline.py`:
-  * CLIP-embed the conditioning image; CFG uncond = zero embedding
+  * CLIP-embed the conditioning image, after the CLIP tokens of the
+    optional `past_images` [B, Np, H, W, 3]; CFG uncond = zero embedding
   * VAE-encode the noise-augmented image (unscaled); CFG uncond = zeros
   * added_time_ids = (fps-1, motion_bucket_id, noise_aug_strength)
   * Karras sigmas; pano-correlated init noise for navigation, or injected
     `init_latents`; init scale sqrt(sigma_0^2 + 1)
   * denoise loop over CFG row segments (core/schedule.cfg_row_segments):
     'full' folds both CFG rows into the batch, 'stale' reuses the last
-    uncond prediction, 'cond' runs guidance off
+    uncond prediction, 'cond' runs guidance off, 'alt' takes pairs of
+    (stale, full) steps and one stale step more when its length is odd
   * chunked temporal VAE decode, then optional resize to the output size
     and uint8 on the device
   * W8A8 int8 serving (`quantize_unet`, `quantize_vae`): the reference's
@@ -21,8 +23,7 @@ Actions: [B, F] nav ids or [B, F, 8] manipulation poses, encoded for the
 UNet's strategy (core/actions.get_action_ids); under `action_block` the
 CFG uncond half takes the dropped-action sentinel.
 
-The reference's 'alt' segment, `past_images`, the mesh and `shard_clip`
-paths are not ported yet.
+The reference's mesh and `shard_clip` paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -241,18 +242,21 @@ class SVDPipeline:
         image: torch.Tensor,
         gen: GenerationConfig,
         actions: Optional[torch.Tensor] = None,
+        past_images: Optional[torch.Tensor] = None,
         *,
         generator: Optional[torch.Generator] = None,
         init_latents: Optional[torch.Tensor] = None,
         out_uint8_hw: Optional[tuple] = None,
     ) -> torch.Tensor:
         """image: [B, H, W, 3] in [-1, 1]; actions: [B, F] ids, [B, F, 8]
-        poses or None. Returns fp32 video [B, F, H, W, 3] in [0, 1], or
-        uint8 [B, F, oh, ow, 3] with `out_uint8_hw=(oh, ow)` (resize and
-        uint8 on the device). Noise comes from `generator` (on the device)
-        unless `init_latents` [B, F, h, w, 4] is injected."""
-        latents = self.denoise(image, gen, actions, generator=generator,
-                               init_latents=init_latents)
+        poses or None; past_images: [B, Np, H, W, 3] in [-1, 1] or None,
+        whose CLIP tokens go before the image's in the context. Returns
+        fp32 video [B, F, H, W, 3] in [0, 1], or uint8 [B, F, oh, ow, 3]
+        with `out_uint8_hw=(oh, ow)` (resize and uint8 on the device).
+        Noise comes from `generator` (on the device) unless `init_latents`
+        [B, F, h, w, 4] is injected."""
+        latents = self.denoise(image, gen, actions, past_images,
+                               generator=generator, init_latents=init_latents)
         return self._decode_chunked(latents, gen, out_uint8_hw)
 
     @torch.inference_mode()
@@ -261,6 +265,7 @@ class SVDPipeline:
         image: torch.Tensor,
         gen: GenerationConfig,
         actions: Optional[torch.Tensor] = None,
+        past_images: Optional[torch.Tensor] = None,
         *,
         generator: Optional[torch.Generator] = None,
         init_latents: Optional[torch.Tensor] = None,
@@ -274,8 +279,14 @@ class SVDPipeline:
         scale = self.vae_config.spatial_scale
         h, w = H // scale, W // scale
 
-        # 1. CLIP conditioning [B, 1, D]; uncond = zeros
+        # 1. CLIP conditioning [B, Np + 1, D]; uncond = zeros
         embeds = self.clip(preprocess_for_clip(image))[:, None, :]
+        if past_images is not None:
+            past = past_images.to(dev, torch.float32)
+            Bp, Np = past.shape[:2]
+            past_emb = self.clip(preprocess_for_clip(
+                past.reshape(Bp * Np, *past.shape[2:]))).reshape(Bp, Np, -1)
+            embeds = torch.cat([past_emb, embeds], dim=1)
         context = torch.cat([torch.zeros_like(embeds), embeds], dim=0)
 
         # 2. VAE-encode the noise-augmented conditioning image (unscaled)
@@ -328,13 +339,14 @@ class SVDPipeline:
             return S.euler_step(latents, denoised, sigma, sigma_next)
 
         uncond = torch.zeros_like(latents)
-        for kind, start, end in S.cfg_row_segments(
+        for segment, start, end in S.cfg_row_segments(
                 gen.num_inference_steps, gen.cfg, gen.edm):
-            if kind == "alt":
-                raise NotImplementedError(
-                    "the 'alt' CFG tail policy is not ported yet")
             for i in range(start, end):
                 sigma, sigma_next = sigmas[i], sigmas[i + 1]
+                # 'alt': stale, full, stale, ... (the full step refreshes
+                # the carried uncond, which is then at most one step old)
+                kind = (("stale", "full")[(i - start) % 2] if segment == "alt"
+                        else segment)
                 if kind == "full":
                     uncond, cond = unet_rows(latents, sigma, True).chunk(2)
                     pred = uncond + guidance * (cond - uncond)
