@@ -117,6 +117,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
      temporal fold of level 0, split into two launches (B*H 92160 > 65535)
      (the small-input phase also runs past_images + alt, tiny, against the
      CPU in fp32)
+  5i. nwm: the NWM world model (CDiT-XL/2, 1.0 B parameters, 224x224,
+     context 4, bf16, random weights from a seed): K1's head_dim 72
+     instance at the CDiT's shapes (self-attention B*H 32, Sq = Skv = 196;
+     cross-attention Skv 785) and at S 2304 against its plain version,
+     with kernel, plain, SDPA and device ms and the bound; one request (2
+     candidates x 14 actions, 13 rollouts of 20 DDIM steps) through
+     `NWMWorker` in-process: seconds, generated frames/s, peak, K1-D72 and
+     K8 launches against the attention and GroupNorm calls counted by
+     hooks; a CDiT forward's ms and TFLOP/s, one profiled DDIM step
+     (device busy, idle share, top kernels); the bf16 forward against an
+     fp32 forward of the same weights with the plain attention (CDIT_REL_FRO,
+     errors by block); K8 at every GroupNorm shape of the request (the VAE
+     encoder and single-frame decoder at 224x224); then `server_cli
+     --wm_type nwm`, which must refuse to run without --external_cmd and
+     with `--external_cmd "python -m wiw_tpu_torch.workers.nwm_worker"`
+     answers two concurrent requests from `WMClient`s with [2, 14, 3, 480,
+     480] uint8 through the subprocess worker, then stops it
   6. training: K1 with its LSE output and K3 (flash-attention backward) at
      the four training shapes against the plain forward, LSE and backward
      (K1's output bits the same with and without the LSE), K6's gradients
@@ -226,9 +243,10 @@ L2_BYTES = 50 * 2 ** 20
 # K6-bf16: the mma.sync kernel's; K4 and K8: the eight-lane fp32 K4's and
 # the three-launch K8's; K2-unroll2, K10 and K10-i8pv: the mma.sync
 # kernels'; K5, K9-floor and K9-noexp: the mma.sync kernels', PR 10's run
-# 1), printed on a line of its own before the measured `kernels` line
-PREV_MS = {"K1": 99.0636, "K2": 17.1462, "K2-unroll2": 18.9899, "K3": 150.7475,
-           "K4": 7.4117, "K5": 247.7191, "K6": 275.2729, "K6-bf16": 363.8384,
+# 1); K1-D72 is new: none), printed on a line of its own before the
+# measured `kernels` line
+PREV_MS = {"K1": 99.0636, "K1-D72": None, "K2": 17.1462, "K2-unroll2": 18.9899,
+           "K3": 150.7475, "K4": 7.4117, "K5": 247.7191, "K6": 275.2729, "K6-bf16": 363.8384,
            "K8": 14.1938, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 13.6274, "K9-noexp": 14.8971, "K9-v2": 17.7919,
            "K10": 30.4349, "K10-i8pv": 30.1989}
@@ -580,6 +598,72 @@ def gate_check(k6, k6_bf16, M, C):
         raise RuntimeError(f"K6-bf16 at C={C} did not compute the bf16 gate")
 
 
+def k8_shape(key, calls: str, dev, g, sms: int) -> dict:
+    """K8 at one GroupNorm shape `key` = (shape, dtype, groups, eps, silu)
+    (`count_group_norms`' keys; `calls` says how often a path runs it):
+    checked with and without SiLU against the plain version, then kernel,
+    plain and library ms by events in turns, the device time by
+    torch.profiler, the bound (one read and one write of x where one (row,
+    group) slab fits in L2, a second read where not) and `k8_plan`'s path."""
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops import group_norm as TG
+
+    shape, dtype, groups, eps, silu = key
+    N, C = shape[0], shape[-1]
+    L = int(np.prod(shape[1:-1]))
+    plan = TG.k8_plan(N, L, C, groups, dtype, sms)
+    x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
+    w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
+    b = 0.3 * torch.randn(C, generator=g, device=dev)
+    errs = {}
+    for flag in (silu, not silu):
+        errs[flag] = compare(f"K8 {shape} {dtype} silu={flag}",
+                             TG.group_norm(x, w, b, groups, eps, flag),
+                             TG.group_norm_plain(x, w, b, groups, eps, flag))
+    nbytes = x.numel() * x.element_size()
+    # a (row, group) slab's statistics precede its normalisation: a slab
+    # that fits in L2 is read once from HBM, a larger one twice
+    passes = 2 if L * (C // groups) * x.element_size() <= L2_BYTES else 3
+    bound = bound_ms(passes * nbytes, 0, BF16_FLOPS_S)
+    # the library call on the [N, C, L] view it wants, weights in x's
+    # dtype (its kernel's rule); F.group_norm copies to its layout inside
+    xt = x.reshape(N, -1, C).transpose(1, 2)
+    wl, bl = w.to(dtype), b.to(dtype)
+
+    def library():
+        y = F.group_norm(xt, groups, wl, bl, eps)
+        return F.silu(y) if silu else y
+
+    reps = min(200, max(5, int(4e9 // nbytes)))
+    copy, gb_s = "", None
+    if dtype == torch.bfloat16 and x.numel() % 8 == 0:
+        if not torch.equal(TG.copy_plus_one(x), x + 1):
+            raise RuntimeError(f"copy_plus_one disagrees with x + 1 at {shape}")
+        gb_s = 2 * nbytes / cuda_ms(lambda: TG.copy_plus_one(x), reps) / 1e6
+        copy = f", copy kernel {gb_s:.0f} GB/s"
+    where = (f"path {plan.path}, slab {plan.slab}, cluster {plan.cluster}"
+             + ("" if plan.path == "R" else
+                f", {plan.slabs_per_batch} slabs a batch, a row "
+                f"{'within' if plan.resident else 'beyond'} the L2 share"))
+    ms, plain_ms, lib = timed(
+        f"K8 {list(shape)} {str(dtype)[6:]} G={groups} silu={silu} ({where}; "
+        f"{calls}) " + errs[silu][1]
+        + f" | other flag: max|err| {errs[not silu][0]:.6g}",
+        lambda: TG.group_norm_plain(x, w, b, groups, eps, silu),
+        lambda: TG.group_norm(x, w, b, groups, eps, silu), library,
+        reps, 3, bound,
+        lambda ms: f"{passes * nbytes / ms / 1e6:.0f} GB/s of its floor's "
+                   f"{passes} passes{copy}")
+    dev_ms = device_ms(lambda: TG.group_norm(x, w, b, groups, eps, silu),
+                       KERNEL_CLASSES[0][1], min(reps, 20))
+    print(f"  its device time (torch.profiler): {dev_ms:.4f} ms a call", flush=True)
+    return {"plan": plan, "max_err": max(e for e, _ in errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib, "device_ms": dev_ms,
+            "bound": bound, "passes": passes,
+            "gb_s": passes * nbytes / dev_ms / 1e6, "copy_gb_s": gb_s}
+
+
 def k8_phase(row: Row, forward: dict, request: dict, dev, g):
     """K8 at every distinct GroupNorm shape of `request` (a default
     request's calls, every tower) and `forward` (a 2-row UNet forward's):
@@ -588,10 +672,6 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
     timed with the path's flag; the row sums one 2-row forward,
     `request_ms` one request; then a table by shape with `k8_plan`'s path,
     and its sums by path."""
-    import torch.nn.functional as F
-
-    from wiw_tpu_torch.ops import group_norm as TG
-
     d = row.d
     d["request_ms"] = d["request_plain_ms"] = d["request_bound_ms"] = 0.0
     d["request_library_ms"] = d["device_ms"] = d["request_device_ms"] = 0.0
@@ -605,68 +685,21 @@ def k8_phase(row: Row, forward: dict, request: dict, dev, g):
           flush=True)
     for key in sorted(set(forward) | set(request),
                       key=lambda k: -int(np.prod(k[0]))):
-        shape, dtype, groups, eps, silu = key
-        N, C = shape[0], shape[-1]
-        L = int(np.prod(shape[1:-1]))
-        plan = TG.k8_plan(N, L, C, groups, dtype, sms)
-        x = (torch.randn(*shape, generator=g, device=dev) * 1.5 + 0.3).to(dtype)
-        w = 1 + 0.2 * torch.randn(C, generator=g, device=dev)
-        b = 0.3 * torch.randn(C, generator=g, device=dev)
-        errs = {}
-        for flag in (silu, not silu):
-            errs[flag] = compare(f"K8 {shape} {dtype} silu={flag}",
-                                 TG.group_norm(x, w, b, groups, eps, flag),
-                                 TG.group_norm_plain(x, w, b, groups, eps, flag))
-        max_err = max(e for e, _ in errs.values())
-        nbytes = x.numel() * x.element_size()
-        # a (row, group) slab's statistics precede its normalisation: a slab
-        # that fits in L2 is read once from HBM, a larger one twice
-        passes = 2 if L * (C // groups) * x.element_size() <= L2_BYTES else 3
-        bound = bound_ms(passes * nbytes, 0, BF16_FLOPS_S)
-        # the library call on the [N, C, L] view it wants, weights in x's
-        # dtype (its kernel's rule); F.group_norm copies to its layout inside
-        xt = x.reshape(N, -1, C).transpose(1, 2)
-        wl, bl = w.to(dtype), b.to(dtype)
-
-        def library():
-            y = F.group_norm(xt, groups, wl, bl, eps)
-            return F.silu(y) if silu else y
-
-        reps = min(200, max(5, int(4e9 // nbytes)))
-        copy, gb_s = "", None
-        if dtype == torch.bfloat16 and x.numel() % 8 == 0:
-            if not torch.equal(TG.copy_plus_one(x), x + 1):
-                raise RuntimeError(f"copy_plus_one disagrees with x + 1 at {shape}")
-            gb_s = 2 * nbytes / cuda_ms(lambda: TG.copy_plus_one(x), reps) / 1e6
-            copy_gb_s.append(gb_s)
-            copy = f", copy kernel {gb_s:.0f} GB/s"
         fwd, req = forward.get(key, 0), request.get(key, 0)
-        where = (f"path {plan.path}, slab {plan.slab}, cluster {plan.cluster}"
-                 + ("" if plan.path == "R" else
-                    f", {plan.slabs_per_batch} slabs a batch, a row "
-                    f"{'within' if plan.resident else 'beyond'} the L2 share"))
-        ms, plain_ms, lib = timed(
-            f"K8 {list(shape)} {str(dtype)[6:]} G={groups} silu={silu} ({where}; "
-            f"{fwd} a 2-row forward, {req} a request) "
-            + errs[silu][1] + f" | other flag: max|err| {errs[not silu][0]:.6g}",
-            lambda: TG.group_norm_plain(x, w, b, groups, eps, silu),
-            lambda: TG.group_norm(x, w, b, groups, eps, silu), library,
-            reps, 3, bound,
-            lambda ms: f"{passes * nbytes / ms / 1e6:.0f} GB/s of its floor's "
-                       f"{passes} passes{copy}")
-        dev_ms = device_ms(lambda: TG.group_norm(x, w, b, groups, eps, silu),
-                           KERNEL_CLASSES[0][1], min(reps, 20))
-        print(f"  its device time (torch.profiler): {dev_ms:.4f} ms a call", flush=True)
-        table.append((shape, str(dtype)[6:], plan, fwd, req, ms, dev_ms, bound,
-                      passes, passes * nbytes / dev_ms / 1e6, gb_s))
-        row.add(fwd, max_err, ms, plain_ms, bound, "bytes", lib)
-        d["device_ms"] += fwd * dev_ms
-        d["request_device_ms"] += req * dev_ms
-        d["request_ms"] += req * ms
-        d["request_plain_ms"] += req * plain_ms
-        d["request_bound_ms"] += req * bound
-        d["request_library_ms"] += req * lib
-        del x, xt
+        r = k8_shape(key, f"{fwd} a 2-row forward, {req} a request", dev, g, sms)
+        if r["copy_gb_s"] is not None:
+            copy_gb_s.append(r["copy_gb_s"])
+        table.append((key[0], str(key[1])[6:], r["plan"], fwd, req, r["ms"],
+                      r["device_ms"], r["bound"], r["passes"], r["gb_s"],
+                      r["copy_gb_s"]))
+        row.add(fwd, r["max_err"], r["ms"], r["plain_ms"], r["bound"], "bytes",
+                r["library_ms"])
+        d["device_ms"] += fwd * r["device_ms"]
+        d["request_device_ms"] += req * r["device_ms"]
+        d["request_ms"] += req * r["ms"]
+        d["request_plain_ms"] += req * r["plain_ms"]
+        d["request_bound_ms"] += req * r["bound"]
+        d["request_library_ms"] += req * r["library_ms"]
     torch.cuda.empty_cache()
     d["copy_gb_s_max"] = max(copy_gb_s)
     print("K8 by shape (ms a call; GB/s = the floor's bytes over the device "
@@ -1524,6 +1557,7 @@ def _counters() -> dict:
     from wiw_tpu_torch.ops import temporal_attention as TT
 
     return {"K1": (TFA.flash_attention, "launches"),
+            "K1-D72": (TFA.flash_attention, "launches_d72"),
             "K2": (TFA.flash_attention_v1, "launches"),
             "K2-unroll2": (TFA.flash_attention_v1, "launches_unroll2"),
             "K3": (TFA.flash_attention_bwd, "launches"),
@@ -2581,6 +2615,344 @@ def past_alt_phase(dev, g) -> dict:
     return counts
 
 
+# the NWM world model (CDiT-XL/2 at 224x224, context 4, bf16, random weights
+# from a seed): a request is NWM_CANDIDATES rows x NWM_FRAMES actions, each
+# frame after the first one DDIM rollout of NWM_STEPS CDiT forwards
+NWM_CANDIDATES, NWM_FRAMES, NWM_STEPS = 2, 14, 20
+# K1 at head_dim 72 in a CDiT-XL/2 forward at B = 2 (196 tokens; context 4 x
+# 196 + the bias_kv row): (B, heads, Sq, Skv, calls a forward)
+K1_D72_SHAPES = [(2, 16, 196, 196, 28), (2, 16, 196, 785, 28)]
+# the full-width bf16 CDiT forward against an fp32 forward of the same
+# weights with the plain attention, on the card: relative Frobenius error
+# of the output, set before the first run: bf16 rounding carried through 28
+# residual blocks of random weights stays at a few 1e-2; a wrong kernel,
+# layout or modulation is off by O(1)
+CDIT_REL_FRO = 0.1
+NWM_CMD = "python -m wiw_tpu_torch.workers.nwm_worker"
+
+
+def nwm_request(n: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"b_action": rng.integers(1, 4, (n, NWM_FRAMES)),
+            "b_image": rng.integers(0, 256, (n, 3, 256, 256), dtype=np.uint8),
+            "save_dirs": [f"nwm{seed}_{i}" for i in range(n)],
+            "request_model_name": "nwm", "return_objects": [True] * n}
+
+
+def check_nwm_answer(label: str, out: dict, n: int):
+    pred = out.get("pred_frames")
+    if pred is None or pred.shape != (n, NWM_FRAMES, 3, 480, 480) or (
+            pred.dtype != np.uint8) or pred[:, 1:].std() < 1:
+        raise RuntimeError(f"{label}: bad answer "
+                           f"{None if pred is None else (pred.shape, pred.dtype)}"
+                           f" error {out.get('error')}")
+
+
+def k1_d72_phase(row: Row, dev, g):
+    """K1's head_dim 72 instance at the CDiT's shapes, on head views of its
+    projections (the self-attention's fused qkv; the cross-attention's q
+    and its k, v with the bias row), against its plain version; kernel,
+    plain and SDPA ms by events in turns, the kernel's device time by
+    torch.profiler (a call is a few microseconds of device work, so the
+    event loop measures the host's dispatch), the bound."""
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops import flash_attention as TFA
+
+    row.d["device_ms"] = row.d["library_device_ms"] = 0.0
+    for B, H, Sq, Skv, calls in K1_D72_SHAPES:
+        def heads(S, parts):
+            x = torch.randn(B, S, parts * H * 72, generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            return [t.view(B, S, H, 72).transpose(1, 2) for t in x.chunk(parts, -1)]
+
+        q, k, v = heads(Sq, 3) if Sq == Skv else (*heads(Sq, 1), *heads(Skv, 2))
+        max_err, err_line = compare(f"K1-D72 Sq={Sq} Skv={Skv}",
+                                    TFA.flash_attention(q, k, v),
+                                    TFA.flash_attention_plain(q, k, v))
+        flops = 4 * B * H * Sq * Skv * 72
+        nbytes = 2 * B * H * 72 * (2 * Sq + 2 * Skv)
+        bound = bound_ms(nbytes, flops, BF16_FLOPS_S)
+        by = "bytes" if nbytes / HBM_BYTES_S > flops / BF16_FLOPS_S else "operations"
+        ms, plain_ms, lib = timed(
+            f"K1-D72 B*H={B * H} Sq={Sq} Skv={Skv} D=72 ({calls} a CDiT forward) "
+            f"{err_line}", lambda: TFA.flash_attention_plain(q, k, v),
+            lambda: TFA.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v), 200, 50, bound,
+            lambda ms: f"{flops / ms / 1e9:.2f} TFLOP/s by events")
+        dev_ms = device_ms(lambda: TFA.flash_attention(q, k, v), ("flash_attn_fwd",),
+                           50)
+        lib_dev = device_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                            ("sdpa", "fmha", "flash_fwd", "attention"), 50)
+        print(f"  device time (torch.profiler): kernel {dev_ms:.5f} ms a call, "
+              f"{flops / dev_ms / 1e9:.2f} TFLOP/s, {nbytes / dev_ms / 1e6:.0f} "
+              f"GB/s; SDPA {lib_dev:.5f} ms in "
+              + kernel_names(lambda: F.scaled_dot_product_attention(q, k, v)),
+              flush=True)
+        row.add(calls, max_err, ms, plain_ms, bound, by, lib)
+        row.d["device_ms"] += calls * dev_ms
+        row.d["library_device_ms"] += calls * lib_dev
+    # one long shape, B*H 32, S 2304: the checks only
+    q, k, v = (torch.randn(2, 2304, 16 * 72, generator=g, device=dev,
+                           dtype=torch.bfloat16).view(2, 2304, 16, 72).transpose(1, 2)
+               for _ in range(3))
+    compare("K1-D72 S=2304", TFA.flash_attention(q, k, v),
+            TFA.flash_attention_plain(q, k, v))
+
+
+def cdit_forward_flops(cfg, B: int) -> float:
+    """A CDiT forward's products: per block the qkv, proj, cross q / out,
+    the context's k and v, the MLP, the adaLN, both attentions; the patch
+    embedding of x and the context, the final layer."""
+    C, N = cfg.hidden_size, cfg.num_patches
+    T = cfg.context_size * N
+    block = (2 * B * N * C * (3 * C + C + C + C + 2 * 4 * C)
+             + 2 * B * T * C * 2 * C + 2 * B * C * 11 * C
+             + 4 * B * N * N * C + 4 * B * N * (T + 1) * C)
+    P = cfg.patch_size
+    edges = (2 * B * (cfg.context_size + 1) * N * P * P * cfg.in_channels * C
+             + 2 * B * C * 2 * C + 2 * B * N * C * P * P * cfg.out_channels)
+    return cfg.depth * block + edges
+
+
+def nwm_phase(rows: dict, dev, g) -> dict:
+    """The NWM world model: K1-D72 at its shapes; one full-width request
+    (NWM_CANDIDATES x NWM_FRAMES, 224x224, NWM_STEPS DDIM steps) through
+    `NWMWorker` in-process, its launches against the attention and
+    GroupNorm calls counted by hooks; a CDiT forward's ms, one profiled
+    DDIM step (device busy and idle share, top kernels); the bf16 forward
+    against an fp32 forward of the same weights with the plain attention;
+    K8 at every GroupNorm shape of the request (the VAE at 224x224); then
+    `server_cli --wm_type nwm` (it must refuse to run without
+    --external_cmd) serving two requests through the subprocess worker.
+    Returns the in-process request's launches."""
+    import collections
+
+    from wiw_tpu_torch.models import cdit as TC
+    from wiw_tpu_torch.ops.flash_attention import flash_attention_plain
+    from wiw_tpu_torch.workers.nwm_worker import NWMWorker
+
+    with torch.inference_mode():
+        k1_d72_phase(rows["K1-D72"], dev, g)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    worker = NWMWorker(num_steps=NWM_STEPS)
+    torch.cuda.synchronize()
+    cfg = worker.cfg
+    n_params = sum(p.numel() for p in worker.model.parameters())
+    print(f"nwm: NWMWorker built in {time.perf_counter() - t0:.1f} s: CDiT "
+          f"{n_params / 1e9:.4f} B parameters (hidden {cfg.hidden_size}, depth "
+          f"{cfg.depth}, {cfg.num_heads} heads of {cfg.hidden_size // cfg.num_heads}, "
+          f"latent {cfg.input_size}, context {cfg.context_size}, {cfg.dtype}), "
+          f"VAE bf16, {NWM_STEPS} DDIM steps", flush=True)
+    norms, hooks = count_group_norms(worker.vae)
+    attn = collections.Counter()
+    hooks += [m.register_forward_pre_hook(
+        lambda m, a: attn.update([type(m).__name__])) for m in worker.model.modules()
+        if isinstance(m, (TC.Attention, TC.CrossAttention))]
+    req = nwm_request(NWM_CANDIDATES, 11)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = worker(req)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launches()
+    for h in hooks:
+        h.remove()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check_nwm_answer("nwm request", out, NWM_CANDIDATES)
+    rollouts = NWM_FRAMES - 1
+    want = expected({"K1-D72": sum(attn.values())}, sum(norms.values()))
+    print(f"nwm request ({NWM_CANDIDATES} candidates x {NWM_FRAMES} actions, "
+          f"{rollouts} rollouts of {NWM_STEPS} steps): {secs:.3f} s, "
+          f"{NWM_CANDIDATES * rollouts / secs:.4f} generated frames/s, peak "
+          f"{peak:.2f} GiB; attention calls by hooks {dict(attn)}, GroupNorm "
+          f"calls {sum(norms.values())}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if counts != want or want["K1-D72"] != 2 * cfg.depth * NWM_STEPS * rollouts:
+        raise RuntimeError(f"nwm launches {counts} != {want}")
+
+    # a CDiT forward at B = 2, one DDIM step profiled
+    gx = torch.Generator(device=dev).manual_seed(12)
+    n = cfg.input_size
+    args = (torch.randn(NWM_CANDIDATES, n, n, 4, generator=gx, device=dev),
+            torch.full((NWM_CANDIDATES,), 500.0, device=dev),
+            torch.zeros(NWM_CANDIDATES, 3, device=dev),
+            torch.randn(NWM_CANDIDATES, cfg.context_size, n, n, 4, generator=gx,
+                        device=dev),
+            torch.full((NWM_CANDIDATES,), 0.5, device=dev))
+    flops = cdit_forward_flops(cfg, NWM_CANDIDATES)
+    wbytes = sum(p.numel() * p.element_size() for p in worker.model.parameters())
+    with torch.inference_mode():
+        worker.model(*args)
+        fwd_ms = cuda_ms(lambda: worker.model(*args), 10)
+
+        def step():
+            return TC.ddim_sample(worker.model, args[0].shape, args[3], args[2],
+                                  args[4], num_steps=1, noise=args[0])
+
+        step()
+        step_ms = cuda_ms(step, 10)
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            step()
+            torch.cuda.synchronize()
+    busy = busy_ms(prof)
+    launches_step = sum(e.count for e in prof.key_averages()
+                        if "CUDA" in str(e.device_type))
+    print(f"nwm CDiT forward (B = {NWM_CANDIDATES}): {fwd_ms:.3f} ms by CUDA events "
+          f"(mean of 10); {flops / 1e12:.4f} TFLOP ({flops / fwd_ms / 1e9:.1f} "
+          f"TFLOP/s), weights {wbytes / 1e9:.3f} GB (bound "
+          f"{bound_ms(wbytes, flops, BF16_FLOPS_S):.3f} ms); a DDIM step "
+          f"{step_ms:.3f} ms by events; in the profiled step device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / step_ms:.4f} of the event "
+          f"time, {launches_step} kernels", flush=True)
+    print_top(prof)
+    host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    print("  top ops by self host time (under the profiler, which adds its "
+          "own): " + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} "
+                               f"ms {e.count}x" for e in host[:10]), flush=True)
+
+    # the bf16 forward against an fp32 one of the same weights, plain attention
+    def plain_bsd(q, k, v, heads):
+        B, Sq, HD = q.shape
+        hv = [t.reshape(B, -1, heads, HD // heads).transpose(1, 2) for t in (q, k, v)]
+        return flash_attention_plain(*hv).transpose(1, 2).reshape(B, Sq, HD)
+
+    with torch.device("meta"):
+        ref_model = TC.CDiT(dataclasses.replace(cfg, dtype="float32"))
+    ref_model.to_empty(device=dev).load_state_dict(worker.model.state_dict())
+    outs = {}
+
+    def grab(tag, i):
+        return lambda m, a, o: outs.__setitem__((tag, i), o.float())
+
+    hooks = [blk.register_forward_hook(grab(tag, i))
+             for tag, model in (("bf16", worker.model), ("fp32", ref_model))
+             for i, blk in enumerate(model.blocks)]
+    kernel_bsd, TC.attention_bsd = TC.attention_bsd, plain_bsd
+    try:
+        with torch.inference_mode():
+            ref = ref_model(*args)
+    finally:
+        TC.attention_bsd = kernel_bsd
+    with torch.inference_mode():
+        got = worker.model(*args)
+    for h in hooks:
+        h.remove()
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+    per_block = [rel(outs["bf16", i], outs["fp32", i]) for i in range(cfg.depth)]
+    err = rel(got, ref)
+    print(f"nwm bf16 CDiT forward against fp32 (the same weights, plain "
+          f"attention), relative Frobenius: output {err:.5f} (tol {CDIT_REL_FRO}); "
+          f"by block " + ", ".join(f"{e:.4f}" for e in per_block), flush=True)
+    if not torch.isfinite(got).all() or err > CDIT_REL_FRO:
+        raise RuntimeError(f"the bf16 CDiT forward is {err} from fp32's")
+    del ref_model, ref, got, outs, worker, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # K8 at the VAE's GroupNorm shapes at 224x224 (encode B = 2, decode 1 frame)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    vae = dict.fromkeys(("request_ms", "request_device_ms", "request_plain_ms",
+                         "request_bound_ms", "request_library_ms"), 0.0)
+    for key in sorted(norms, key=lambda k: -int(np.prod(k[0]))):
+        r = k8_shape(key, f"{norms[key]} an NWM request", dev, g, sms)
+        for name, val in (("ms", r["ms"]), ("device_ms", r["device_ms"]),
+                          ("plain_ms", r["plain_ms"]), ("bound_ms", r["bound"]),
+                          ("library_ms", r["library_ms"])):
+            vae[f"request_{name}"] += norms[key] * val
+        rows["K8"].d["max_abs_err"] = max(rows["K8"].d["max_abs_err"], r["max_err"])
+    vae["calls"] = sum(norms.values())
+    vae["shapes"] = len(norms)
+    rows["K8"].d["nwm_vae224"] = vae
+    print(f"K8 in an NWM request ({vae['calls']} calls at {len(norms)} shapes): "
+          f"kernel {vae['request_ms']:.4f} ms (device "
+          f"{vae['request_device_ms']:.4f} ms), plain {vae['request_plain_ms']:.4f} "
+          f"ms, bound {vae['request_bound_ms']:.4f} ms, library "
+          f"{vae['request_library_ms']:.4f} ms", flush=True)
+    d = rows["K1-D72"].d
+    d.update(request_ms=d["ms"] * NWM_STEPS * rollouts,
+             request_device_ms=d["device_ms"] * NWM_STEPS * rollouts,
+             nwm={"s": secs, "frames_s": NWM_CANDIDATES * rollouts / secs,
+                  "forward_ms": fwd_ms, "step_ms": step_ms, "step_busy_ms": busy,
+                  "idle_share": 1 - busy / step_ms, "peak_gib": peak,
+                  "bf16_vs_fp32_rel_fro": err})
+    d["nwm"]["server"] = nwm_server_phase()
+    return counts
+
+
+def nwm_server_phase() -> dict:
+    """`server_cli --wm_type nwm`: without --external_cmd it raises and names
+    the command; with it, a `ManagerServer` on a free port hands two
+    concurrent requests (two `WMClient` threads) to the subprocess worker
+    (built and initialised after the server starts: the first answer pays
+    for it); then the server and the worker stop."""
+    from wiw_tpu_torch.serve import server_cli
+    from wiw_tpu_torch.serve.manager import ManagerServer, WMClient
+
+    base = ["--host", "127.0.0.1", "--port", str(free_port()), "--wm_type", "nwm"]
+    args, extra = server_cli.build_parser().parse_known_args(base)
+    try:
+        server_cli.build_executors(args, extra)
+    except SystemExit as e:
+        if NWM_CMD not in str(e):
+            raise RuntimeError(f"server_cli --wm_type nwm refused without naming "
+                               f"its worker: {e}")
+        print(f"server_cli --wm_type nwm without --external_cmd: {e}", flush=True)
+    else:
+        raise RuntimeError("server_cli --wm_type nwm built a worker without "
+                           "--external_cmd")
+    args, extra = server_cli.build_parser().parse_known_args(
+        base + ["--external_cmd", NWM_CMD])
+    execs = server_cli.build_executors(args, extra)
+    server = ManagerServer(execs, host="127.0.0.1", port=args.port)
+    port = server.start()
+    results, errors = {}, []
+
+    def client(name, seed):
+        try:
+            c = WMClient(port=port)
+            t = time.perf_counter()
+            out = c.send_batch(nwm_request(NWM_CANDIDATES, seed))
+            results[name] = (time.perf_counter() - t, out)
+            c.close()
+        except Exception as e:  # reported below: the phase fails
+            errors.append(f"client {name}: {e!r}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(name, i + 20))
+               for i, name in enumerate("AB")]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        server.stop()
+    procs = [e.proc for e in execs]
+    if errors or len(results) != 2 or any(p.poll() is None for p in procs):
+        raise RuntimeError(f"nwm server: {errors}, answers {len(results)}, worker "
+                           f"exit codes {[p.poll() for p in procs]}")
+    for name, (secs, res) in sorted(results.items()):
+        check_nwm_answer(f"nwm server client {name}", res, NWM_CANDIDATES)
+        print(f"nwm server client {name}: pred_frames "
+              f"{res['pred_frames'].shape} {res['pred_frames'].dtype} in "
+              f"{secs:.3f} s", flush=True)
+    print(f"nwm server: 2 requests in {wall:.3f} s from start (the subprocess "
+          f"worker's start and random init included); server and worker "
+          f"stopped", flush=True)
+    return {"wall_s": wall, "request_s": {n: r[0] for n, r in results.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2634,6 +3006,12 @@ def main() -> int:
         "K1": Row("flash_attn_fwd_d64", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
                   "wiw_tpu/ops/pallas_attention.py:121",
                   "one 2-row UNet forward: 16 calls", library=True),
+        "K1-D72": Row("flash_attn_fwd_d72", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
+                      "wiw_tpu/ops/pallas_attention.py:121",
+                      "one CDiT-XL/2 forward at B = 2, 224x224: 28 self-"
+                      "attentions (Sq = Skv = 196) and 28 cross-attentions (Sq "
+                      "196, Skv 785); request_*: one NWM request (13 rollouts of "
+                      "20 forwards); device_ms by torch.profiler", library=True),
         "K2": Row("flash_attn_fwd_d64_v1", "wiw_tpu_torch/csrc/flash_attn_fwd.cu",
                   "wiw_tpu/ops/pallas_attention.py:40",
                   "one call at S = 9216 (B*H = 140) and one at S = 144 (B*H = "
@@ -2751,6 +3129,7 @@ def main() -> int:
     by_path["rollouts"] = rollouts_phase(rows)
     by_path["eval"] = eval_phase(dev)
     by_path["past_alt"] = past_alt_phase(dev, g)
+    by_path["nwm"] = nwm_phase(rows, dev, g)
     by_path["train"] = train_phase(dev)
     for key, row in rows.items():
         d = row.d

@@ -185,6 +185,83 @@ def test_lse_flag_leaves_output_bits_unchanged(cuda_device, S):
     assert torch.equal(serving, training)
 
 
+def _heads72(B, S, H, g, dev, parts=1):
+    """`parts` [B, H, S, 72] head views of one bf16 [B, S, parts*H*72]
+    projection (parts 3: a fused qkv, as the CDiT's self-attention)."""
+    x = torch.randn(B, S, parts * H * 72, generator=g, device=dev).bfloat16()
+    return [x[..., i * H * 72:(i + 1) * H * 72].view(B, S, H, 72).transpose(1, 2)
+            for i in range(parts)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Sq,Skv", [
+    (2, 16, 196, 196),    # the CDiT's self-attention
+    (2, 16, 196, 785),    # its cross-attention: 4 x 196 context tokens + bias_kv
+    (2, 16, 2304, 2304),  # a long shape, B*H 32
+    (1, 3, 65, 1),        # one kv row, a ragged q tile
+])
+def test_k1_d72_matches_plain_on_card(cuda_device, B, H, Sq, Skv):
+    """K1's D = 72 instance (64-column parts in the 128-byte swizzle, the
+    16-column tails in the 32-byte one) on head views of [B, S, H*72]
+    projections, where columns 72-79 of a tail box are the next head's,
+    ragged in q and kv: one launch, within the tolerance of the plain
+    version on the same bf16 inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    if Sq == Skv:
+        q, k, v = _heads72(B, Sq, H, g, cuda_device, parts=3)
+    else:
+        q, = _heads72(B, Sq, H, g, cuda_device)
+        k, v = _heads72(B, Skv, H, g, cuda_device, parts=2)
+    before = flash_attention.launches, flash_attention.launches_d72
+    with torch.no_grad():
+        out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.launches_d72) == (
+        before[0], before[1] + 1)
+    assert out.shape == (B, H, Sq, 72)
+    _close(out, flash_attention_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sq,Skv", [(196, 785), (144, 144), (1000, 200)])
+def test_k1_d72_tail_adds_nothing_to_d64_bits(cuda_device, Sq, Skv):
+    """With columns 64-71 of q, k and v zero, the D = 72 instance's first 64
+    output columns are the D = 64 instance's bit for bit (the fifth k16
+    step adds exact zeros to S; the tail product has its own accumulator)
+    and its last 8 are zero: what the D = 64 instance computes is what it
+    computed, and the tail's maps and products touch nothing else. Both run
+    at the D = 72 scale, 72^-0.5."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    q, k, v = (torch.randn(2, 3, S, 72, generator=g, device=cuda_device).bfloat16()
+               for S in (Sq, Skv, Skv))
+    for t in (q, k, v):
+        t[..., 64:] = 0
+    with torch.no_grad():
+        o72 = flash_attention(q, k, v)
+        o64 = TFA._launch_fwd(*(t[..., :64] for t in (q, k, v)), with_lse=False,
+                              sm_scale=72 ** -0.5)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(o72[..., :64], o64)
+    assert not o72[..., 64:].any()
+
+
+@pytest.mark.cuda
+def test_k1_d72_refuses_what_it_does_not_take(cuda_device):
+    """The D = 72 instance is a serving forward: a gradient (which would need
+    its LSE and K3) raises, and so does any other head width on CUDA."""
+    q = torch.zeros(1, 2, 64, 72, device=cuda_device, dtype=torch.bfloat16)
+    leaf = q.clone().requires_grad_()
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(leaf, q, q)
+    for d in (48, 80, 128):
+        x = torch.zeros(1, 2, 64, d, device=cuda_device, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(x, x, x)
+    q128 = torch.zeros(1, 2, 128, 72, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        TFA.attention_floor(q128, q128, q128)
+
+
 @pytest.mark.cuda
 def test_frame_attention_refuses_grad_on_card(cuda_device):
     x = torch.zeros(1, 14, 64, 128, device=cuda_device, dtype=torch.bfloat16,

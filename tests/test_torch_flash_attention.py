@@ -178,3 +178,36 @@ def test_build_target_follows_the_shared_headers(tmp_path, monkeypatch):
     assert native._target("k") != second
     (tmp_path / "k.cu").write_text('#include "sm90.cuh"\n// edited\n')
     assert native._target("k") not in (first, second)
+
+
+def test_plain_d72_matches_reference_at_the_cdit_shapes():
+    """K1's plain version at head_dim 72 (the CDiT's heads, 1152 / 16), on
+    head views of [B, S, H*72] projections: the cross-attention's Sq 196
+    against Skv 785 (4 x 196 context tokens + bias_kv), neither a multiple
+    of the kernel's tiles, and the self-attention's 196, against the
+    reference's `attention_bsd` (its XLA form on the CPU). fp32, 2e-5."""
+    from wiw_tpu.ops.attention import attention_bsd as jax_attention_bsd
+
+    rng = np.random.default_rng(8)
+    for Skv in (785, 196):
+        q = rng.standard_normal((2, 196, 16 * 72)).astype(np.float32)
+        k, v = (rng.standard_normal((2, Skv, 16 * 72)).astype(np.float32)
+                for _ in range(2))
+        ref = np.asarray(jax_attention_bsd(q, k, v, 16, use_pallas=False))
+        before = flash_attention.launches, flash_attention.launches_d72
+        out = TAtt.attention_bsd(*(torch.from_numpy(a) for a in (q, k, v)), 16)
+        assert (flash_attention.launches, flash_attention.launches_d72) == before
+        assert out.shape == (2, 196, 16 * 72)
+        np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)
+
+
+def test_plain_d72_matches_pallas_v2_interpret():
+    """The reference's own kernel takes D from the shape: at D = 72 (S 256,
+    Skv 384, its tiles of 128) in interpret mode against the plain version,
+    fp32, 2e-5."""
+    q = _qkv(1, 2, 256, 72, seed=9)[0]
+    _, k, v = _qkv(1, 2, 384, 72, seed=10)
+    ref = np.asarray(flash_attention_bhsd(q, k, v, bq=128, bkv=128,
+                                          interpret=True, kernel="v2"))
+    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=2e-5)

@@ -623,3 +623,33 @@ assert not [m for m in sys.modules if m.split('.')[0] in BLOCKED]
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
+
+
+def test_nwm_registry_names_the_ports_worker():
+    """`WM_REGISTRY['nwm']` names the port's NWM worker (it named the JAX
+    package's), and the deployment's worker command runs it."""
+    from wiw_tpu_torch.utils.config import WorkerConfig, build_worker_commands
+
+    spec = server_cli.WM_REGISTRY["nwm"]
+    assert spec["worker"] == "wiw_tpu_torch.workers.nwm_worker"
+    assert (REPO / "wiw_tpu_torch" / "workers" / "nwm_worker.py").is_file()
+    (argv, _env), = build_worker_commands(WorkerConfig(wm_type="nwm"))
+    assert argv[1:3] == ["-m", "wiw_tpu_torch.workers.nwm_worker"]
+    assert (spec["width"], spec["height"]) == (224, 224)
+
+
+def test_server_cli_nwm_needs_its_own_worker(tiny_worlds):
+    """`server_cli --wm_type nwm` without --external_cmd raises and names the
+    command that serves NWM, where the reference builds an SVD action worker
+    at 224x224 under that name (R6); with the command, a subprocess
+    executor runs the port's NWM worker."""
+    args, extra = server_cli.build_parser().parse_known_args(
+        ["--device", "cpu", "--warmup_batches", "", "--wm_type", "nwm"])
+    with pytest.raises(SystemExit, match='--external_cmd "python -m '
+                                         r'wiw_tpu_torch\.workers\.nwm_worker"'):
+        server_cli.build_executors(args, extra)
+    args, extra = server_cli.build_parser().parse_known_args(
+        ["--wm_type", "nwm", "--external_cmd",
+         "python -m wiw_tpu_torch.workers.nwm_worker"])
+    execs = server_cli.build_executors(args, extra)
+    assert len(execs) == 1 and type(execs[0]) is TM.SubprocessExecutor

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), head_dim 64, bf16 in/out.
+// Flash-attention forward for Hopper (sm_90a), head_dim 64 (and 72), bf16
+// in/out.
 //
 // Replaces the TPU kernel `_attn_kernel_v2` in wiw_tpu/ops/pallas_attention.py
 // (reached from `flash_attention_bhsd(kernel="v2")`): non-causal
@@ -51,6 +52,24 @@
 //     backward (K3) needs. It changes only that store: the output bits are
 //     the same with and without it.
 //
+// K1 at head_dim 72 (the CDiT's heads: hidden 1152 over 16 heads; a serving
+// forward, no LSE and no backward) is the template instance kD = 72 of the
+// same kernel. A 72-wide bf16 row is 144 bytes and fits no single swizzle
+// atom, so every q, k and v tile is read in two parts: its first 64
+// columns as at kD = 64 (128-byte swizzle), and a 16-column tail from
+// column 64 in the 32-byte swizzle (rows of 32 bytes), through tensor maps
+// whose inner extent is 72, so that columns 72-79 arrive as zeros even in a
+// head view of a [B, S, H*72] projection, where they would be the next
+// head's. S = q k^T takes a fifth k16 step on the q and k tails (their
+// zero columns add nothing); O += P v adds an m64n16k16 product a k16 step
+// on the v tail into a second accumulator of 8 floats a thread, whose
+// columns 72-79 are zero and not stored. Shared memory grows to q 20 KB +
+// 2 stages x 40 KB; the kD = 64 instance compiles to what it was, with the
+// tail code out of it (`if constexpr`). At the CDiT's shapes (B*H 32, Sq
+// 196, Skv 196 or 785) a call is a few microseconds of a short grid
+// (2 x 32 CTAs): the ragged q and kv tiles (-inf logits past Skv, no store
+// past Sq) are K1's as they were.
+//
 // K2 and K9 in this file:
 //   * K2's v1 (`_attn_kernel`, pallas_attention.py:40) and K9's v2
 //     (`_kern_v2`, scripts/tune_attention2.py:122, q pre-scaled by the
@@ -101,28 +120,46 @@ constexpr int kBlockM = 128;           // q rows a CTA
 constexpr int kBlockN = 128;           // k/v rows a stage
 constexpr int kStages = 2;
 constexpr int kThreads = 384;          // producer + 2 consumer warpgroups
-constexpr int kTile = 128 * 128;       // bytes of a 128-row tile
-constexpr int kQ = 0;                  // shared-memory offsets (bytes)
-constexpr int kK0 = kTile;             // k of stage s at kK0 + 2 s kTile
-constexpr int kBars = kTile * (1 + 2 * kStages);
-// q_full, k_full[kStages], v_full[kStages], empty[kStages]
-constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;  // + alignment
+constexpr int kTile = 128 * 128;       // bytes of a 128-row x 64-column tile
+// Shared-memory layout (bytes) of the instance for head_dim kD: q, then a
+// stage after another, each k then v. At kD = 72 every q, k or v tile is
+// its 64-column part (kTile, 128-byte swizzle) and then its 16-column tail
+// (kTail, 32-byte swizzle: columns 64-79, of which 72-79 read as zeros).
+template <int kD>
+struct Layout {
+  static constexpr int kTail = kD == 64 ? 0 : 128 * 32;
+  static constexpr int kTileD = kTile + kTail;      // a q, k or v tile
+  static constexpr int kQ = 0;
+  static constexpr int kK0 = kTileD;              // k of stage s at kK0 + 2 s kTileD
+  static constexpr int kBars = kTileD * (1 + 2 * kStages);
+  // q_full, k_full[kStages], v_full[kStages], empty[kStages]
+  static constexpr int kSmem = kBars + 8 * (1 + 3 * kStages) + 1024;  // + alignment
+};
 }  // namespace k1
 
 // the step between the two products: K1's online softmax, or K9's floor
 // (none) or noexp (the identity for exp)
 enum Mode { kSoftmax = 0, kFloor = 1, kNoExp = 2 };
 
-template <int kMode, bool kLse>
+// kD 64, or 72 (the tail maps qt/kt/vt are read only there; kSoftmax
+// without LSE: the CDiT's serving forward)
+template <int kMode, bool kLse, int kD>
 __global__ void __launch_bounds__(k1::kThreads, 1)
 flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
+                           const __grid_constant__ CUtensorMap qtmap,
+                           const __grid_constant__ CUtensorMap ktmap,
+                           const __grid_constant__ CUtensorMap vtmap,
                            __nv_bfloat16* __restrict__ o,
                            float* __restrict__ lse, int H, int Sq, int Skv,
                            int64_t o_sb, int64_t o_sh, int64_t o_ss,
                            float scale_log2) {
+  static_assert(kD == 64 || (kD == 72 && kMode == kSoftmax && !kLse));
   using namespace k1;
+  using L = Layout<kD>;
+  constexpr int kQ = L::kQ, kK0 = L::kK0, kBars = L::kBars, kTileD = L::kTileD;
+  constexpr bool kTailed = kD != 64;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -152,16 +189,26 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   if (wg == 0) {  // producer
     sm90::setmaxnreg_dec<24>();
     if (threadIdx.x == 0) {
-      sm90::mbar_expect_tx(q_full, kTile);
+      sm90::mbar_expect_tx(q_full, kTileD);
       sm90::tma_load_4d(smem + kQ, &qmap, q_full, 0, q0, h, b);
+      if constexpr (kTailed) {
+        sm90::tma_load_4d(smem + kQ + kTile, &qtmap, q_full, 64, q0, h, b);
+      }
       for (int it = 0; it < n_kv; ++it) {
         const int s = it % kStages;
         sm90::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        uint8_t* kt = smem + kK0 + 2 * s * kTile;
-        sm90::mbar_expect_tx(&k_full[s], kTile);
+        uint8_t* kt = smem + kK0 + 2 * s * kTileD;
+        sm90::mbar_expect_tx(&k_full[s], kTileD);
         sm90::tma_load_4d(kt, &kmap, &k_full[s], 0, it * kBlockN, h, b);
-        sm90::mbar_expect_tx(&v_full[s], kTile);
-        sm90::tma_load_4d(kt + kTile, &vmap, &v_full[s], 0, it * kBlockN, h, b);
+        if constexpr (kTailed) {
+          sm90::tma_load_4d(kt + kTile, &ktmap, &k_full[s], 64, it * kBlockN, h, b);
+        }
+        sm90::mbar_expect_tx(&v_full[s], kTileD);
+        sm90::tma_load_4d(kt + kTileD, &vmap, &v_full[s], 0, it * kBlockN, h, b);
+        if constexpr (kTailed) {
+          sm90::tma_load_4d(kt + kTileD + kTile, &vtmap, &v_full[s], 64,
+                            it * kBlockN, h, b);
+        }
       }
     }
   } else {  // consumers: 64 q rows each
@@ -173,10 +220,14 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     const int g = lane >> 2;
     const int t = lane & 3;
     const uint8_t* qs = smem + kQ + c * 64 * 128;
+    const uint8_t* qst = smem + kQ + kTile + c * 64 * 32;  // kD 72: q's tail
 
     float acc[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    float acc_t[8];  // kD 72: output columns 64-79 (72-79 stay 0, not stored)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc_t[i] = 0.f;
     // rows g, g + 8 (softmax: in the log2 domain); noexp starts at the
     // reference's -1e30
     constexpr float kInit = kMode == kNoExp ? -1e30f : -INFINITY;
@@ -187,10 +238,11 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int it = 0; it < n_kv; ++it) {
       const int s = it % kStages;
       const uint32_t parity = (it / kStages) & 1;
-      const uint8_t* kt = smem + kK0 + 2 * s * kTile;
-      const uint8_t* vt = kt + kTile;
+      const uint8_t* kt = smem + kK0 + 2 * s * kTileD;
+      const uint8_t* vt = kt + kTileD;
 
-      // S = q k^T over this warpgroup's 64 rows x 128 kv columns
+      // S = q k^T over this warpgroup's 64 rows x 128 kv columns (kD 72:
+      // a fifth k16 step on the tails)
       float sc[64];
       sm90::mbar_wait(&k_full[s], parity);
       sm90::wgmma_fence();
@@ -198,6 +250,10 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int kk = 0; kk < 4; ++kk) {
         sm90::wgmma_m64n128k16_ss<0, 0>(sc, sm90::desc_sw128(qs + 32 * kk),
                                         sm90::desc_sw128(kt + 32 * kk), kk);
+      }
+      if constexpr (kTailed) {
+        sm90::wgmma_m64n128k16_ss<0, 0>(sc, sm90::desc_sw32(qst),
+                                        sm90::desc_sw32(kt + kTile), 1);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
@@ -255,21 +311,40 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
           acc[4 * j + 2] *= alpha[1];
           acc[4 * j + 3] *= alpha[1];
         }
+        if constexpr (kTailed) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            acc_t[4 * j] *= alpha[0];
+            acc_t[4 * j + 1] *= alpha[0];
+            acc_t[4 * j + 2] *= alpha[1];
+            acc_t[4 * j + 3] *= alpha[1];
+          }
+        }
       }
       uint32_t pa[8][4];
       sm90::acc_to_a<8>(sc, pa);
 
-      // O += bf16(P) v, v the MN-major B operand
+      // O += bf16(P) v, v the MN-major B operand (kD 72: and the tail's
+      // 16 columns into acc_t, m64n16k16 a k16 step)
       sm90::mbar_wait(&v_full[s], parity);
       sm90::fence_regs(acc);
+      if constexpr (kTailed) sm90::fence_regs(acc_t);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk) {
         sm90::wgmma_m64n64k16_rs<1>(acc, pa[kk], sm90::desc_sw128(vt + 2048 * kk));
       }
+      if constexpr (kTailed) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          sm90::wgmma_m64n16k16_rs<1>(acc_t, pa[kk],
+                                      sm90::desc_sw32(vt + kTile + 512 * kk));
+        }
+      }
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(acc);
+      if constexpr (kTailed) sm90::fence_regs(acc_t);
       sm90::fence_regs(pa);
       __syncwarp();
       if (lane == 0) sm90::mbar_arrive(&empty[s]);
@@ -300,6 +375,17 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
             sm90::pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
       }
     }
+    if constexpr (kTailed) {  // columns 64-71
+      const int col = 64 + 2 * t;
+      if (row0 < Sq) {
+        *reinterpret_cast<uint32_t*>(op + row0 * o_ss + col) =
+            sm90::pack_bf16(acc_t[0] * inv0, acc_t[1] * inv0);
+      }
+      if (row1 < Sq) {
+        *reinterpret_cast<uint32_t*>(op + row1 * o_ss + col) =
+            sm90::pack_bf16(acc_t[2] * inv1, acc_t[3] * inv1);
+      }
+    }
     if (kLse && t == 0) {
       // m_run is in the log2 domain: lse = (m + log2 l) * ln 2
       if (row0 < Sq) {
@@ -317,13 +403,14 @@ flash_attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 
 }  // namespace
 
-// C entry, bound with ctypes. Pointers are device pointers of bf16 tensors
-// viewed as [B, H, S, 64] with unit stride on the last dim; strides are in
-// elements (multiples of 8, 16-byte aligned bases: what TMA takes). `lse` is
-// null (serving) or an fp32 [B*H, Sq] buffer (training). `mode` is kSoftmax
-// (K1, K2's v1 and unroll2, K9's v2) or K9's kFloor or kNoExp (no LSE, Skv
-// a multiple of kBlockN: no ragged tile to mask); every mode runs the one
-// kernel above. Launches on `stream` and returns cudaGetLastError()
+// C entries, bound with ctypes. Pointers are device pointers of bf16
+// tensors viewed as [B, H, S, D] with unit stride on the last dim; strides
+// are in elements (multiples of 8, 16-byte aligned bases: what TMA takes).
+// `lse` is null (serving) or an fp32 [B*H, Sq] buffer (training). `mode` is
+// kSoftmax (K1, K2's v1 and unroll2, K9's v2) or K9's kFloor or kNoExp (no
+// LSE, Skv a multiple of kBlockN: no ragged tile to mask); every mode runs
+// the one kernel above. The D = 72 entry takes kSoftmax without LSE only.
+// Each launches on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for what it refuses, a tensor map the driver
 // refuses included).
 extern "C" int wiw_flash_attn_fwd_d64(
@@ -343,16 +430,55 @@ extern "C" int wiw_flash_attn_fwd_d64(
       !sm90_head_map(&vm, v, B, H, Skv, v_sb, v_sh, v_ss, k1::kBlockN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = mode == kFloor   ? flash_attn_fwd_sm90_kernel<kFloor, false>
-                : mode == kNoExp ? flash_attn_fwd_sm90_kernel<kNoExp, false>
-                : lse != nullptr ? flash_attn_fwd_sm90_kernel<kSoftmax, true>
-                                 : flash_attn_fwd_sm90_kernel<kSoftmax, false>;
+  auto kernel = mode == kFloor   ? flash_attn_fwd_sm90_kernel<kFloor, false, 64>
+                : mode == kNoExp ? flash_attn_fwd_sm90_kernel<kNoExp, false, 64>
+                : lse != nullptr ? flash_attn_fwd_sm90_kernel<kSoftmax, true, 64>
+                                 : flash_attn_fwd_sm90_kernel<kSoftmax, false, 64>;
+  constexpr int kSmem = k1::Layout<64>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, k1::kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Sq + k1::kBlockM - 1) / k1::kBlockM, B * H);
-  kernel<<<grid, k1::kThreads, k1::kSmem, static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse),
-      H, Sq, Skv, o_sb, o_sh, o_ss, sm_scale * 1.4426950408889634f);
+  // the tail maps are not read at D = 64
+  kernel<<<grid, k1::kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, qm, km, vm, static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), H, Sq, Skv, o_sb, o_sh, o_ss,
+      sm_scale * 1.4426950408889634f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int wiw_flash_attn_fwd_d72(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H,
+    int Sq, int Skv, int64_t q_sb, int64_t q_sh, int64_t q_ss, int64_t k_sb,
+    int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
+    int64_t o_sb, int64_t o_sh, int64_t o_ss, float sm_scale, int mode,
+    void* stream) {
+  if (mode != kSoftmax || lse != nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the 64-column parts in the 128-byte swizzle, the 16-column tails (at
+  // column 64 of a map 72 wide) in the 32-byte swizzle
+  constexpr auto kSw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+  constexpr auto kSw32 = CU_TENSOR_MAP_SWIZZLE_32B;
+  constexpr int kM = k1::kBlockM, kN = k1::kBlockN;
+  CUtensorMap qm, km, vm, qt, kt, vt;
+  if (!sm90_head_map(&qm, q, B, H, Sq, q_sb, q_sh, q_ss, kM, 72, 64, kSw128) ||
+      !sm90_head_map(&km, k, B, H, Skv, k_sb, k_sh, k_ss, kN, 72, 64, kSw128) ||
+      !sm90_head_map(&vm, v, B, H, Skv, v_sb, v_sh, v_ss, kN, 72, 64, kSw128) ||
+      !sm90_head_map(&qt, q, B, H, Sq, q_sb, q_sh, q_ss, kM, 72, 16, kSw32) ||
+      !sm90_head_map(&kt, k, B, H, Skv, k_sb, k_sh, k_ss, kN, 72, 16, kSw32) ||
+      !sm90_head_map(&vt, v, B, H, Skv, v_sb, v_sh, v_ss, kN, 72, 16, kSw32)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_attn_fwd_sm90_kernel<kSoftmax, false, 72>;
+  constexpr int kSmem = k1::Layout<72>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Sq + kM - 1) / kM, B * H);
+  kernel<<<grid, k1::kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, qt, kt, vt, static_cast<__nv_bfloat16*>(o), nullptr, H, Sq,
+      Skv, o_sb, o_sh, o_ss, sm_scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }

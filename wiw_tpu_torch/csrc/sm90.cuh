@@ -12,8 +12,9 @@
 // SBO is 512 bytes and the k-th 32-byte slice of a K-major operand starts
 // 32 * k bytes into the tile; tiles start 1024-byte aligned.
 //
-// The bf16 operands use the 128-byte swizzle throughout: a row of 64
-// bf16 is exactly 128 bytes, TMA writes tiles in that layout, and wgmma
+// The bf16 operands use the 128-byte swizzle throughout (but the 16-column
+// tails of K1's head_dim 72 instance, in the 32-byte one: `desc_sw32`): a
+// row of 64 bf16 is exactly 128 bytes, TMA writes tiles in that layout, and wgmma
 // reads it through a descriptor with layout type SW128. Every tile starts
 // 1024-byte aligned (one swizzle atom of 8 rows x 128 bytes), so the
 // descriptor's base offset is 0. In such a tile of R rows x 64 columns:
@@ -296,6 +297,20 @@ __device__ __forceinline__ uint64_t desc_sw64(const void* p) {
          (static_cast<uint64_t>(2) << 62);                // SW64
 }
 
+// descriptor of a 32-byte-swizzled operand starting at `p`: rows of 32 bytes
+// (16 bf16; the 16-byte chunk q of row r at r * 32 + ((q ^ ((r >> 2) & 1))
+// << 4), one atom 8 rows x 32 bytes, SBO 256 bytes). As a K-major operand
+// its 16 columns are one k16 step; as an MN-major one (rows = K, the 16
+// columns = N) the k-th 16-row slice starts 512 * k bytes into the tile.
+// Tiles start 256-byte aligned.
+__device__ __forceinline__ uint64_t desc_sw32(const void* p) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |               // LBO (unused)
+         (static_cast<uint64_t>(256 >> 4) << 32) |        // SBO: 8 rows
+         (static_cast<uint64_t>(3) << 62);                // SW32
+}
+
 // descriptor of an operand with no swizzle starting at `p`: 8-row x 16-byte
 // core matrices, `lbo` and `sbo` bytes apart (which of the two steps along K
 // depends on the operand's major-ness: callers whose operand has a single
@@ -473,6 +488,22 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
+}
+
+// D[64 x 16] += A[64 x 16] B[16 x 16], A from registers as in
+// wgmma_m64n64k16_rs, B in shared memory
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1), "n"(kTransB));
 }
 
@@ -732,22 +763,36 @@ static inline bool sm90_tiled_map(CUtensorMap* map, CUtensorMapDataType type,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The general form: a [B, H, S, D] view as TMA dims (D, S, H, B), boxes of
+// `cols` x `rows` elements in `swizzle`; columns past D read as zeros too
+// (K1 at D = 72 reads its 16-column tail at column 64 through a map with
+// D = 72: columns 72-79 arrive as zeros, never the next head's).
 static inline bool sm90_head_map(CUtensorMap* map, const void* base, int B,
                                  int H, int S, int64_t sb, int64_t sh,
-                                 int64_t ss, int rows) {
+                                 int64_t ss, int rows, int D, int cols,
+                                 CUtensorMapSwizzle swizzle) {
   Sm90EncodeTiled encode = sm90_encode_fn();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(S),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols),
+                             static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+static inline bool sm90_head_map(CUtensorMap* map, const void* base, int B,
+                                 int H, int S, int64_t sb, int64_t sh,
+                                 int64_t ss, int rows) {
+  return sm90_head_map(map, base, B, H, S, sb, sh, ss, rows, 64, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
 }

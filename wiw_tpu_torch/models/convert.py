@@ -233,3 +233,85 @@ def load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
     for f in files:
         state.update(load_file(os.path.join(path, f)))
     return state
+
+
+# ------------------------------------------------------------------ CDiT
+# The inverse of the reference's `convert_cdit_state_dict` (NWM's torch key
+# grammar -> `wiw_tpu.models.cdit` flax paths): flax path -> torch key, for
+# every leaf but the cross-attention's q/k/v, which fuse into in_proj_*.
+_CDIT_SPLITS = [
+    (r"^x_embedder/(kernel|bias)$", r"x_embedder.proj.\1"),
+    (r"^pos_embed$", r"pos_embed"),
+    (r"^(t_embedder|time_embedder)/mlp_(\d)/(kernel|bias)$", r"\1.mlp.\2.\3"),
+    (r"^y_embedder/(x_emb|y_emb|angle_emb)/mlp_(\d)/(kernel|bias)$",
+     r"y_embedder.\1.mlp.\2.\3"),
+    (r"^final_adaLN_1/(kernel|bias)$", r"final_layer.adaLN_modulation.1.\1"),
+    (r"^final_linear/(kernel|bias)$", r"final_layer.linear.\1"),
+    (r"^blocks_(\d+)/attn_(qkv|proj)/(kernel|bias)$", r"blocks.\1.attn.\2.\3"),
+    (r"^blocks_(\d+)/cttn_out/(kernel|bias)$", r"blocks.\1.cttn.out_proj.\2"),
+    (r"^blocks_(\d+)/cttn_(bias_k|bias_v)$", r"blocks.\1.cttn.\2"),
+    (r"^blocks_(\d+)/mlp_(fc\d)/(kernel|bias)$", r"blocks.\1.mlp.\2.\3"),
+    (r"^blocks_(\d+)/adaLN_modulation_1/(kernel|bias)$",
+     r"blocks.\1.adaLN_modulation.1.\2"),
+]
+_CDIT_QKV = re.compile(r"^blocks_(\d+)/cttn_([qkv])/(kernel|bias)$")
+
+
+def cdit_flax_to_torch(params_np: Mapping) -> Dict[str, torch.Tensor]:
+    """The reference's CDiT params (`wiw_tpu.models.cdit.CDiT`'s flax tree,
+    numpy leaves, with or without the top `params` level) -> a state dict
+    in NWM's torch key grammar (CPU, fp32): linear kernels IO -> OI, the
+    patch conv HWIO -> OIHW, `cttn_{q,k,v}` fused into `in_proj_weight` /
+    `in_proj_bias` ([q; k; v] rows), `bias_k` / `bias_v` as torch MHA's
+    [1, 1, C]. Raises on a leaf it has no key for and on an incomplete q/k/v
+    triple."""
+    if set(params_np) == {"params"}:
+        params_np = params_np["params"]
+    out: Dict[str, torch.Tensor] = {}
+    fused: Dict[tuple, np.ndarray] = {}
+    for path, value in _flatten(params_np):
+        flat = "/".join(path)
+        value = np.asarray(value, np.float32)
+        m = _CDIT_QKV.match(flat)
+        if m:
+            blk, part, leaf = m.groups()
+            fused[(blk, leaf, part)] = value.T if leaf == "kernel" else value
+            continue
+        for pat, repl in _CDIT_SPLITS:
+            key, hit = re.subn(pat, repl, flat)
+            if hit:
+                break
+        else:
+            raise ValueError(f"no NWM key for the CDiT flax path {flat}")
+        if key.endswith(".kernel"):
+            key = key[:-len("kernel")] + "weight"
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+        elif key.endswith(("bias_k", "bias_v")):
+            value = value.reshape(1, 1, -1)
+        out[key] = torch.from_numpy(np.array(value, order="C"))
+    for blk, leaf in sorted({(b, lf) for b, lf, _ in fused}):
+        parts = [fused.get((blk, leaf, p)) for p in "qkv"]
+        if any(x is None for x in parts):
+            raise ValueError(f"blocks_{blk}: cttn q/k/v {leaf} incomplete")
+        name = "in_proj_weight" if leaf == "kernel" else "in_proj_bias"
+        out[f"blocks.{blk}.cttn.{name}"] = torch.from_numpy(
+            np.ascontiguousarray(np.concatenate(parts, axis=0)))
+    return out
+
+
+def load_cdit_flax_params(module: nn.Module, params_np: Mapping) -> nn.Module:
+    """Load the reference's CDiT flax tree into the port's `CDiT`, requiring
+    full coverage both ways (every parameter gets a leaf, no leaf is left
+    over, shapes agree); values are cast to each parameter's dtype."""
+    state = cdit_flax_to_torch(params_np)
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    shape = sorted(k for k in set(own) & set(state)
+                   if tuple(own[k].shape) != tuple(state[k].shape))
+    if missing or extra or shape:
+        raise ValueError(
+            f"CDiT flax tree does not cover the module: missing {missing[:10]}, "
+            f"unexpected {extra[:10]}, shape mismatch {shape[:10]}")
+    module.load_state_dict(state, strict=True)
+    return module

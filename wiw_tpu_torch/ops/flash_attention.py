@@ -33,7 +33,9 @@ running max at each block; the kernel's is KV_TILE, a stage of K1's ring
 KV_TILE. No model caller, as in the reference.
 
 `flash_attention(q, k, v)` takes [B, H, S, D] tensors (any strides with a
-unit stride on D, e.g. head views of [B, S, H*D] projections). On CPU
+unit stride on D, e.g. head views of [B, S, H*D] projections), D = 64; K1
+also has an instance for D = 72 (the CDiT's heads, 1152 / 16), a serving
+forward with no LSE and no backward, so there it takes no gradient. On CPU
 tensors it computes the plain versions; on CUDA tensors it launches the
 kernels or raises: there is no fallback.
 - Under `no_grad`/`inference_mode`, or when no input needs a gradient
@@ -52,7 +54,8 @@ import torch
 
 from wiw_tpu_torch.ops import native
 
-HEAD_DIM = 64  # the kernels' template constant
+HEAD_DIM = 64  # the head width of every kernel here (K1 also takes D72_HEAD_DIM)
+D72_HEAD_DIM = 72  # K1's second instance: the CDiT's heads (1152 / 16), serving only
 KV_TILE = 128  # k/v rows a stage of K1's kernel (K1, K2, K9): two of the
 # reference's unroll2 blocks of 64
 Q_TILE = 64  # q rows a stage of K3
@@ -121,7 +124,8 @@ def _takes(t: torch.Tensor) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           dims: tuple = (HEAD_DIM,)) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
@@ -129,9 +133,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise TypeError(f"flash_attention kernel takes bf16, {name} is {t.dtype}")
         if t.ndim != 4:
             raise ValueError(f"{name} must be [B, H, S, D], got {tuple(t.shape)}")
-        if t.shape[-1] != HEAD_DIM:
+        if t.shape[-1] not in dims:
             raise ValueError(
-                f"flash_attention kernel is built for head_dim {HEAD_DIM}, "
+                f"flash_attention kernel is built for head_dim in {dims}, "
                 f"{name} has {t.shape[-1]}")
         if not _takes(t):
             raise ValueError(
@@ -147,8 +151,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"H = {H} exceeds the kernel's grid limit {GRID_Y}")
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.wiw_flash_attn_fwd_d64
+def _bind(lib: ctypes.CDLL, D: int = HEAD_DIM):
+    fn = getattr(lib, f"wiw_flash_attn_fwd_d{D}")
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_int64] * 12
@@ -184,12 +188,14 @@ def _launch_fwd(q, k, v, with_lse: bool, mode: int = _SOFTMAX,
                 sm_scale: float | None = None):
     """The forward kernel on CUDA tensors: (out, lse or None, launches),
     one launch a range of `batch_splits`; `mode` K1's softmax or a K9
-    ablation; `sm_scale` D^-0.5 unless given."""
+    ablation; `sm_scale` D^-0.5 unless given. D is 64, or 72 for K1's
+    softmax without LSE (the D = 72 instance has no LSE and no backward)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    _check(q, k, v)
-    fn = _bind(native.load_library(_LIB))
+    _check(q, k, v, (HEAD_DIM, D72_HEAD_DIM)
+           if mode == _SOFTMAX and not with_lse else (HEAD_DIM,))
     B, H, Sq, D = q.shape
+    fn = _bind(native.load_library(_LIB), D)
     # [B, H, Sq, D] view of a contiguous [B, Sq, H, D]: merging heads is free
     out = torch.empty(B, Sq, H, D, dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device)
@@ -210,12 +216,16 @@ def _launch_fwd(q, k, v, with_lse: bool, mode: int = _SOFTMAX,
 
 def _forward(q, k, v, with_lse: bool):
     """(out, lse or None): the plain versions on CPU tensors, K1 on CUDA
-    tensors (counted in `flash_attention.launches`)."""
+    tensors (counted in `flash_attention.launches`, or at D = 72 in
+    `flash_attention.launches_d72`)."""
     if native.on_cpu(q, k, v):
         out = flash_attention_plain(q, k, v)
         return out, flash_attention_lse_plain(q, k) if with_lse else None
     out, lse, n = _launch_fwd(q, k, v, with_lse)
-    flash_attention.launches += n
+    if q.shape[-1] == D72_HEAD_DIM:
+        flash_attention.launches_d72 += n
+    else:
+        flash_attention.launches += n
     return out, lse
 
 
@@ -322,11 +332,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     there).
 
     With "v2", CPU tensors take the plain versions. CUDA tensors launch K1
-    (bf16, D = 64; anything else raises) once a range of `batch_splits`
+    (bf16, D = 64, or D = 72 where no gradient is wanted: the CDiT's heads;
+    anything else raises) once a range of `batch_splits`
     (once, unless B*H exceeds GRID_Y) and count each launch in
-    `flash_attention.launches`; with gradients wanted, the backward
-    launches K3. The output is a [B, H, Sq, D] view of a contiguous
-    [B, Sq, H, D] tensor, so merging heads back is free.
+    `flash_attention.launches` (D = 64) or `flash_attention.launches_d72`;
+    with gradients wanted, the backward launches K3. The output is a
+    [B, H, Sq, D] view of a contiguous [B, Sq, H, D] tensor, so merging
+    heads back is free.
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel {kernel!r} not in {KERNELS}")
@@ -342,6 +354,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.launches_d72 = 0
 
 
 # ---------------------------------------------------------------- K9

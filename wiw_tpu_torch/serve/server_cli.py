@@ -5,7 +5,12 @@ __main__ + init_worldmodel_manager.sh). Default: ONE in-process
 `SVDActionWorker` owning the card, served by the continuous executor
 (4 slots, step-level admission), W8A8 int8, 30 steps, the serving CFG
 schedule; `--external_cmd` attaches protocol-compatible subprocess workers
-instead (the heterogeneous WM zoo path).
+instead (the heterogeneous WM zoo path). `--wm_type nwm` takes its own
+worker and nothing else (the reference serves an SVD action worker under
+that name when no command is given; here that raises):
+
+  python -m wiw_tpu_torch.serve.server_cli --wm_type nwm \
+      --external_cmd "python -m wiw_tpu_torch.workers.nwm_worker"
 
 Usage:
   python -m wiw_tpu_torch.serve.server_cli --wm_type igenex --port 7000 \
@@ -32,6 +37,8 @@ from wiw_tpu_torch.serve.manager import (
 from wiw_tpu_torch.utils.config import WM_REGISTRY, parse_extra_cli
 from wiw_tpu_torch.workers.svd_action import SVDActionWorker, cond_images
 
+NWM_WORKER = "wiw_tpu_torch.workers.nwm_worker"
+
 
 def build_executors(args, extra):
     if args.external_cmd:
@@ -48,6 +55,13 @@ def build_executors(args, extra):
         raise SystemExit(
             f"wm_type {args.wm_type} needs --external_cmd (torch-ecosystem "
             "worker) or is not servable")
+    if spec["worker"] == NWM_WORKER:
+        # the reference builds an SVD action worker at 224x224 here and
+        # serves it under the NWM name (ROADMAP Queue 3, R6); NWM runs its
+        # own worker
+        raise SystemExit(
+            f"wm_type {args.wm_type} is served by its own worker: add "
+            f'--external_cmd "python -m {NWM_WORKER}"')
     worker = SVDActionWorker(
         unet_path=args.unet_path,
         svd_path=args.svd_path,

@@ -20,7 +20,8 @@ from typing import Any, Dict, List, Optional
 
 # wm_type registry (vlm.py:27-33 + workers_cfg.py:21-241):
 # name -> (imagination mode, worker module, default resolution); the SVD
-# worlds run the port's workers, the zoo keeps its torch-ecosystem workers
+# worlds and NWM run the port's workers, the zoo keeps its torch-ecosystem
+# workers
 WM_REGISTRY: Dict[str, dict] = {
     "igenex": {"mode": "action",
                "worker": "wiw_tpu_torch.workers.svd_action",
@@ -51,7 +52,7 @@ WM_REGISTRY: Dict[str, dict] = {
                 "worker": "wiw_tpu.workers.zoo.wan_diffsynth_worker"},
     "FTwan22-14B": {"mode": "text",
                     "worker": "wiw_tpu.workers.zoo.wan_diffsynth_worker"},
-    "nwm": {"mode": "text", "worker": "wiw_tpu.workers.nwm_worker",
+    "nwm": {"mode": "text", "worker": "wiw_tpu_torch.workers.nwm_worker",
             "width": 224, "height": 224},
     "se3ds": {"mode": "camera", "worker": "wiw_tpu.workers.zoo.se3ds_worker"},
     "pathdreamer": {"mode": "camera",
