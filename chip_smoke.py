@@ -190,8 +190,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
      parameters computing in bf16, remat, grad-accum 2, AdamW, clip 1.0,
      discrete dropout, EMA), 3 optimizer steps on 576x1024 14-frame clips
      from an in-memory dataset through the port's PrefetchLoader; per step:
-     seconds, loss, peak memory and the K1/K3/K8 launches, then clips/s and
-     the model-FLOPs utilisation
+     seconds, loss, peak memory and the K1/K3/K8 launches, then clips/s,
+     the model-FLOPs utilisation and the checkpoint snapshot's seconds
+  7. optim, on the training slice's pipeline: 2 steps each of adamw_bf16m
+     and adafactor (s/step, peak, optimizer-state GiB, the first moment's
+     dtype, optimizer.step ms, the K1/K3/K8 launches of every step) beside
+     AdamW's, then one step of each of the three optimizers on real UNet
+     leaves on the card against the CPU (OPT_LEAF_ATOL, OPT_MU_REL)
+  8. dist, last: a 1-rank NCCL group in this process and make_mesh(1, 1);
+     an FSDP2-sharded step of the training recipe against an unsharded one
+     from the same seed and generator (DIST_* tolerances), a timed second
+     step of each; generate(mesh=) against generate (DIST_GEN_ATOL); then
+     `python -m torch.distributed.run --nproc_per_node 1 -m
+     wiw_tpu_torch.train.train_cli` at a cut width (NCCL, validation, a
+     rank-0 checkpoint that must load into an unsharded TrainState)
 Then one JSON line with each kernel's time before this version of the
 kernels (`prev_kernels`, copied from PERF.md, not measured here), one JSON
 line with the kernels as this run measured them, the card line again, and
@@ -203,6 +215,7 @@ It imports no jax and needs no network.
 import dataclasses
 import functools
 import gc
+import importlib.util
 import json
 import os
 import re
@@ -259,6 +272,44 @@ TRAIN_STEPS, TRAIN_ACCUM = 3, 2
 # attentions forward, and again in the backward pass (remat), then 16
 # backwards; every other counter 0, but K8's (the GroupNorm calls)
 PER_STEP = {"K1": TRAIN_ACCUM * 2 * 16, "K3": TRAIN_ACCUM * 16}
+# the optim phase: steps of adamw_bf16m and adafactor after the train
+# phase's AdamW. Card against CPU, one step of each optimizer on real UNet
+# leaves at lr 1e-3 (an update of up to 1e-3 an element): the parameters
+# within 1e-6 (fp32 in another order, fused multiply-adds: ulps of the
+# update and of a weight ~0.1), adamw_bf16m's first moment within one bf16
+# step (2^-7 of its value)
+OPTIM_STEPS = 2
+OPT_LEAF_ATOL, OPT_MU_REL = 1e-6, 2.0 ** -7
+# the dist phase: the world-size-1 sharded step against the unsharded one
+# from the same weights and draws. The forward is the same computation;
+# K3's dQ sum order changes from run to run and bf16 roundings carry it on,
+# and AdamW's first update is lr * g / (|g| + eps), the gradient's sign: an
+# element whose gradient lies within that noise of zero may move 2 lr the
+# other way. So the loss within 1e-5 relative, the gradient norm within
+# 1e-3, every parameter within 2 lr + 1e-6 of the unsharded step's and at
+# most 1% of them further than 1e-6. generate(mesh=) at world size 1 is the
+# same computation as generate: its frames within 1e-3 (a wrong cut of the
+# rows or the noise moves them by ~0.1)
+DIST_LOSS_REL, DIST_NORM_REL, DIST_FAR_SHARE = 1e-5, 1e-3, 0.01
+DIST_GEN_STEPS, DIST_GEN_ATOL = 10, 1e-3
+# tensorboardX, which train_cli imports as the reference's does, is not on
+# the card's host: the dist phase runs the CLI with this stand-in
+TENSORBOARD_STANDIN = '''"""A stand-in for tensorboardX: scalars as JSON lines."""
+import json
+import os
+
+
+class SummaryWriter:
+    def __init__(self, logdir):
+        os.makedirs(logdir, exist_ok=True)
+        self._f = open(os.path.join(logdir, "scalars.jsonl"), "a")
+
+    def add_scalar(self, tag, value, step):
+        self._f.write(json.dumps({"tag": tag, "value": float(value), "step": int(step)}) + "\\n")
+
+    def close(self):
+        self._f.close()
+'''
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BYTES_S, BF16_FLOPS_S, FP32_FLOPS_S = 3.35e12, 989e12, 67e12
 INT8_OPS_S = 1979e12
@@ -1004,10 +1055,12 @@ def unet_forward_flops(unet, dev, height: int, width: int) -> float:
     return counter.get_total_flops() + attn
 
 
-def train_phase(dev) -> dict:
+def train_phase(dev) -> tuple:
     """The training slice at full width: `train_cli.build` with the
     reference recipe, TRAIN_STEPS optimizer steps through the port's
-    PrefetchLoader. Returns the kernels' launches over the steps."""
+    PrefetchLoader. Returns the kernels' launches over the steps and what
+    the optim phase takes over: the pipeline, the config, AdamW's s/step,
+    peak, state GiB and optimizer.step ms."""
     from wiw_tpu_torch.data.loader import PrefetchLoader
     from wiw_tpu_torch.train import train_cli
 
@@ -1039,7 +1092,7 @@ def train_phase(dev) -> dict:
         place=trainer.place_batch, num_workers=2, prefetch_batches=2)
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     total = dict.fromkeys(_counters(), 0)
-    secs_all = []
+    secs_all, peaks = [], []
     norms, hooks = count_group_norms(unet, pipe.vae)
     for i, batch in enumerate(loader):
         torch.cuda.synchronize()
@@ -1054,9 +1107,10 @@ def train_phase(dev) -> dict:
         counts = launches()
         want = expected(PER_STEP, sum(norms.values()))
         secs_all.append(secs)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
         print(f"train step {i}: {secs:.3f} s, loss {loss:.6g}, grad norm "
               f"{float(metrics['grad_norm']):.6g}, peak "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+              f"{peaks[-1]:.2f} GiB, launches "
               f"{counts}", flush=True)
         if not np.isfinite(loss):
             raise RuntimeError(f"train step {i}: loss {loss}")
@@ -1064,8 +1118,6 @@ def train_phase(dev) -> dict:
             raise RuntimeError(f"train step {i}: launches {counts}, expected {want}")
         for k in total:
             total[k] += counts[k]
-    for h in hooks:
-        h.remove()
     if len(secs_all) != TRAIN_STEPS or state.step != TRAIN_STEPS:
         raise RuntimeError(f"ran {len(secs_all)} steps, state at {state.step}")
     for j, i in enumerate(watch):
@@ -1094,7 +1146,347 @@ def train_phase(dev) -> dict:
           f"unprofiled {1e3 * step_s:.1f} ms step (idle "
           f"{100 * (1 - busy / (1e3 * step_s)):.1f}%)", flush=True)
     print_top(prof, 16)
-    del pipe, trainer, state, loader, batch
+    for h in hooks:
+        h.remove()
+    snap_s, snap_gib = checkpoint_snapshot(state)
+    print(f"train: checkpoint snapshot (TrainState.state_dict + to_host, what a save "
+          f"blocks the loop for, no disk write) {snap_s:.3f} s for {snap_gib:.3f} GiB "
+          f"on the host", flush=True)
+    info = {"s_step": step_s, "peak_gib": peaks[-1], "state_gib": state_gib(state.optimizer),
+            "opt_ms": optimizer_step_ms(state.optimizer), "first_moment": "float32",
+            "pipe": pipe, "cfg": trainer.cfg, "args": args}
+    del trainer, state, loader, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total, info
+
+
+def checkpoint_snapshot(state) -> tuple:
+    """The synchronous part of a checkpoint save at full width: the
+    trainer's `state_dict()` and the manager's host copy (`to_host`).
+    Returns its seconds and the copy's GiB."""
+    from wiw_tpu_torch.train.checkpoints import to_host
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    snap = to_host(state.state_dict())
+    secs = time.perf_counter() - t
+    tensors = [snap["params"], snap["ema_params"], *snap["opt_state"]["state"].values()]
+    gib = sum(v.numel() * v.element_size() for d in tensors for v in d.values()
+              if torch.is_tensor(v)) / 2**30
+    if snap["step"] != state.step or len(snap["params"]) != len(state.params):
+        raise RuntimeError("checkpoint snapshot: not the trainer's state")
+    return secs, gib
+
+
+def state_gib(optimizer) -> float:
+    """The optimizer state's size: its tensors' bytes (their local shards)."""
+    return sum(t.numel() * t.element_size() for st in optimizer.state.values()
+               for t in st.values() if torch.is_tensor(t)) / 2**30
+
+
+def optimizer_step_ms(optimizer) -> float:
+    """One `optimizer.step()` on the gradients it holds (an update more),
+    by the host clock between two synchronisations."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    optimizer.step()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t)
+
+
+def optim_phase(train: dict, dev) -> dict:
+    """The memory-saving optimizers on the training slice's pipeline (the
+    reference recipe at full width, its UNet as the train phase left it):
+    OPTIM_STEPS steps of each through the PrefetchLoader, against AdamW's
+    figures from the train phase; then one step of each of the three on
+    real UNet leaves, card against CPU. Returns the launches."""
+    from wiw_tpu_torch.data.loader import PrefetchLoader
+    from wiw_tpu_torch.train import train_cli
+    from wiw_tpu_torch.train.trainer import Trainer
+
+    pipe, args = train["pipe"], train["args"]
+    unet = pipe.unet
+    total = dict.fromkeys(_counters(), 0)
+    rows = {"adamw": train}
+    norms, hooks = count_group_norms(unet, pipe.vae)
+    for name in ("adamw_bf16m", "adafactor"):
+        for p in unet.parameters():
+            p.grad = None
+        trainer = Trainer(pipe, dataclasses.replace(train["cfg"], optimizer=name))
+        state = trainer.init_state()
+        first = {"adamw_bf16m": lambda st: str(st["mu"].dtype).replace("torch.", ""),
+                 "adafactor": lambda st: "none"}[name](next(iter(state.optimizer.state.values())))
+        loader = PrefetchLoader(
+            MemoryClips(2, FRAMES, args.height, args.width, seed=args.seed),
+            args.per_device_batch, OPTIM_STEPS,
+            transform=train_cli.accum_transform(args.grad_accum),
+            place=trainer.place_batch, num_workers=2, prefetch_batches=2)
+        generator = torch.Generator(device=dev).manual_seed(args.seed)
+        secs_all, peaks = [], []
+        for i, batch in enumerate(loader):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            norms.clear()
+            reset_launches()  # count this step of this path only
+            t = time.perf_counter()
+            metrics = trainer.train_step(state, batch, generator)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            secs_all.append(time.perf_counter() - t)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            counts = launches()
+            want = expected(PER_STEP, sum(norms.values()))
+            print(f"optim {name} step {i}: {secs_all[-1]:.3f} s, loss {loss:.6g}, peak "
+                  f"{peaks[-1]:.2f} GiB, launches {counts}", flush=True)
+            if not np.isfinite(loss):
+                raise RuntimeError(f"optim {name} step {i}: loss {loss}")
+            if counts != want or not counts["K8"]:
+                raise RuntimeError(f"optim {name} step {i}: launches {counts}, "
+                                   f"expected {want}")
+            for k in total:
+                total[k] += counts[k]
+        if len(secs_all) != OPTIM_STEPS or state.step != OPTIM_STEPS:
+            raise RuntimeError(f"optim {name}: ran {len(secs_all)} steps")
+        rows[name] = {"s_step": secs_all[-1], "peak_gib": peaks[-1],
+                      "state_gib": state_gib(state.optimizer),
+                      "opt_ms": optimizer_step_ms(state.optimizer), "first_moment": first}
+        del trainer, state, loader, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    for h in hooks:
+        h.remove()
+    for name, r in rows.items():
+        print(f"optim {name}: {r['s_step']:.3f} s/step (the last step), peak "
+              f"{r['peak_gib']:.2f} GiB, optimizer state {r['state_gib']:.3f} GiB, first "
+              f"moment {r['first_moment']}, optimizer.step {r['opt_ms']:.2f} ms", flush=True)
+    print(json.dumps({"optim": {k: {f: v for f, v in r.items()
+                                    if f in ("s_step", "peak_gib", "state_gib", "opt_ms",
+                                             "first_moment")}
+                                for k, r in rows.items()}}), flush=True)
+    optimizer_leaf_check(unet, dev)
+    return total
+
+
+def optimizer_leaf_check(unet, dev) -> None:
+    """One step of each optimizer on real UNet leaves (1-D, a dense weight,
+    3x3 convs, a temporal conv) with seeded gradients, on the card and on
+    the CPU: parameters within OPT_LEAF_ATOL, adamw_bf16m's first moment
+    within OPT_MU_REL."""
+    from wiw_tpu_torch.train.trainer import TrainConfig, build_optimizer
+
+    named = dict(unet.named_parameters())
+    pick = [next(n for n, p in named.items() if p.ndim == 1 and "norm" in n),
+            next(n for n in named if n.endswith("attn1.to_q.weight")),
+            next(n for n, p in named.items() if n.startswith("mid_block.") and p.ndim == 4),
+            [n for n, p in named.items() if n.endswith("conv2.weight") and p.ndim == 4][-1],
+            next(n for n, p in named.items() if p.ndim == 5)]
+    g = torch.Generator().manual_seed(9)
+    grads = {n: torch.randn(named[n].shape, generator=g) * 1e-3 for n in pick}
+    for name in ("adamw", "adamw_bf16m", "adafactor"):
+        cfg = TrainConfig(learning_rate=1e-3, weight_decay=1e-2, optimizer=name)
+        out = []  # (leaves, optimizer) on the card, then on the CPU
+        for d in (dev, torch.device("cpu")):
+            leaves = [(n, named[n].detach().to(d, torch.float32).clone().requires_grad_(True))
+                      for n in pick]
+            for n, p in leaves:
+                p.grad = grads[n].to(d)
+            opt = build_optimizer(cfg, leaves, fused=d.type == "cuda")
+            opt.step()
+            out.append((leaves, opt))
+        worst, mu_worst = 0.0, 0.0
+        for (n, pc), (_, pu) in zip(out[0][0], out[1][0]):
+            diff = float((pc.detach().cpu() - pu.detach()).abs().max())
+            moved = float((pu.detach() - named[n].detach().cpu().float()).abs().max())
+            worst = max(worst, diff)
+            if moved < 1e-4:
+                raise RuntimeError(f"{name} did not move {n} ({moved})")
+            if name == "adamw_bf16m":
+                mc = out[0][1].state[pc]["mu"].float().cpu()
+                mu = out[1][1].state[pu]["mu"].float()
+                mu_worst = max(mu_worst, float(((mc - mu).abs() / mu.abs().clamp_min(1e-30)).max()))
+        print(f"optim leaves {name}: card vs CPU max |dp| {worst:.3e} (tolerance "
+              f"{OPT_LEAF_ATOL})" + (f", first moment bf16 max rel {mu_worst:.3e} "
+                                     f"(tolerance {OPT_MU_REL:.3e})"
+                                     if name == "adamw_bf16m" else ""), flush=True)
+        if worst > OPT_LEAF_ATOL or mu_worst > OPT_MU_REL:
+            raise RuntimeError(f"optimizer {name}: card and CPU disagree")
+
+
+def dist_phase(dev) -> dict:
+    """The distributed path at world size 1 on the card: a 1-rank NCCL
+    group in this process and `make_mesh(1, 1)`; one FSDP2-sharded step of
+    the training recipe against an unsharded step from the same weights
+    (the seed) and draws (the generator); `generate(mesh=)` against
+    `generate` from the same generator on the sharded UNet; then
+    `train_cli` under `torch.distributed.run` (one process, NCCL), whose
+    rank-0 checkpoint must load strictly into an unsharded TrainState.
+    Returns the launches of the sharded step and the mesh generate."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from wiw_tpu_torch.parallel import make_mesh
+    from wiw_tpu_torch.parallel.multihost import initialize_distributed
+    from wiw_tpu_torch.sampling.pipeline import GenerationConfig
+    from wiw_tpu_torch.train import train_cli
+    from wiw_tpu_torch.train.checkpoints import CheckpointManager
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="wiw_dist_")
+    args = train_cli.parse_args([
+        "--data_root", "in-memory", "--grad_accum", str(TRAIN_ACCUM),
+        "--learning_rate", "2e-5", "--use_ema", "--gradient_checkpointing",
+        "--conditioning_dropout", "discrete", "--seed", "42", "--device", "cuda"])
+    clip = MemoryClips(1, FRAMES, args.height, args.width, seed=7).items[0]
+    batch = train_cli.accum_transform(args.grad_accum)({k: v[None] for k, v in clip.items()})
+    total = dict.fromkeys(_counters(), 0)
+
+    def one_step(mesh):
+        """The recipe's first step from the seed's weights and draws (its
+        parameters on the host after it), then a second, timed one."""
+        pipe, trainer, state = train_cli.build(args, mesh)
+        norms, hooks = count_group_norms(pipe.unet, pipe.vae)
+        placed = trainer.place_batch(batch)
+        torch.cuda.synchronize()
+        reset_launches()
+        m = trainer.train_step(state, placed, torch.Generator(device=dev).manual_seed(11))
+        torch.cuda.synchronize()
+        counts = launches()
+        for h in hooks:
+            h.remove()
+        if counts != expected(PER_STEP, sum(norms.values())):
+            raise RuntimeError(f"dist step (mesh {mesh}): launches {counts}")
+        after = {n: (p.detach().full_tensor() if mesh is not None else p.detach()
+                     ).to("cpu", copy=True) for n, p in state.params.items()}
+        t = time.perf_counter()
+        trainer.train_step(state, placed, torch.Generator(device=dev).manual_seed(12))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        return pipe, after, {k: float(v) for k, v in m.items()}, secs, counts
+
+    pipe, ref, m0, s0, _ = one_step(None)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    initialize_distributed("cuda", init_method=f"file://{tmp}/pg", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        print(f"dist: process group backend {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, mesh {mesh.mesh_dim_names} {tuple(mesh.shape)}",
+              flush=True)
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"dist: backend {dist.get_backend()}, expected nccl")
+        pipe, got, m1, s1, counts = one_step(mesh)
+        for k in total:
+            total[k] += counts[k]
+        far, worst, n_all = 0, 0.0, 0
+        for n, p in got.items():
+            d = (p - ref[n]).abs()
+            worst = max(worst, float(d.max()))
+            far += int((d > 1e-6).sum())
+            n_all += d.numel()
+        bound = 2 * args.learning_rate + 1e-6
+        print(f"dist: sharded step {s1:.3f} s, unsharded {s0:.3f} s (the second step of "
+              f"each); the first step: loss {m1['loss']:.7g} vs {m0['loss']:.7g}, grad norm "
+              f"{m1['grad_norm']:.7g} vs {m0['grad_norm']:.7g}; parameters: max |d| "
+              f"{worst:.3e} (bound {bound:.3e}), {far} of {n_all} ({100 * far / n_all:.4f}%) "
+              f"further than 1e-6 (bound {100 * DIST_FAR_SHARE}%)", flush=True)
+        if (abs(m1["loss"] - m0["loss"]) > DIST_LOSS_REL * abs(m0["loss"])
+                or abs(m1["grad_norm"] - m0["grad_norm"]) > DIST_NORM_REL * m0["grad_norm"]
+                or worst > bound or far > DIST_FAR_SHARE * n_all):
+            raise RuntimeError("dist: the sharded step departs from the unsharded one")
+        del ref, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        clips = MemoryClips(2, FRAMES, args.height, args.width, seed=8).items
+        image = torch.from_numpy(np.stack([c["pixel_values"][0] for c in clips])).to(dev)
+        acts = torch.from_numpy(np.stack([c["actions"] for c in clips])).to(dev)
+        gen = GenerationConfig(num_inference_steps=DIST_GEN_STEPS)
+        outs, secs = [], []
+        norms, hooks = count_group_norms(pipe.unet, pipe.vae)
+        for with_mesh in (False, True):
+            norms.clear()
+            reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(pipe.generate(image, gen, actions=acts, mesh=mesh if with_mesh else None,
+                                      generator=torch.Generator(device=dev).manual_seed(5)))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        counts = launches()
+        for h in hooks:
+            h.remove()
+        want = expected({"K1": PER_FORWARD["default"]["K1"] * DIST_GEN_STEPS},
+                        sum(norms.values()))
+        if counts != want:
+            raise RuntimeError(f"dist generate(mesh=): launches {counts}, expected {want}")
+        for k in total:
+            total[k] += counts[k]
+        diff = float((outs[1] - outs[0]).abs().max())
+        print(f"dist: generate(mesh=) {secs[1]:.3f} s, generate {secs[0]:.3f} s (2 rows, "
+              f"{DIST_GEN_STEPS} steps, the sharded UNet); frames {tuple(outs[1].shape)}, "
+              f"max |d| {diff:.3e} (tolerance {DIST_GEN_ATOL})", flush=True)
+        if (outs[1].shape != (2, FRAMES, args.height, args.width, 3)
+                or not torch.isfinite(outs[1]).all() or diff > DIST_GEN_ATOL):
+            raise RuntimeError("dist: generate(mesh=) departs from generate")
+        del pipe, outs
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the CLI under the launcher: one process, NCCL, a cut width (the frozen
+    # towers at full size), validation and a checkpoint at step 2
+    root, out = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    write_trajectories(root, clips=2, frames=6, h=128, w=256, seed=3)
+    argv = ["--data_root", root, "--output_dir", out, "--device", "cuda", "--fsdp", "1",
+            "--max_steps", "2", "--checkpointing_steps", "2", "--validation_steps", "2",
+            "--unet_channels", "64", "128", "--unet_heads", "1", "2", "--sample_frames", "4",
+            "--action_input_channel", "4", "--width", "256", "--height", "128",
+            "--grad_accum", "2", "--use_ema", "--gradient_checkpointing"]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    scalars = None
+    if importlib.util.find_spec("tensorboardX") is None:
+        # tensorboardX is not on the card's host: a stand-in SummaryWriter
+        # that writes the CLI's scalars as JSON lines
+        stub = os.path.join(tmp, "stub", "tensorboardX")
+        os.makedirs(stub)
+        with open(os.path.join(stub, "__init__.py"), "w") as f:
+            f.write(TENSORBOARD_STANDIN)
+        env["PYTHONPATH"] = repo + os.pathsep + os.path.dirname(stub)
+        scalars = os.path.join(out, "scalars.jsonl")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", "-m", "wiw_tpu_torch.train.train_cli", *argv],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t
+    tail = (proc.stdout + proc.stderr)[-3000:]
+    if proc.returncode != 0 or "process group: backend nccl" not in proc.stdout:
+        raise RuntimeError(f"dist: train_cli under torch.distributed.run: rc "
+                           f"{proc.returncode}\n{tail}")
+    if "validation @ 2" not in proc.stdout:
+        raise RuntimeError(f"dist: train_cli did not validate\n{tail}")
+    if scalars is not None:
+        with open(scalars) as f:
+            tags = {json.loads(line)["tag"] for line in f}
+        print(f"dist: the stand-in SummaryWriter got {sorted(tags)}", flush=True)
+        if "val/psnr" not in tags:
+            raise RuntimeError(f"dist: train_cli logged {tags}")
+    _, _, state = train_cli.build(train_cli.parse_args(argv))
+    state.load_state_dict(CheckpointManager(out).restore(2))
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    print(f"dist: train_cli under torch.distributed.run (1 process, nccl) {cli_s:.1f} s, "
+          f"rc 0; checkpoint-2 loaded into an unsharded TrainState at step {state.step}, "
+          f"{len(state.params)} parameters, finite {finite}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    if state.step != 2 or not finite:
+        raise RuntimeError("dist: the CLI's checkpoint does not restore")
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     return total
@@ -3997,7 +4389,12 @@ def main() -> int:
     by_path["eval"] = eval_phase(dev)
     by_path["past_alt"] = past_alt_phase(dev, g)
     by_path["nwm"] = nwm_phase(rows, dev, g)
-    by_path["train"] = train_phase(dev)
+    by_path["train"], train = train_phase(dev)
+    by_path["optim"] = optim_phase(train, dev)
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["dist"] = dist_phase(dev)
     for key, row in rows.items():
         d = row.d
         floor = (f", gate floor {gate_floors[key]:.4f} ms (estimated)"

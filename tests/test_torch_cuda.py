@@ -1030,3 +1030,38 @@ def test_collect_pano_on_card_matches_cpu(cuda_device):
     assert card.shape == (1000, 2000, 3) and card.dtype == np.uint8
     d = np.abs(card.astype(np.int16) - cpu.astype(np.int16))
     assert d.max() <= 1, int(d.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["adamw", "adamw_bf16m", "adafactor"])
+def test_optimizer_step_on_card_matches_cpu(cuda_device, optimizer):
+    """One step of each of the trainer's optimizers (the card's AdamW fused)
+    on leaves of the UNet's kinds (1-D, a dense weight, 3x3 convs with
+    Cin = Cout and not, a temporal conv), card against CPU at lr 1e-3:
+    chip_smoke.py's bounds, parameters within 1e-6 and adamw_bf16m's bf16
+    first moment within one bf16 step (2^-7 of its value)."""
+    from wiw_tpu_torch.train.trainer import TrainConfig, build_optimizer
+
+    g = torch.Generator().manual_seed(0)
+    leaves = {"blk.norm1.weight": (320,), "blk.attn1.to_q.weight": (320, 320),
+              "blk.conv1.weight": (640, 640, 3, 3), "blk.conv2.weight": (640, 320, 3, 3),
+              "blk.temporal_res_block.conv1.weight": (320, 320, 3, 1, 1)}
+    start = {n: torch.randn(s, generator=g) * 0.05 for n, s in leaves.items()}
+    grads = {n: torch.randn(s, generator=g) * 1e-3 for n, s in leaves.items()}
+    cfg = TrainConfig(learning_rate=1e-3, weight_decay=1e-2, optimizer=optimizer)
+    runs = []
+    for dev in (cuda_device, torch.device("cpu")):
+        named = [(n, v.to(dev, copy=True).requires_grad_(True)) for n, v in start.items()]
+        for n, p in named:
+            p.grad = grads[n].to(dev)
+        opt = build_optimizer(cfg, named, fused=dev.type == "cuda")
+        opt.step()
+        runs.append((named, opt))
+    for (n, pc), (_, pu) in zip(runs[0][0], runs[1][0]):
+        assert float((pu.detach() - start[n]).abs().max()) > 1e-4, n  # it moved
+        assert float((pc.detach().cpu() - pu.detach()).abs().max()) <= 1e-6, n
+        if optimizer == "adamw_bf16m":
+            mc, mu = (r[1].state[p]["mu"] for r, p in zip(runs, (pc, pu)))
+            assert mc.dtype == mu.dtype == torch.bfloat16
+            rel = (mc.float().cpu() - mu.float()).abs() / mu.float().abs().clamp_min(1e-30)
+            assert float(rel.max()) <= 2.0 ** -7, n

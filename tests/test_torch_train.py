@@ -286,14 +286,20 @@ def test_conditioning_dropouts_match_reference(kind):
 
 
 def test_trainer_refuses_what_is_not_ported(ref):
+    """An unknown optimizer raises, as the reference's `_make_optimizer`
+    does; so does a mesh without an 'fsdp' axis (the reference's batch
+    sharding names it), and `--fsdp` above 1 without a process group."""
+    import types
+
     _, params = ref
     pipe = port_pipeline(params)
-    for opt in ("adamw_bf16m", "adafactor"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TT.Trainer(pipe, TT.TrainConfig(optimizer=opt))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        TT.Trainer(pipe, TT.TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="fsdp"):
+    with pytest.raises(ValueError, match="unknown optimizer 'lamb'"):
+        TT.Trainer(pipe, TT.TrainConfig(optimizer="lamb"))
+    with pytest.raises(ValueError, match="unknown optimizer 'lamb'"):
+        JT.Trainer(None, JT.TrainConfig(optimizer="lamb"))
+    with pytest.raises(ValueError, match="fsdp"):
+        TT.Trainer(pipe, TT.TrainConfig(), mesh=types.SimpleNamespace(mesh_dim_names=("dp",)))
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         train_cli.build(train_cli.parse_args(["--data_root", "x", "--fsdp", "2",
                                               "--device", "cpu"]))
 
@@ -575,7 +581,7 @@ def _built_unet_config(monkeypatch, env: dict) -> TU.UNetConfig:
             pass
 
     class NoTrainer:
-        def __init__(self, pipe, cfg):
+        def __init__(self, pipe, cfg, mesh=None):
             pass
 
         def init_state(self):

@@ -12,6 +12,10 @@ Port of `wiw_tpu/data/loader.py` (a copy; the port imports nothing of
      runs in the assembler thread, so batch N+1's host->device copy is in
      flight while step N computes.
 
+In a run of several processes each loader fetches only its rank's rows of
+each global batch (`rows`, which `parallel/mesh.batch_rows` gives): step
+s's items s * batch_size + i for i in rows.
+
 Bounded queues keep host memory flat; a poison pill + `close()` make
 shutdown deterministic (no daemon-thread leaks in tests).
 """
@@ -49,19 +53,22 @@ class PrefetchLoader:
         in the assembler thread so the transfer overlaps the train step.
       num_workers: concurrent item fetches.
       prefetch_batches: assembled-batch queue depth (>=1).
+      rows: the rows of each batch this process fetches (None: all of
+        them); `batch_size` is then the global batch.
     """
 
     def __init__(self, dataset, batch_size: int, num_steps: int,
                  transform: Optional[Callable[[dict], dict]] = None,
                  place: Optional[Callable[[dict], dict]] = None,
                  num_workers: int = 4, prefetch_batches: int = 2,
-                 keys=None):
+                 keys=None, rows: Optional[range] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_steps = num_steps
         self.transform = transform
         self.place = place
         self.keys = keys
+        self.rows = range(batch_size) if rows is None else rows
         self.num_workers = max(1, num_workers)
         self.queue: "queue.Queue" = queue.Queue(max(1, prefetch_batches))
         self._stop = threading.Event()
@@ -75,8 +82,7 @@ class PrefetchLoader:
                 for step in range(self.num_steps):
                     if self._stop.is_set():
                         return
-                    idxs = [step * self.batch_size + i
-                            for i in range(self.batch_size)]
+                    idxs = [step * self.batch_size + i for i in self.rows]
                     items = list(pool.map(self.dataset.__getitem__, idxs))
                     batch = _stack(items, self.keys)
                     if self.transform is not None:

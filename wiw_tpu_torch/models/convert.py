@@ -120,19 +120,23 @@ def translate_key(torch_key: str) -> tuple[str, ...]:
     return tuple(parts)
 
 
-def convert_tensor(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
-    """torch layout -> flax layout, by leaf name, rank and dtype (an int8
-    conv weight is the port's [O, kh, kw, I])."""
+def flax_axes(path: tuple[str, ...], ndim: int, int8: bool = False) -> tuple:
+    """The torch axes of a leaf in the order of its flax layout: the flax
+    value is the torch value transposed by them (a kernel by rank; an int8
+    conv weight is the port's [O, kh, kw, I]; every other leaf as it is)."""
     if path[-1] == "kernel":
-        if value.ndim == 4 and value.dtype == np.int8:
-            return value.transpose(1, 2, 3, 0)
-        if value.ndim == 4:
-            return value.transpose(2, 3, 1, 0)
-        if value.ndim == 5:
-            return value.transpose(2, 3, 4, 1, 0)
-        if value.ndim == 2:
-            return value.transpose(1, 0)
-    return value
+        if ndim == 4:
+            return (1, 2, 3, 0) if int8 else (2, 3, 1, 0)
+        if ndim == 5:
+            return (2, 3, 4, 1, 0)
+        if ndim == 2:
+            return (1, 0)
+    return tuple(range(ndim))
+
+
+def convert_tensor(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """torch layout -> flax layout, by leaf name, rank and dtype."""
+    return value.transpose(flax_axes(path, value.ndim, value.dtype == np.int8))
 
 
 def torch_key(path: tuple[str, ...]) -> str:
@@ -155,16 +159,8 @@ def torch_key(path: tuple[str, ...]) -> str:
 
 def unconvert_tensor(path: tuple[str, ...], value: np.ndarray) -> np.ndarray:
     """flax layout -> torch layout (inverse of `convert_tensor`)."""
-    if path[-1] == "kernel":
-        if value.ndim == 4 and value.dtype == np.int8:
-            return value.transpose(3, 0, 1, 2)
-        if value.ndim == 4:
-            return value.transpose(3, 2, 0, 1)
-        if value.ndim == 5:
-            return value.transpose(4, 3, 0, 1, 2)
-        if value.ndim == 2:
-            return value.transpose(1, 0)
-    return value
+    axes = flax_axes(path, value.ndim, value.dtype == np.int8)
+    return value.transpose(np.argsort(axes))
 
 
 def _flatten(tree: Mapping, prefix=()) -> Iterable[tuple[tuple[str, ...], object]]:

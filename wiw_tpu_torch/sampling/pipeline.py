@@ -23,7 +23,13 @@ Actions: [B, F] nav ids or [B, F, 8] manipulation poses, encoded for the
 UNet's strategy (core/actions.get_action_ids); under `action_block` the
 CFG uncond half takes the dropped-action sentinel.
 
-The reference's mesh and `shard_clip` paths are not ported yet.
+With a ('dp', 'fsdp') mesh (`parallel/mesh.make_mesh`), `generate` is the
+reference's batch-sharded path: every rank calls it with the same whole
+inputs and generator, draws the global batch's noise, keeps its rows of
+the batch, denoises and decodes them, and gets the whole clip batch back
+(`parallel/mesh.gather_rows`). The UNet may be whole on every rank or sharded
+by the trainer's FSDP2. Only `shard_clip` (one clip split within the
+denoise step, `wiw_tpu/parallel/clip_sharding.py`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import os
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from wiw_tpu_torch.core import schedule as S
 from wiw_tpu_torch.core.actions import get_action_ids
@@ -52,6 +59,7 @@ from wiw_tpu_torch.models.unet import (
 )
 from wiw_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
 from wiw_tpu_torch.ops import quant as Q
+from wiw_tpu_torch.parallel.mesh import batch_rows, gather_rows
 from wiw_tpu_torch.ops.resize import resize_cubic
 
 
@@ -262,6 +270,8 @@ class SVDPipeline:
         generator: Optional[torch.Generator] = None,
         init_latents: Optional[torch.Tensor] = None,
         out_uint8_hw: Optional[tuple] = None,
+        mesh=None,
+        shard_clip: bool = False,
     ) -> torch.Tensor:
         """image: [B, H, W, 3] in [-1, 1]; actions: [B, F] ids, [B, F, 8]
         poses or None; past_images: [B, Np, H, W, 3] in [-1, 1] or None,
@@ -269,10 +279,24 @@ class SVDPipeline:
         fp32 video [B, F, H, W, 3] in [0, 1], or uint8 [B, F, oh, ow, 3]
         with `out_uint8_hw=(oh, ow)` (resize and uint8 on the device).
         Noise comes from `generator` (on the device) unless `init_latents`
-        [B, F, h, w, 4] is injected."""
+        [B, F, h, w, 4] is injected. With `mesh` every rank calls it with
+        the same arguments; B must be a multiple of the mesh's size."""
+        if shard_clip:
+            raise NotImplementedError(
+                "generate(shard_clip=True), one clip split within the denoise "
+                "step (head-sharded attention, frame-parallel decode), is not "
+                "ported yet (ROADMAP Queue 1); use mesh= alone, which splits "
+                "the batch")
+        if mesh is not None and image.shape[0] % mesh.size():
+            raise ValueError(
+                f"batch {image.shape[0]} must be a multiple of the mesh "
+                f"size {mesh.size()}; pad the request batch (the serving plane "
+                "buckets requests to device-divisible batches)")
         latents = self.denoise(image, gen, actions, past_images,
-                               generator=generator, init_latents=init_latents)
-        return self._decode_chunked(latents, gen, out_uint8_hw)
+                               generator=generator, init_latents=init_latents,
+                               mesh=mesh)
+        frames = self._decode_chunked(latents, gen, out_uint8_hw)
+        return frames if mesh is None else gather_rows(mesh, frames)
 
     @torch.inference_mode()
     def denoise(
@@ -284,15 +308,39 @@ class SVDPipeline:
         *,
         generator: Optional[torch.Generator] = None,
         init_latents: Optional[torch.Tensor] = None,
+        mesh=None,
     ) -> torch.Tensor:
         """`generate` up to the decode: the denoised latents divided by the
-        VAE's scaling factor, fp32 [B, F, h, w, 4]."""
+        VAE's scaling factor, fp32 [B, F, h, w, 4] (this rank's rows under
+        `mesh`)."""
         dev = self.device
         image = image.to(dev, torch.float32)
         B, H, W, _ = image.shape
         F = gen.num_frames
         scale = self.vae_config.spatial_scale
         h, w = H // scale, W // scale
+        if actions is not None:
+            actions = actions.to(dev)
+
+        # the random draws, the whole batch's: the noise augmentation, then
+        # the initial noise
+        aug_noise = torch.randn(image.shape, generator=generator, device=dev)
+        if init_latents is not None:
+            noise = init_latents.to(dev, torch.float32)
+        elif (gen.task_type == "navigation" and actions is not None
+              and actions.ndim == 2):
+            noise = sample_latent_noise(actions, (B, F, 4, h, w),
+                                        generator=generator)
+            noise = noise.movedim(2, -1)  # -> [B, F, h, w, 4]
+        else:
+            noise = torch.randn((B, F, h, w, 4), generator=generator, device=dev)
+        if mesh is not None:  # this rank's rows of the batch
+            rows = batch_rows(mesh, dist.get_rank(), B)
+            cut = slice(rows.start, rows.stop)
+            image, aug_noise, noise = image[cut], aug_noise[cut], noise[cut]
+            actions = None if actions is None else actions[cut]
+            past_images = None if past_images is None else past_images[cut]
+            B = len(rows)
 
         # 1. CLIP conditioning [B, Np + 1, D]; uncond = zeros
         embeds = self.clip(preprocess_for_clip(image))[:, None, :]
@@ -305,8 +353,7 @@ class SVDPipeline:
         context = torch.cat([torch.zeros_like(embeds), embeds], dim=0)
 
         # 2. VAE-encode the noise-augmented conditioning image (unscaled)
-        aug = image + gen.noise_aug_strength * torch.randn(
-            image.shape, generator=generator, device=dev)
+        aug = image + gen.noise_aug_strength * aug_noise
         img_latents = self.vae.encode(aug).float()
         img_latents = torch.cat([torch.zeros_like(img_latents), img_latents])
         img_latents = img_latents[:, None].expand(2 * B, F, h, w, -1)
@@ -315,21 +362,10 @@ class SVDPipeline:
         added_time_ids = torch.tensor(
             [[gen.fps - 1, gen.motion_bucket_id, gen.noise_aug_strength]],
             dtype=torch.float32, device=dev).expand(2 * B, 3)
-        if actions is not None:
-            actions = actions.to(dev)
         action_ids = self._prepare_action_ids(actions)
 
-        # 4. schedule + init noise
+        # 4. schedule; the initial latents
         sigmas = S.karras_sigmas(gen.num_inference_steps, gen.edm, device=dev)
-        if init_latents is not None:
-            noise = init_latents.to(dev, torch.float32)
-        elif (gen.task_type == "navigation" and actions is not None
-              and actions.ndim == 2):
-            noise = sample_latent_noise(actions, (B, F, 4, h, w),
-                                        generator=generator)
-            noise = noise.movedim(2, -1)  # -> [B, F, h, w, 4]
-        else:
-            noise = torch.randn((B, F, h, w, 4), generator=generator, device=dev)
         latents = noise * torch.sqrt(sigmas[0] ** 2 + 1.0)
         guidance = S.guidance_scales(F, gen.min_guidance_scale,
                                      gen.max_guidance_scale,

@@ -6,7 +6,12 @@ Port of `wiw_tpu/train/checkpoints.py`, with the same layout and rules:
   * restore the latest step, or an explicit one
 The state is any nested structure of tensors and Python values (the
 trainer's: model, optimizer, EMA and step), written with `torch.save` into
-`checkpoint-<step>/state.pt`: the port's own format, not Orbax.
+`checkpoint-<step>/state.pt`: the port's own format, not Orbax. The
+trainer's state holds whole tensors keyed by parameter name
+(`TrainState.state_dict`, which gathers a sharded state on every rank), so
+a checkpoint restores at any world size, as the reference's restores into
+the shardings of the state it is given. In a run of several processes
+rank 0 alone saves (`train_cli`), and every rank restores the same file.
 
 `async_save=True` overlaps the disk write with the next train steps: the
 device-to-host snapshot is synchronous (every tensor copied to host memory

@@ -1,4 +1,4 @@
-"""SVD-dagger post-training: the EDM objective on one GPU.
+"""SVD-dagger post-training: the EDM objective on one GPU or a mesh of them.
 
 Port of `wiw_tpu/train/trainer.py`. One micro-batch's loss is the
 reference's `Trainer.loss_fn` step by step:
@@ -17,16 +17,23 @@ tests can hand JAX's own draws to both packages.
 
 The step: gradients averaged over a leading [A, ...] micro-batch axis
 (grad accumulation), optax's `clip_by_global_norm` rule (g * max / norm
-only when norm >= max), AdamW with optax's beta, eps and decoupled weight
-decay (torch.optim.AdamW computes the same update), the LR schedules of
-optax's `constant`, `constant_with_warmup`, `linear` and `cosine` as the
-reference builds them, and the EMA over all UNet parameters. Parameters,
-optimizer state and EMA are updated in place (the PyTorch idiom; it saves
-a copy of each).
+only when norm >= max), the optimizer the reference builds (`adamw`:
+optax's AdamW, which `torch.optim.AdamW` computes; `adamw_bf16m` and
+`adafactor`: `train/optimizers.py`), the LR schedules of optax's
+`constant`, `constant_with_warmup`, `linear` and `cosine` as the reference
+builds them, and the EMA over all UNet parameters. Parameters, optimizer
+state and EMA are updated in place (the PyTorch idiom; it saves a copy of
+each).
 
-Not ported: the bf16-moment AdamW and Adafactor (`optimizer='adamw_bf16m'`,
-`'adafactor'`) and the (dp, fsdp) mesh: both raise NotImplementedError
-(ROADMAP M10; DDP/FSDP needs more than one card).
+With a ('dp', 'fsdp') mesh (`parallel/mesh.make_mesh`) the UNet is sharded
+by FSDP2 (`parallel/mesh.shard_unet`) and each rank trains on its rows of
+the global batch, as the reference's batch sharding splits it: a rank's
+draws are its rows of the global batch's draws (every rank seeds the same
+generator), its gradients are averaged over the mesh, the clip's norm is
+taken over every shard, and the optimizer state and the EMA are sharded
+like the parameters. So a step at world size n computes what one device
+computes on the global batch. The frozen VAE and CLIP stay whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -37,11 +44,17 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from wiw_tpu_torch.core import schedule as S
 from wiw_tpu_torch.core.actions import get_action_ids
 from wiw_tpu_torch.core.noise import sample_latent_noise
 from wiw_tpu_torch.models.clip import preprocess_for_clip
+from wiw_tpu_torch.models.convert import flax_axes, translate_key
+from wiw_tpu_torch.parallel.mesh import batch_rows, shard_unet
+from wiw_tpu_torch.parallel.multihost import is_primary
+from wiw_tpu_torch.train.optimizers import Adafactor, AdamWBf16Moment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +79,8 @@ class TrainConfig:
     lr_warmup_steps: int = 0
     # total steps for decaying schedules (linear/cosine)
     lr_total_steps: int = 0
-    # 'adamw' (fp32 moments); 'adamw_bf16m' and 'adafactor' are not ported
+    # 'adamw' (fp32 moments); 'adamw_bf16m' (bf16 first moment);
+    # 'adafactor' (factored second moment)
     optimizer: str = "adamw"
     edm: S.EDMConfig = S.EDMConfig()
 
@@ -153,32 +167,86 @@ def lr_schedule(c: TrainConfig):
 
 
 class TrainState:
-    """The UNet's parameters (the live modules' tensors), the optimizer,
-    the EMA and the step. `state_dict()` / `load_state_dict()` are what
-    checkpoints hold."""
+    """The UNet (`module`), its parameters (the live modules' tensors,
+    sharded under a mesh), the optimizer, the EMA and the step. `state_dict()` /
+    `load_state_dict()` are what checkpoints hold: whole tensors keyed by
+    parameter name (torch.distributed.checkpoint's full
+    state dicts), so a checkpoint written at one world size restores at
+    any other."""
 
-    def __init__(self, params: dict, optimizer, ema: Optional[list], step: int = 0):
+    def __init__(self, module: torch.nn.Module, params: dict, optimizer,
+                 ema: Optional[list], step: int = 0):
+        self.module = module
         self.params = params
         self.optimizer = optimizer
         self.ema = ema
         self.step = step
 
     def state_dict(self) -> dict:
-        sd = {"params": {n: p.detach() for n, p in self.params.items()},
-              "opt_state": self.optimizer.state_dict(), "step": self.step}
+        """Gathers every sharded tensor (every rank must call it) to the
+        host; under a process group the tensors land on rank 0 only, the
+        others get empty dicts. An unsharded state is handed over as it
+        lies, the live tensors themselves: the checkpoint's snapshot
+        (`checkpoints.to_host`) copies them once."""
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, get_model_state_dict, get_optimizer_state_dict)
+
+        sharded = any(isinstance(p, DTensor) for p in self.params.values())
+        opts = StateDictOptions(full_state_dict=True, cpu_offload=sharded)
+        model = get_model_state_dict(self.module, options=opts)
+        sd = {"params": {n: model[n] for n in self.params if n in model},
+              "opt_state": get_optimizer_state_dict(self.module, self.optimizer,
+                                                    options=opts),
+              "step": self.step}
         if self.ema is not None:
-            sd["ema_params"] = dict(zip(self.params, self.ema))
+            sd["ema_params"] = {}
+            for n, e in zip(self.params, self.ema):  # a leaf whole at a time
+                if isinstance(e, DTensor):
+                    e = e.full_tensor().cpu()
+                if is_primary():
+                    sd["ema_params"][n] = e
         return sd
 
     @torch.no_grad()
     def load_state_dict(self, sd: dict) -> None:
-        for n, p in self.params.items():
-            p.copy_(sd["params"][n])
-        self.optimizer.load_state_dict(sd["opt_state"])
+        """Load a whole state (every rank gives the same one) into the live
+        tensors, each shard taking its part."""
+        from torch.distributed.checkpoint.state_dict import (
+            StateDictOptions, set_model_state_dict, set_optimizer_state_dict)
+
+        opts = StateDictOptions(full_state_dict=True)
+        set_model_state_dict(self.module, sd["params"], options=opts)
+        set_optimizer_state_dict(self.module, self.optimizer, sd["opt_state"],
+                                 options=opts)
         if self.ema is not None:
             for e, n in zip(self.ema, self.params):
-                e.copy_(sd["ema_params"][n])
+                full = sd["ema_params"][n].to(e.device)
+                if isinstance(e, DTensor):
+                    full = distribute_tensor(full, e.device_mesh, e.placements,
+                                             src_data_rank=None).to_local()
+                    e = e.to_local()
+                e.copy_(full)
         self.step = int(sd["step"])
+
+
+def build_optimizer(c: TrainConfig, named: list, fused: bool = False):
+    """The reference's optimizer (`c.optimizer`) over the (name, parameter)
+    pairs `named`. Adafactor factors each parameter over the axes of its
+    flax leaf, whose layout `models/convert.flax_axes` gives."""
+    params = [p for _, p in named]
+    if c.optimizer == "adamw":
+        return torch.optim.AdamW(
+            params, lr=c.learning_rate, betas=(c.adam_beta1, c.adam_beta2),
+            eps=c.adam_eps, weight_decay=c.weight_decay, fused=fused)
+    if c.optimizer == "adamw_bf16m":
+        return AdamWBf16Moment(params, lr=c.learning_rate,
+                               betas=(c.adam_beta1, c.adam_beta2),
+                               eps=c.adam_eps, weight_decay=c.weight_decay)
+    if c.optimizer == "adafactor":
+        return Adafactor(params, lr=c.learning_rate, weight_decay=c.weight_decay,
+                         layouts=[flax_axes(translate_key(n), p.ndim)
+                                  for n, p in named])
+    raise ValueError(f"unknown optimizer {c.optimizer!r}")
 
 
 class Trainer:
@@ -192,15 +260,7 @@ class Trainer:
 
     def __init__(self, pipeline, train_config: TrainConfig, mesh=None):
         c = train_config
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (DDP/FSDP over several cards) is not ported "
-                "yet (ROADMAP M10): train on one device")
-        if c.optimizer in ("adamw_bf16m", "adafactor"):
-            raise NotImplementedError(
-                f"optimizer {c.optimizer!r} is not ported yet (ROADMAP M10); "
-                "use 'adamw'")
-        if c.optimizer != "adamw":
+        if c.optimizer not in ("adamw", "adamw_bf16m", "adafactor"):
             raise ValueError(f"unknown optimizer {c.optimizer!r}")
         if c.conditioning_dropout not in ("discrete", "continuous", "none"):
             raise ValueError(f"unknown conditioning_dropout {c.conditioning_dropout!r}")
@@ -209,25 +269,46 @@ class Trainer:
         self.device = pipeline.device
         self.lr_at = lr_schedule(c)
         self._copy_stream = None
+        self.mesh = mesh
+        self.mask = trainable_mask(pipeline.unet, c.train_params)
+        if mesh is not None:
+            if "fsdp" not in (mesh.mesh_dim_names or ()):
+                raise ValueError(
+                    "the trainer shards the batch over ('dp', 'fsdp') and the "
+                    f"parameters over 'fsdp', absent from this mesh (axes: "
+                    f"{mesh.mesh_dim_names}); use parallel.make_mesh(dp, fsdp)")
+            # FSDP2 takes each parameter's requires_grad as it finds it
+            for n, p in pipeline.unet.named_parameters():
+                p.requires_grad_(self.mask[n])
+            shard_unet(pipeline.unet, mesh)
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
         """Unfreeze the trainable UNet parameters and build the optimizer
         (over those only, as the reference's masked chain) and the EMA."""
-        c = self.cfg
         unet = self.pipe.unet
-        mask = trainable_mask(unet, c.train_params)
         params = dict(unet.named_parameters())
         for n, p in params.items():
-            p.requires_grad_(mask[n])
-        trainable = [p for n, p in params.items() if mask[n]]
-        opt = torch.optim.AdamW(
-            trainable, lr=self.lr_at(0), betas=(c.adam_beta1, c.adam_beta2),
-            eps=c.adam_eps, weight_decay=c.weight_decay,
-            fused=self.device.type == "cuda")
+            p.requires_grad_(self.mask[n])
+        opt = build_optimizer(self.cfg, [(n, p) for n, p in params.items()
+                                         if self.mask[n]],
+                              fused=self.device.type == "cuda")
         ema = ([p.detach().clone() for p in params.values()]
-               if c.use_ema else None)
-        return TrainState(params, opt, ema)
+               if self.cfg.use_ema else None)
+        return TrainState(unet, params, opt, ema)
+
+    def _rows(self, draws: dict) -> dict:
+        """A rank's rows of the global batch's draws (all of them without a
+        mesh)."""
+        if self.mesh is None:
+            return draws
+        n = draws["dropout_u"].shape[0]
+        rows = batch_rows(self.mesh, dist.get_rank(), n)
+        out = {}
+        for k, v in draws.items():
+            per = v.shape[0] // n  # vae_eps: a row per frame
+            out[k] = v[rows.start * per:rows.stop * per]
+        return out
 
     # ------------------------------------------------------------------
     def place_batch(self, batch: dict) -> dict:
@@ -254,22 +335,25 @@ class Trainer:
     def sample_draws(self, frames_shape, nav_actions: bool,
                      generator: Optional[torch.Generator] = None) -> dict:
         """Every random tensor of one micro-batch's loss, from `generator`
-        (on the trainer's device)."""
+        (on the trainer's device). `frames_shape` is this rank's; under a
+        mesh the draws are the global batch's, cut to this rank's rows."""
         B, F, H, W, _ = frames_shape
+        if self.mesh is not None:
+            B *= self.mesh.size()
         scale = self.pipe.vae_config.spatial_scale
         h, w, lc = H // scale, W // scale, self.pipe.vae_config.latent_channels
 
         def normal(*shape):
             return torch.randn(shape, generator=generator, device=self.device)
 
-        return {
+        return self._rows({
             "vae_eps": normal(B * F, h, w, lc),
             "cond_sigma_z": normal(B, 1, 1, 1),
             "cond_noise": normal(B, H, W, 3),
             "latent_noise": normal(B, F, lc, h, w) if nav_actions else normal(B, F, h, w, lc),
             "sigma_z": normal(B, 1, 1, 1, 1),
             "dropout_u": torch.rand(B, generator=generator, device=self.device),
-        }
+        })
 
     def _encode_frames(self, flat, eps):
         vae = self.pipe.vae
@@ -280,7 +364,8 @@ class Trainer:
     def loss_fn(self, batch: dict, draws: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """One micro-batch EDM loss. batch: pixel_values [B, F, H, W, 3] in
-        [-1, 1]; actions [B, F] nav ids (or None)."""
+        [-1, 1]; actions [B, F] nav ids (or None): this rank's rows. `draws`
+        are the global batch's (the micro-batch's own without a mesh)."""
         pipe, c, dev = self.pipe, self.cfg, self.device
         frames = batch["pixel_values"].to(dev, torch.float32)
         actions = batch.get("actions")
@@ -290,7 +375,8 @@ class Trainer:
         scale = pipe.vae_config.spatial_scale
         h, w = H // scale, W // scale
         nav = actions is not None and actions.ndim == 2
-        d = draws if draws is not None else self.sample_draws(frames.shape, nav, generator)
+        d = (self._rows(draws) if draws is not None
+             else self.sample_draws(frames.shape, nav, generator))
         d = {k: v.to(dev) for k, v in d.items()}
 
         with torch.no_grad():
@@ -347,8 +433,10 @@ class Trainer:
                    draws: Optional[list] = None) -> dict:
         """One optimizer step, in place on `state`. With grad_accum_steps
         A > 1 every batch tensor carries a leading [A, ...] micro-step axis
-        and the gradients average over it; `draws` (one dict per micro-step)
-        replaces the generator's draws. Returns {'loss': mean loss}."""
+        and the gradients average over it; `draws` (one dict per micro-step,
+        the global batch's) replaces the generator's draws. Under a mesh
+        `batch` holds this rank's rows. Returns {'loss': the global batch's
+        mean loss, 'grad_norm'}."""
         c = self.cfg
         A = c.grad_accum_steps
         micro = ([batch] if A == 1 else
@@ -364,19 +452,26 @@ class Trainer:
             loss_sum = loss_sum + loss.detach()
         for p in trainable:
             # a parameter the loss does not reach (add_embedding under
-            # micro_cond) has a zero gradient, as in JAX: AdamW still
-            # decays it, where torch would skip a None gradient
+            # micro_cond) has a zero gradient, as in JAX: the optimizer
+            # still decays it, where torch would skip a None gradient. The
+            # graph is the same on every rank, so every rank adds the same
+            # zero shard.
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in trainable]
 
-        # optax.clip_by_global_norm: g / norm * max where norm >= max
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        # optax.clip_by_global_norm: g / norm * max where norm >= max; the
+        # norm over every shard of every gradient
+        local = [g.to_local() if isinstance(g, DTensor) else g for g in grads]
+        sq = torch.stack(torch._foreach_norm(local)).square().sum()
+        if self.mesh is not None:
+            dist.all_reduce(sq, group=self.mesh.get_group("fsdp"))
+        norm = torch.sqrt(sq)
         clip = norm >= c.max_grad_norm
         div = torch.where(clip, norm, torch.ones_like(norm))
         mul = torch.where(clip, torch.full_like(norm, c.max_grad_norm),
                           torch.ones_like(norm))
-        for g in grads:
+        for g in local:
             g.div_(div).mul_(mul)
 
         for group in state.optimizer.param_groups:
@@ -385,8 +480,14 @@ class Trainer:
         if state.ema is not None:
             d = c.ema_decay
             with torch.no_grad():
-                torch._foreach_mul_(state.ema, d)
-                torch._foreach_add_(state.ema, list(state.params.values()),
+                ema = [e.to_local() if isinstance(e, DTensor) else e for e in state.ema]
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, [p.to_local() if isinstance(p, DTensor) else p
+                                          for p in state.params.values()],
                                     alpha=1.0 - d)
         state.step += 1
-        return {"loss": loss_sum / A, "grad_norm": norm.detach()}
+        loss = loss_sum / A
+        if self.mesh is not None:  # the mean over the global batch
+            dist.all_reduce(loss)  # gloo has no AVG
+            loss = loss / dist.get_world_size()
+        return {"loss": loss, "grad_norm": norm.detach()}
