@@ -349,7 +349,8 @@ PREV_MS = {"K1": 99.0636, "K1-D72": None, "K2": 17.1462, "K2-unroll2": 18.9899,
            "K3": 150.7475, "K4": 7.4117, "K5": 247.7191, "K6": 275.2729, "K6-bf16": 363.8384,
            "K8": 14.1938, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 13.6274, "K9-noexp": 14.8971, "K9-v2": 17.7919,
-           "K10": 30.4349, "K10-i8pv": 30.1989}
+           "K10": 30.4349, "K10-i8pv": 30.1989, "K8-stats": None, "K8-apply": None,
+           "K7-amax": None, "K7-conv-given": None}
 PREV_FROM = "PERF.md §6, the time before this version (H100 80GB HBM3, 700 W)"
 
 
@@ -1492,6 +1493,370 @@ def dist_phase(dev) -> dict:
     return total
 
 
+# shard_clip: the full-width shapes a rank holds at fsdp 2 and 4 (576x1024,
+# 14 frames, the CFG pair folded at dp 1): GroupNorms (x, silu) split along
+# the height (axis -3), a level-0 3x3 conv (x, output channels) and the
+# level-0 spatial attention (rows x frames, heads, S); the generate runs at
+# SHARD_STEPS Euler steps
+SPLIT_FSDP = (2, 4)
+SPLIT_GN_SHAPES = [((28, 72, 128, 320), True), ((2, 14, 72, 128, 320), True),
+                   ((28, 9, 16, 1280), True)]
+SPLIT_CONV = ((28, 72, 128, 320), 320)
+SPLIT_K1 = (28, 5, 9216)
+SHARD_STEPS = 10
+
+
+def split_checks(rows: dict, dev, g):
+    """The split kernel entries inside one process, at the shapes of a rank
+    at fsdp 2 and 4: K8's statistics over each row shard, combined
+    (`combine_stats`, Chan's rule) and applied on each shard, against the
+    plain version and the one-launch K8; K8's and K7's amax entry and
+    K7-conv with the global amax on each halo'd row shard (a zero column
+    each side, padding 0), bit for bit against the rows of the one-launch
+    conv; K1 on the padded head shard that holds the last real head and a
+    pad head. Each new entry is timed on the largest shard at fsdp 4
+    against its plain version (and the library call where one computes the
+    same function)."""
+    import torch.nn.functional as F
+
+    from wiw_tpu_torch.ops import group_norm as TG
+    from wiw_tpu_torch.ops import quant as TQ
+    from wiw_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from wiw_tpu_torch.parallel.clip_sharding import split_rows
+
+    def shards(x, n):
+        return [x.narrow(-3, r.start, len(r)).contiguous()
+                for r in split_rows(x.shape[-3], n) if len(r)]
+
+    for shape, silu in SPLIT_GN_SHAPES:
+        x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3).to(torch.bfloat16)
+        C = shape[-1]
+        w = torch.randn(C, generator=g, device=dev)
+        b = torch.randn(C, generator=g, device=dev)
+        plain = TG.group_norm_plain(x, w, b, 32, 1e-5, silu)
+        whole = TG.group_norm(x, w, b, 32, 1e-5, silu)
+        one_ms = cuda_ms(lambda: TG.group_norm(x, w, b, 32, 1e-5, silu), 5)
+        for n in SPLIT_FSDP:
+            parts = shards(x, n)
+
+            def split():
+                st = torch.stack([TG.group_norm_stats(s, 32) for s in parts])
+                mean, rstd = TG.combine_stats(st, 1e-5)
+                return [TG.group_norm_apply(s, mean, rstd, w, b, silu) for s in parts]
+
+            out = torch.cat(split(), dim=-3)
+            err, line = compare(f"K8 split {shape} fsdp {n}", out, plain)
+            d1 = float((out.float() - whole.float()).abs().max())
+            split_ms = cuda_ms(split, 5)
+            print(f"K8 split {shape} bf16 silu over fsdp {n} ({len(parts)} shards, stats "
+                  f"+ combine + apply of every shard in one process): {split_ms:.4f} ms vs "
+                  f"the one-launch K8 on the whole x {one_ms:.4f} ms; against the plain "
+                  f"version {line}; max|split - one-launch| {d1:.6g}", flush=True)
+            if n != SPLIT_FSDP[-1]:
+                continue
+            s0 = parts[0]
+            N, L = s0.shape[0], s0.numel() // (s0.shape[0] * C)
+            st = TG.group_norm_stats(s0, 32)
+            mean, rstd = TG.combine_stats(st[None], 1e-5)
+            ref_st = TG.group_norm_stats_plain(s0, 32)
+            e1 = max(float((st[..., 1] - ref_st[..., 1]).abs().max()),
+                     float(((st[..., 2] - ref_st[..., 2]).abs() / ref_st[..., 2]).max()))
+            view = s0.view(N, L, 32, C // 32)
+            nbytes = s0.numel() * s0.element_size()
+            ms, plain_ms, lib = timed(
+                f"K8-stats a rank's shard {tuple(s0.shape)} (against the plain version: "
+                f"max of |mean - mean'| and |M2 - M2'| / M2' {e1:.3g})",
+                lambda: TG.group_norm_stats_plain(s0, 32), lambda: TG.group_norm_stats(s0, 32),
+                lambda: torch.var_mean(view, dim=(1, 3), correction=0), 10, 3,
+                bound_ms(nbytes, 0, BF16_FLOPS_S),
+                lambda ms: f"{nbytes / ms / 1e6:.1f} GB/s")
+            rows["K8-stats"].add(1, e1, ms, plain_ms, bound_ms(nbytes, 0, BF16_FLOPS_S),
+                                 "bytes", lib)
+            ap = TG.group_norm_apply(s0, mean, rstd, w, b, silu)
+            e2, line = compare("K8-apply", ap, TG.group_norm_apply_plain(s0, mean, rstd, w, b,
+                                                                          silu))
+            ms, plain_ms, _ = timed(
+                f"K8-apply a rank's shard {tuple(s0.shape)} {line}",
+                lambda: TG.group_norm_apply_plain(s0, mean, rstd, w, b, silu),
+                lambda: TG.group_norm_apply(s0, mean, rstd, w, b, silu), None, 10, 3,
+                bound_ms(2 * nbytes, 0, BF16_FLOPS_S),
+                lambda ms: f"{2 * nbytes / ms / 1e6:.1f} GB/s")
+            rows["K8-apply"].add(1, e2, ms, plain_ms, bound_ms(2 * nbytes, 0, BF16_FLOPS_S),
+                                 "bytes")
+        del x, plain, whole
+
+    xshape, O = SPLIT_CONV
+    x = torch.randn(xshape, generator=g, device=dev).to(torch.bfloat16)
+    C = xshape[-1]
+    w8 = torch.randint(-127, 128, (O, 3, 3, C), generator=g, device=dev, dtype=torch.int8)
+    ws = torch.rand(O, generator=g, device=dev) * 1e-3
+    bias = torch.randn(O, generator=g, device=dev)
+    whole = TQ.w8a8_conv(x, w8, ws, bias, padding=1)
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    for n in SPLIT_FSDP:
+        rs = [r for r in split_rows(xshape[1], n) if len(r)]
+        amax = torch.stack([TQ.conv_amax(x[:, r.start:r.stop].contiguous())
+                            for r in rs]).amax(0)
+        halo = [xp[:, r.start:r.stop + 2].contiguous() for r in rs]
+        out = torch.cat([TQ.w8a8_conv(e, w8, ws, bias, padding=0, amax=amax)
+                         for e in halo], dim=1)
+        same_amax = bool(torch.equal(amax, TQ.conv_amax_plain(x)))
+        same = bool(torch.equal(out, whole))
+        print(f"K7-conv split {xshape} over fsdp {n}: the amax of the shards' amax "
+              f"equals the whole x's: {same_amax}; the given-amax conv on each halo'd "
+              f"shard equals the one-launch conv's rows bit for bit: {same}", flush=True)
+        if not (same_amax and same):
+            raise RuntimeError("K7's split entries depart from the one-launch conv")
+        if n != SPLIT_FSDP[-1]:
+            continue
+        s0, e0 = x[:, rs[0].start:rs[0].stop].contiguous(), halo[0]
+        nbytes = s0.numel() * s0.element_size()
+        ms, plain_ms, lib = timed(
+            f"K7-amax a rank's shard {tuple(s0.shape)}", lambda: TQ.conv_amax_plain(s0),
+            lambda: TQ.conv_amax(s0),
+            lambda: torch.linalg.vector_norm(s0, ord=float("inf")), 10, 3,
+            bound_ms(nbytes, 0, BF16_FLOPS_S), lambda ms: f"{nbytes / ms / 1e6:.1f} GB/s")
+        rows["K7-amax"].add(1, 0.0, ms, plain_ms, bound_ms(nbytes, 0, BF16_FLOPS_S),
+                            "bytes", lib)
+        plain = TQ.w8a8_conv_plain(e0, w8, ws, bias, padding=0, amax=amax)
+        got = TQ.w8a8_conv(e0, w8, ws, bias, padding=0, amax=amax)
+        if not torch.equal(got, plain):
+            raise RuntimeError("the given-amax K7-conv departs from its plain version")
+        ops, nb, _ = k7_ops_bytes(("conv", tuple(e0.shape), e0.dtype, tuple(w8.shape), 1, 0,
+                                   True, torch.bfloat16))
+        bound = bound_ms(nb, ops, INT8_OPS_S)
+        ms, plain_ms, _ = timed(
+            f"K7-conv with the amax given, a rank's halo'd shard {tuple(e0.shape)} (bits "
+            "equal to its plain version)",
+            lambda: TQ.w8a8_conv_plain(e0, w8, ws, bias, padding=0, amax=amax),
+            lambda: TQ.w8a8_conv(e0, w8, ws, bias, padding=0, amax=amax), None, 5, 1,
+            bound, lambda ms: f"{ops / ms / 1e9:.1f} TOPS")
+        rows["K7-conv-given"].add(1, 0.0, ms, plain_ms, bound,
+                                  "operations" if ops / INT8_OPS_S > nb / HBM_BYTES_S
+                                  else "bytes")
+    del x, xp, whole
+
+    B, H, S = SPLIT_K1
+    q, k, v = (torch.randn(B, S, H, 64, generator=g, device=dev, dtype=torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    for n in SPLIT_FSDP:
+        hs = -(-H // n)
+        p = (H - 1) // hs  # the shard that holds the last real head
+        padded = [torch.zeros(B, n * hs, S, 64, device=dev, dtype=torch.bfloat16)
+                  for _ in range(3)]
+        for t, src in zip(padded, (q, k, v)):
+            t[:, :H] = src
+        qs, ks, vs = (t[:, p * hs:(p + 1) * hs] for t in padded)
+        out = flash_attention(qs, ks, vs)
+        chunk = max(1, int(2e9 // (hs * S * S * 4)))
+        ref = torch.cat([flash_attention_plain(qs[i:i + chunk], ks[i:i + chunk],
+                                               vs[i:i + chunk]) for i in range(0, B, chunk)])
+        real = H - p * hs
+        err, line = compare(f"K1 head shard fsdp {n}", out[:, :real], ref[:, :real])
+        pad_zero = bool((out[:, real:] == 0).all())
+        ms = cuda_ms(lambda: flash_attention(qs, ks, vs), 3)
+        print(f"K1 on the padded head shard at fsdp {n} ({H} heads -> {n * hs}, shard {p} "
+              f"of {hs} heads, {real} real; B={B}, S={S}): {ms:.4f} ms; {line}; pad heads "
+              f"all zero: {pad_zero}", flush=True)
+        if not pad_zero:
+            raise RuntimeError("K1's pad heads are not zero")
+        del padded, qs, ks, vs, out, ref
+
+
+def shard_clip_phase(rows: dict, dev, g) -> dict:
+    """`generate(shard_clip=True)` on the card: the split kernel entries
+    (`split_checks`), then, on an in-process 1-rank NCCL group and
+    `make_mesh(1, 1)`, one full-width request (576x1024, 14 frames,
+    SHARD_STEPS steps, the serving CFG schedule) through `generate` and
+    through `generate(shard_clip=True)` from the same generator, in bf16
+    and in W8A8, with s/request and peak memory; the denoised latents held
+    together within the bounds the engine is held to `generate` by (the
+    two sum bf16 in another order: split GroupNorm statistics, a halo'd
+    conv at padding 0, the frame-parallel decode's batched groups), the
+    frames printed (the shard_clip request timed after an untimed one of its
+    own); in bf16 also one request of each under torch.profiler
+    (the gap between the two split into device time and device idle time)
+    and one 2-row UNet forward split against the whole one, held to the
+    yardstick of a sample moved by one bf16 step. Then the frame-parallel
+    decode's peak at world size 1 (all complete groups live at once) against
+    the sequential decode's.
+    Returns the launches of the shard_clip runs."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from wiw_tpu_torch.parallel import clip_sharding, make_mesh
+    from wiw_tpu_torch.parallel.multihost import initialize_distributed
+    from wiw_tpu_torch.workers.svd_action import SVDActionWorker
+
+    t_phase = time.perf_counter()
+    split_checks(rows, dev, g)
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="wiw_clip_")
+    total = dict.fromkeys(_counters(), 0)
+    initialize_distributed("cuda", init_method=f"file://{tmp}/pg", world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1)
+        rng = np.random.default_rng(9)
+        image = torch.from_numpy(rng.uniform(-1, 1, (1, 576, 1024, 3)).astype(np.float32))
+        acts = torch.tensor([[4, 1, 1, 2, 2, 1, 3, 3, 1, 1, 2, 1, 3, 1]])
+        for label, bounds in (("bf16", (SMALL_ATOL, SMALL_MEAN_ATOL)),
+                              ("int8", (INT8_SMALL_ATOL, INT8_SMALL_MEAN_ATOL))):
+            worker = SVDActionWorker(
+                width=1024, height=576, num_frames=FRAMES, num_inference_steps=SHARD_STEPS,
+                out_width=480, out_height=480, quantize=label, cfg_schedule="serving",
+                device="cuda", seed=0, fused_ff=False, temporal_attention="batched")
+            pipe = worker.pipe
+            gen = worker.gen
+            seen = {}
+            decode = pipe._decode_chunked
+
+            def capture(latents, *a, **kw):
+                seen["latents"] = latents
+                return decode(latents, *a, **kw)
+
+            pipe._decode_chunked = capture
+
+            def request(shard):
+                return pipe.generate(image, gen, actions=acts,
+                                     generator=torch.Generator(device=dev).manual_seed(5),
+                                     mesh=mesh if shard else None, shard_clip=shard)
+
+            # untimed: the label's first shard_clip request sets up what
+            # later ones reuse (NCCL's communicator and its collectives,
+            # cuDNN's choices for the halo'd shapes); `generate` is warm
+            # from the earlier phases
+            request(True)
+            res = {}
+            for shard in (False, True):
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                t = time.perf_counter()
+                frames = request(shard)
+                torch.cuda.synchronize()
+                res[shard] = (frames, seen.pop("latents"), time.perf_counter() - t,
+                              torch.cuda.max_memory_allocated() / 2**30, launches())
+            del pipe._decode_chunked
+            if label == "bf16":
+                request_gap(request, {k: res[k][2] for k in res},
+                            {k: res[k][4]["K1"] for k in res})
+            (f0, l0, s0, p0, c0), (f1, l1, s1, p1, c1) = res[False], res[True]
+            dl = (l1 - l0).abs()
+            max_rel = float(dl.max() / l0.abs().max())
+            mean_rel = float(dl.mean() / l0.abs().mean())
+            df = (f1 - f0).abs()
+            new = {k: c1[k] for k in ("K8-stats", "K8-apply", "K7-amax", "K7-conv-given")}
+            print(f"shard_clip {label}: generate(shard_clip=True) on make_mesh(1, 1) "
+                  f"{s1:.3f} s/request, peak {p1:.2f} GiB; generate {s0:.3f} s/request, peak "
+                  f"{p0:.2f} GiB ({SHARD_STEPS} steps, 576x1024, 14 frames, serving CFG); "
+                  f"denoised latents max|d| {float(dl.max()):.6g} ({max_rel:.6g} of max|ref|, "
+                  f"tol {bounds[0]}), mean|d| {float(dl.mean()):.6g} ({mean_rel:.6g} of "
+                  f"mean|ref|, tol {bounds[1]}); frames max|d| {float(df.max()):.6g} mean|d| "
+                  f"{float(df.mean()):.6g}; launches: K1 {c1['K1']} (generate: {c0['K1']}), "
+                  f"K8 {c1['K8']} (generate: {c0['K8']}), {new}, K7-conv {c1['K7-conv']} "
+                  f"(generate: {c0['K7-conv']}), K7-dense {c1['K7-dense']} (generate: "
+                  f"{c0['K7-dense']})", flush=True)
+            if (f1.shape != (1, FRAMES, 576, 1024, 3) or not torch.isfinite(f1).all()
+                    or max_rel > bounds[0] or mean_rel > bounds[1]):
+                raise RuntimeError(f"shard_clip {label}: departs from generate")
+            if (c1["K1"] != c0["K1"] or c1["K8-stats"] != c1["K8-apply"] or not c1["K8-stats"]
+                    or (label == "int8") != bool(c1["K7-amax"])
+                    or c1["K7-amax"] != c1["K7-conv-given"]):
+                raise RuntimeError(f"shard_clip {label}: launches {c1} against {c0}")
+            for k in total:
+                total[k] += c1[k]
+            if label == "bf16":
+                # one 2-row UNet forward, split against whole (the same
+                # inputs). At world size 1 no halo row is exchanged and the
+                # all-to-alls are copies, so this sees what the split layers
+                # compute on their own: the split GroupNorm (statistics,
+                # Chan's rule, apply), the 3x3 convs at padding 0 on rows
+                # padded by hand, the resamplers' windows and re-splits, and
+                # the reshard's layouts around K1. The faults between ranks
+                # are held on the CPU (tests/test_torch_clip_sharding.py).
+                args = forward_args(dev)
+                # the yardstick: the whole forward of a sample moved by one
+                # bf16 step (2^-8 of its value) in every other element
+                step = torch.ones_like(args[0])
+                step.view(-1)[::2] += 2.0 ** -8
+                with torch.inference_mode():
+                    whole = pipe.unet(*args)
+                    moved = pipe.unet(args[0] * step, *args[1:])
+                    with clip_sharding.activate(mesh, None, 72, 128):
+                        split = pipe.unet(*args)
+
+                def rel_fro(a):
+                    return float(torch.linalg.vector_norm(a - whole)
+                                 / torch.linalg.vector_norm(whole))
+
+                rel, tol = rel_fro(split), rel_fro(moved)
+                print(f"shard_clip: one 2-row UNet forward under activate(make_mesh(1, 1)) "
+                      f"against the whole forward: max|d| {float((split - whole).abs().max()):.6g}"
+                      f", rel_fro {rel:.6g} (tol {tol:.6g}: the whole forward of the sample "
+                      f"moved by one bf16 step in every other element)", flush=True)
+                if not rel <= tol:
+                    raise RuntimeError("shard_clip: the split UNet forward departs by more "
+                                       "than one bf16 step of its input")
+                del args, whole, split, moved, step
+                peaks = {}
+                for name, m in (("sequential", None), ("frame-parallel", mesh)):
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    torch.cuda.synchronize()
+                    base = torch.cuda.memory_allocated() / 2**30
+                    torch.cuda.reset_peak_memory_stats()
+                    with torch.inference_mode():
+                        pipe._decode_chunked(l0, gen, None, m)
+                    torch.cuda.synchronize()
+                    peaks[name] = torch.cuda.max_memory_allocated() / 2**30 - base
+                chunk = gen.resolved_decode_chunk(dtype_bytes=2)
+                print(f"shard_clip decode at world size 1 (bf16 VAE, chunk {chunk}: "
+                      f"{FRAMES // chunk} complete groups live at once and a tail of "
+                      f"{FRAMES % chunk}): peak above the latents {peaks['frame-parallel']:.2f} "
+                      f"GiB, the sequential decode's {peaks['sequential']:.2f} GiB", flush=True)
+            del worker, res, f0, f1, l0, l1
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"shard_clip phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
+def request_gap(request, wall: dict, k1: dict) -> None:
+    """One request of `generate` (request(False)) and one of
+    `generate(shard_clip=True)` (request(True)) under torch.profiler: each
+    one's device busy time (its kernels' self time) and device time by
+    kernel class, and the gap between the unprofiled wall times `wall`
+    split into device time and the rest (the device idle: host work the
+    kernels wait on). The K1 kernels the profiler recorded are printed
+    beside the launch counts `k1`: fewer means it dropped events."""
+    busy, classes, seen = {}, {}, {}
+    for shard in (False, True):
+        with torch.inference_mode(), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            request(shard)
+            torch.cuda.synchronize()
+        classes[shard] = class_ms(prof)
+        busy[shard] = sum(classes[shard].values()) / 1e3
+        seen[shard] = sum(e.count for e in prof.key_averages() if "flash_attn" in e.key)
+        del prof
+    gap, dev_gap = wall[True] - wall[False], busy[True] - busy[False]
+    print(f"shard_clip bf16 request traced (torch.profiler): device busy generate "
+          f"{busy[False]:.4f} s of {wall[False]:.4f} s, shard_clip {busy[True]:.4f} s of "
+          f"{wall[True]:.4f} s; the {gap:.4f} s gap: device {dev_gap:.4f} s, device idle "
+          f"{gap - dev_gap:.4f} s; K1 kernels recorded {seen[False]}, {seen[True]} "
+          f"(launched {k1[False]}, {k1[True]})", flush=True)
+    for c in sorted(set(classes[False]) | set(classes[True]),
+                    key=lambda c: -classes[True].get(c, 0.0)):
+        a, b = classes[False].get(c, 0.0), classes[True].get(c, 0.0)
+        print(f"  {c}: generate {a:.2f} ms, shard_clip {b:.2f} ms ({b - a:+.2f})",
+              flush=True)
+
+
 def small_reference_phase(dev):
     """Tiny bf16 pipelines on the card (default, fused and W8A8
     configurations) vs the same weights in fp32 on the CPU (where every
@@ -2013,7 +2378,11 @@ def _counters() -> dict:
             "K9-noexp": (TFA.attention_noexp, "launches"),
             "K9-v2": (TFA.attention_v2, "launches"),
             "K10": (TI.int8_qk_attention, "launches"),
-            "K10-i8pv": (TI.int8_qk_attention, "launches_i8pv")}
+            "K10-i8pv": (TI.int8_qk_attention, "launches_i8pv"),
+            "K8-stats": (TG.group_norm_stats, "launches"),
+            "K8-apply": (TG.group_norm_apply, "launches"),
+            "K7-amax": (TQ.conv_amax, "launches"),
+            "K7-conv-given": (TQ.w8a8_conv, "launches_given")}
 
 
 def reset_launches():
@@ -2096,7 +2465,7 @@ def busy_ms(prof) -> float:
 # port's hand-written kernels, products (cuBLAS, cuDNN, CUTLASS), norms,
 # and the rest (elementwise, copies, reductions)
 KERNEL_CLASSES = (
-    ("K8 GroupNorm", ("gn_resident", "gn_stream")),
+    ("K8 GroupNorm", ("gn_resident", "gn_stream", "gn_stats", "gn_apply")),
     ("port attention and feed-forward kernels",
      ("flash_attn", "frame_attn", "geglu_ffn")),
     ("K7 W8A8 product and conv", ("w8a8_wgmma", "quant_rows", "amax_abs",
@@ -2114,16 +2483,23 @@ def kernel_class(name: str) -> str:
     return "elementwise, copies and reductions"
 
 
+def class_ms(prof) -> dict:
+    """A profile's device time by kernel class (KERNEL_CLASSES), ms."""
+    by_class = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type):
+            c = kernel_class(e.key)
+            by_class[c] = by_class.get(c, 0.0) + self_dev(e) / 1e3
+    return by_class
+
+
 def print_top(prof, n: int = 12) -> None:
     """The top ops and kernels of a profile by self device time, and the
     device time by kernel class (KERNEL_CLASSES)."""
     events = prof.key_averages()
     kernels = sorted((e for e in events if "CUDA" in str(e.device_type)),
                      key=self_dev, reverse=True)
-    by_class = {}
-    for e in kernels:
-        c = kernel_class(e.key)
-        by_class[c] = by_class.get(c, 0.0) + self_dev(e) / 1e3
+    by_class = class_ms(prof)
     busy = sum(by_class.values())
     print("  device time by kernel class: " + "; ".join(
         f"{c} {ms:.2f} ms ({100 * ms / busy:.1f}%)"
@@ -4330,6 +4706,22 @@ def main() -> int:
                         "scripts/probe_int8_attention.py:48",
                         "one call at B*H = 140, S = 9216, int8 PV; no model "
                         "caller", library=False),
+        "K8-stats": Row("group_norm_stats", "wiw_tpu_torch/csrc/group_norm.cu",
+                        "scripts/tune_temporal3.py:74",
+                        "shard_clip: one call on each GroupNorm shape of SPLIT_GN_SHAPES, "
+                        "the largest shard of a rank at fsdp 4; library: torch.var_mean",
+                        library=True),
+        "K8-apply": Row("group_norm_apply", "wiw_tpu_torch/csrc/group_norm.cu",
+                        "scripts/tune_temporal3.py:80",
+                        "shard_clip: as K8-stats; no single PyTorch call", library=False),
+        "K7-amax": Row("conv_amax", "wiw_tpu_torch/csrc/w8a8.cu", "wiw_tpu/ops/quant.py:115",
+                       "shard_clip: one call on a rank's largest shard of a level-0 "
+                       "conv input at fsdp 4; library: torch.linalg.vector_norm(ord=inf)",
+                       library=True),
+        "K7-conv-given": Row("w8a8_conv_amax_given", "wiw_tpu_torch/csrc/w8a8.cu",
+                             "wiw_tpu/ops/quant.py:115",
+                             "shard_clip: one level-0 3x3 conv on a rank's largest halo'd "
+                             "shard at fsdp 4; no int8 conv in PyTorch", library=False),
     }
     g = torch.Generator(device=dev).manual_seed(0)
     k1_phase(rows["K1"], dev, g)
@@ -4395,6 +4787,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     by_path["dist"] = dist_phase(dev)
+    by_path["shard_clip"] = shard_clip_phase(rows, dev, g)
     for key, row in rows.items():
         d = row.d
         floor = (f", gate floor {gate_floors[key]:.4f} ms (estimated)"
@@ -4403,8 +4796,8 @@ def main() -> int:
               f"(before: {PREV_MS[key]} ms), plain "
               f"{d['plain_ms']:.4f} ms, bound {d['bound_ms']:.4f} ms "
               f"({d['bound_by']}){floor}, library {d['library_ms']}", flush=True)
-        d["launches"] = sum(p[key] for p in by_path.values())
-        d["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+        d["launches"] = sum(p.get(key, 0) for p in by_path.values())
+        d["launches_by_path"] = {p: c.get(key, 0) for p, c in by_path.items()}
         d["on_main_path"] = key not in ("K2", "K2-unroll2", "K5", "K9-floor",
                                         "K9-noexp", "K9-v2", "K10", "K10-i8pv")
         if d["on_main_path"] and not d["launches"]:

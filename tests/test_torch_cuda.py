@@ -1065,3 +1065,71 @@ def test_optimizer_step_on_card_matches_cpu(cuda_device, optimizer):
             assert mc.dtype == mu.dtype == torch.bfloat16
             rel = (mc.float().cpu() - mu.float()).abs() / mu.float().abs().clamp_min(1e-30)
             assert float(rel.max()) <= 2.0 ** -7, n
+
+
+# ------------------------------------------------- shard_clip's split entries
+def _row_shards(H: int, n: int):
+    from wiw_tpu_torch.parallel.clip_sharding import split_rows
+
+    return [r for r in split_rows(H, n) if len(r)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,groups,dtype,silu", [
+    ((6, 18, 32, 320), 32, torch.bfloat16, True),
+    ((2, 14, 9, 16, 1280), 32, torch.bfloat16, True),
+    ((4, 5, 24, 64), 32, torch.float32, False)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_split_group_norm_entries_match_plain_on_card(cuda_device, shape, groups, dtype,
+                                                      silu, n):
+    """K8's statistics entry on each row shard (the height, axis -3),
+    combined by Chan's rule, then the apply entry on each shard: against
+    the plain version and the one-launch K8 on the whole x; each entry
+    launches once a shard."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
+    C = shape[-1]
+    w = torch.randn(C, generator=g, device=cuda_device)
+    b = torch.randn(C, generator=g, device=cuda_device)
+    shards = [x.narrow(-3, r.start, len(r)) for r in _row_shards(shape[-3], n)]
+    s0, a0 = TG.group_norm_stats.launches, TG.group_norm_apply.launches
+    stats = torch.stack([TG.group_norm_stats(s, groups) for s in shards])
+    mean, rstd = TG.combine_stats(stats, 1e-5)
+    out = torch.cat([TG.group_norm_apply(s, mean, rstd, w, b, silu) for s in shards], dim=-3)
+    torch.cuda.synchronize()
+    assert TG.group_norm_stats.launches == s0 + len(shards)
+    assert TG.group_norm_apply.launches == a0 + len(shards)
+    _close(out, TG.group_norm_plain(x, w, b, groups, 1e-5, silu))
+    _close(out, TG.group_norm(x, w, b, groups, 1e-5, silu))
+    plain = TG.group_norm_stats_plain(x, groups)
+    whole = TG.combine_stats(stats, 0.0)
+    torch.testing.assert_close(whole[0], plain[..., 1].float(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [2, 4])
+def test_given_amax_conv_on_halo_rows_equals_the_whole_conv(cuda_device, x_dtype, n):
+    """K7's amax entry on each row shard, their max given to K7-conv on
+    each shard's halo'd rows (a zero column each side, padding 0): the
+    codes and outputs equal the rows of the one-launch conv, bit for bit."""
+    from wiw_tpu_torch.ops import quant as TQ
+
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(2, 18, 32, 320, generator=g, device=cuda_device).to(x_dtype)
+    w8 = torch.randint(-127, 128, (320, 3, 3, 320), generator=g, device=cuda_device,
+                       dtype=torch.int8)
+    ws = torch.rand(320, generator=g, device=cuda_device) * 1e-3
+    bias = torch.randn(320, generator=g, device=cuda_device)
+    whole = TQ.w8a8_conv(x, w8, ws, bias, padding=1)
+    shards = _row_shards(18, n)
+    a0, c0 = TQ.conv_amax.launches, TQ.w8a8_conv.launches_given
+    amax = torch.stack([TQ.conv_amax(x[:, r.start:r.stop]) for r in shards]).amax(0)
+    assert torch.equal(amax, TQ.conv_amax_plain(x))
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    out = torch.cat([TQ.w8a8_conv(xp[:, r.start:r.stop + 2].contiguous(), w8, ws, bias,
+                                  padding=0, amax=amax) for r in shards], dim=1)
+    torch.cuda.synchronize()
+    assert TQ.conv_amax.launches == a0 + len(shards)
+    assert TQ.w8a8_conv.launches_given == c0 + len(shards)
+    assert torch.equal(out, whole)

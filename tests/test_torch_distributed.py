@@ -164,7 +164,8 @@ def runs(ref, tmp_path_factory):
                                               out_uint8_hw=OUT_HW),
                                    "drawn": drawn},
                          "refusals": {"odd": (image[:1], dict(actions=actions[:1])),
-                                      "shard_clip": (image, dict(shard_clip=True))}},
+                                      "shard_clip": (image, dict(
+                                          shard_clip=True, mesh_dims={"dp": WORLD}))}},
         }}
     procs = launch(inputs, tmp)
     try:
@@ -320,7 +321,9 @@ def test_generate_on_a_mesh_matches_reference(runs):
 def test_generate_mesh_refusals(runs):
     got = runs["generate"]
     assert got["odd"].startswith("ValueError: batch 1 must be a multiple of the mesh size 2")
-    assert got["shard_clip"].startswith("NotImplementedError") and "ROADMAP" in got["shard_clip"]
+    assert got["shard_clip"].startswith(
+        "ValueError: shard_clip shards latent spatial rows over an 'fsdp' mesh axis, "
+        "absent from this mesh (axes: ('dp',))")
 
 
 # ------------------------------------------------------------ the rules

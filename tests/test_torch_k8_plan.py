@@ -175,7 +175,8 @@ def test_served_groupnorm_shapes_are_the_listed_ones(monkeypatch):
         return x
 
     monkeypatch.setattr(TL, "group_norm", record)
-    monkeypatch.setattr(TL, "attention_bsd", lambda q, k, v, heads: torch.empty_like(q))
+    monkeypatch.setattr(TL, "attention_bsd",
+                        lambda q, k, v, heads, spatial=False: torch.empty_like(q))
     cfg = TU.UNetConfig(action_strategy="micro_cond", action_input_channel=14)
     pipe = SVDPipeline(cfg, device="cpu")
     with torch.device("meta"), torch.no_grad():

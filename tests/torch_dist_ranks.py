@@ -13,6 +13,8 @@ place of the CLI's full-size ones. Imports no jax: the tests compare what
 it writes with the reference.
 """
 
+import contextlib
+import copy
 import os
 import sys
 
@@ -21,15 +23,21 @@ import torch.distributed as dist
 
 torch.set_num_threads(1)
 
-from wiw_tpu_torch.parallel import batch_rows, make_mesh  # noqa: E402
+from wiw_tpu_torch.models import layers as L  # noqa: E402
+from wiw_tpu_torch.ops import quant as Q  # noqa: E402
+from wiw_tpu_torch.parallel import batch_rows, clip_sharding as CS, make_mesh  # noqa: E402
 from wiw_tpu_torch.parallel.multihost import initialize_distributed  # noqa: E402
 from wiw_tpu_torch.sampling.pipeline import SVDPipeline  # noqa: E402
 from wiw_tpu_torch.train import trainer as TT  # noqa: E402
 from wiw_tpu_torch.train.checkpoints import CheckpointManager  # noqa: E402
 
 
-def pipeline(inputs) -> SVDPipeline:
+def pipeline(inputs, int8: bool = False, vae_int8: bool = False) -> SVDPipeline:
     pipe = SVDPipeline(*inputs["cfgs"], device="cpu")
+    if int8:
+        pipe.quantize_unet()
+    if vae_int8:
+        pipe.quantize_vae()
     pipe.load_state_dicts(*inputs["weights"])
     return pipe
 
@@ -100,16 +108,166 @@ def scenario_generate(inputs, spec):
         out[name] = pipe.generate(spec["image"], kw.pop("gen", spec["gen"]), mesh=mesh,
                                   **kw)
     for name, (image, kw) in spec["refusals"].items():
+        kw = dict(kw)
+        where = mesh
+        if "mesh_dims" in kw:  # a mesh of its own: {axis name: size}
+            from torch.distributed.device_mesh import init_device_mesh
+
+            dims = kw.pop("mesh_dims")
+            where = init_device_mesh("cpu", tuple(dims.values()),
+                                     mesh_dim_names=tuple(dims))
         try:
-            pipe.generate(image, spec["gen"], mesh=mesh, **kw)
+            pipe.generate(image, spec["gen"], mesh=where, **kw)
             out[name] = None
         except (ValueError, NotImplementedError) as e:
             out[name] = f"{type(e).__name__}: {e}"
     return out
 
 
+# ------------------------------------------------------------- shard_clip
+CLIP_W = 8  # the width of the module cases' feature maps
+CLIP_HEADS = (2, 3, 5, 20)
+CLIP_CONV_HEIGHTS = (6, 3)
+
+
+@torch.no_grad()
+def clip_cases(seed: int = 0) -> dict:
+    """The module-level shard_clip cases, the same in every process: a
+    GroupNorm (+ SiLU) and its inputs in the spatial [N, H, W, C] and the
+    temporal [B, F, H, W, C] layouts (3 rows: a rank without rows at fsdp
+    4), a 3x3 conv, a Downsample2D and an Upsample2D in fp32 and as int8
+    (W8A8) copies with their inputs, and q/k/v [2, heads, 6 * CLIP_W, 16]
+    for each of CLIP_HEADS."""
+    with torch.random.fork_rng():
+        torch.manual_seed(seed)
+        gn = L.GroupNorm(32, 8, silu=True)
+        gn.weight.normal_()
+        gn.bias.normal_()
+        convs = {"conv": L.Conv2d(16, 16, 3, padding=1), "down": L.Downsample2D(16),
+                 "up": L.Upsample2D(16)}
+        xs = {h: torch.randn(2, h, CLIP_W, 16) for h in CLIP_CONV_HEIGHTS}
+        norms = {"gn": (torch.randn(2, 3, CLIP_W, 32), 1),
+                 "gn_t": (torch.randn(2, 3, 3, CLIP_W, 32), 2)}
+        qkv = {h: tuple(torch.randn(2, h, 6 * CLIP_W, 16) for _ in range(3))
+               for h in CLIP_HEADS}
+    int8 = {}
+    for name, m in convs.items():
+        m8 = copy.deepcopy(m)
+        Q.quantize_module_(m8 if name == "conv" else m8.conv, torch.float32)
+        int8[name] = m8
+    return {"gn": gn, "norms": norms, "convs": convs, "int8": int8, "xs": xs, "qkv": qkv}
+
+
+def _local(mesh, x, dim: int, height: int):
+    r = CS.split_rows(height, mesh["fsdp"].size())[mesh.get_local_rank("fsdp")]
+    return x.narrow(dim, r.start, len(r))
+
+
+@torch.no_grad()
+def clip_modules(mesh) -> dict:
+    """This rank's outputs of the module cases under shard_clip: its rows
+    of each GroupNorm, conv and resampler (with the level height after
+    it), its amax and codes of each int8 conv's input, and its positions of
+    the spatial attention by each arm."""
+    c = clip_cases()
+    out = {}
+    for name, (x, dim) in c["norms"].items():
+        with CS.activate(mesh, None, x.shape[dim], CLIP_W):
+            out[name] = c["gn"](_local(mesh, x, dim, x.shape[dim]))
+    for kind in ("convs", "int8"):
+        for name, m in c[kind].items():
+            for h, x in c["xs"].items():
+                with CS.activate(mesh, None, h, CLIP_W) as cs:
+                    y = m(_local(mesh, x, 1, h))
+                out[(kind, name, h)] = (y, cs.height)
+    for h, x in c["xs"].items():
+        with CS.activate(mesh, None, h, CLIP_W) as cs:
+            loc = _local(mesh, x, 1, h)
+            amax = CS.global_amax(cs, loc)
+            out[("codes", h)] = (amax, Q._quant_tensor(loc, amax)[0])
+    for heads, (q, k, v) in c["qkv"].items():
+        for arm in CS.ATTENTION_ARMS:
+            cs = CS.ClipSharding(mesh, None, height=6, width=CLIP_W, attention=arm)
+            out[("attn", heads, arm)] = CS.spatial_attention(
+                cs, *(_seq(mesh, t) for t in (q, k, v)))
+    return out
+
+
+def _seq(mesh, t):
+    """This rank's positions of [B, H, 6 * CLIP_W, D]: its rows of 6."""
+    r = CS.split_rows(6, mesh["fsdp"].size())[mesh.get_local_rank("fsdp")]
+    return t[:, :, r.start * CLIP_W:r.stop * CLIP_W]
+
+
+@contextlib.contextmanager
+def shard_attn(arm):
+    old = os.environ.get("WIW_SHARD_ATTN")
+    if arm is not None:
+        os.environ["WIW_SHARD_ATTN"] = arm
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("WIW_SHARD_ATTN", None)
+        else:
+            os.environ["WIW_SHARD_ATTN"] = old
+
+
+def scenario_clip(inputs, spec):
+    """shard_clip on each mesh of the same group: the module cases, the
+    frame-parallel decode of the given latents with an int8 decoder, then
+    `generate(shard_clip=True)` for each call (its frames from every rank),
+    then the refusals. Returns every rank's results."""
+    pipes = {False: pipeline(inputs), True: pipeline(inputs, int8=True)}
+    vae8 = pipeline(inputs, vae_int8=True)
+    mine = {}
+    for shape in spec["meshes"]:
+        mesh = make_mesh(*shape)
+        res = {"fsdp": mesh.get_local_rank("fsdp"), "dp": mesh.get_local_rank("dp"),
+               "modules": clip_modules(mesh), "generate": {},
+               "decode": {n: vae8._decode_chunked(spec["decode"], gen, mesh=mesh)
+                          for n, gen in spec["decode_gens"].items()}}
+        for name, kw in spec["calls"].items():
+            kw = dict(kw)
+            pipe = pipes[kw.pop("int8", False)]
+            if "seed" in kw:
+                kw["generator"] = torch.Generator().manual_seed(kw.pop("seed"))
+            with shard_attn(kw.pop("attention", None)):
+                res["generate"][name] = pipe.generate(
+                    kw.pop("image"), kw.pop("gen"), mesh=mesh, shard_clip=True, **kw)
+        mine["x".join(map(str, shape))] = res
+    refusals = {}
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from wiw_tpu_torch.parallel import shard_unet
+
+    meshes = {"no_fsdp": lambda: init_device_mesh("cpu", (dist.get_world_size(),),
+                                                  mesh_dim_names=("dp",)),
+              "dp4": lambda: make_mesh(dist.get_world_size(), 1)}
+    for name, mesh in meshes.items():
+        refusals[name] = _refusal(pipes[False], spec, mesh())
+    mesh = make_mesh(1, dist.get_world_size())
+    sharded = pipeline(inputs)
+    shard_unet(sharded.unet, mesh)
+    refusals["fsdp2"] = _refusal(sharded, spec, mesh)
+    mine["refusals"] = refusals
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def _refusal(pipe, spec, mesh):
+    try:
+        video = spec["calls"]["video"]
+        pipe.generate(video["image"], video["gen"], mesh=mesh, shard_clip=True)
+        return None
+    except ValueError as e:
+        return f"{type(e).__name__}: {e}"
+
+
 SCENARIOS = {"steps": scenario_steps, "checkpoint": scenario_checkpoint,
-             "generate": scenario_generate, "draws": scenario_draws}
+             "generate": scenario_generate, "draws": scenario_draws,
+             "clip": scenario_clip}
 
 
 def main(argv):

@@ -835,6 +835,96 @@ int stride_blocks(int64_t vecs) {
   return static_cast<int>(want < 16896 ? want : 16896);
 }
 
+// ------------------------------------------------- split entries (shard_clip)
+// When a (row, group) has positions on several ranks, the statistics and
+// the apply are two entries with the ranks' combination between them.
+// `gn_stats_kernel`: block (p, g, n) reduces positions [p * chunk, (p + 1) *
+// chunk) of group g of row n to (count, mean, M2) in double, a two-pass in
+// fp32 over its values with the first pass's rounding folded back (the
+// mean corrected by sum(x - mean) / count, M2 by (sum(x - mean))^2 / count).
+// `gn_apply_kernel`: y = x * sc + of per 16-byte vector, sc = rstd * gamma,
+// of = beta - mean * sc (in double, as the one-launch kernel's), rounded to
+// T, then SiLU: `normalise`, the one-launch kernel's arithmetic.
+constexpr int kStatThreads = 256;
+
+__device__ __forceinline__ float load1(const float* p) { return *p; }
+__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+__device__ __forceinline__ float block_sum(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // red may still be read from the previous sum
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < kStatThreads / 32; ++w) t += red[w];  // a fixed order
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+gn_stats_kernel(const T* __restrict__ x, double* __restrict__ part, int64_t L, int C,
+                int cg, int64_t chunk) {
+  __shared__ float red[kStatThreads / 32];
+  const int p = blockIdx.x, g = blockIdx.y, G = gridDim.y, P = gridDim.x;
+  const int64_t n = blockIdx.z;
+  const int64_t l0 = p * chunk;
+  const int64_t l1 = l0 + chunk < L ? l0 + chunk : L;
+  // a block's values fit 32-bit indices (a 64-bit division would be a call)
+  const int cnt = static_cast<int>((l1 - l0) * cg);
+  const T* base = x + (n * L + l0) * C + static_cast<int64_t>(g) * cg;
+  float s = 0.f;
+  for (int i = threadIdx.x; i < cnt; i += kStatThreads) {
+    const int l = i / cg;
+    s += load1(base + static_cast<int64_t>(l) * C + (i - l * cg));
+  }
+  const float mean = block_sum(s, red) / static_cast<float>(cnt);
+  float d1 = 0.f, d2 = 0.f;
+  for (int i = threadIdx.x; i < cnt; i += kStatThreads) {
+    const int l = i / cg;
+    const float d = load1(base + static_cast<int64_t>(l) * C + (i - l * cg)) - mean;
+    d1 += d;
+    d2 += d * d;
+  }
+  d1 = block_sum(d1, red);
+  d2 = block_sum(d2, red);
+  if (threadIdx.x == 0) {
+    double* o = part + ((n * G + g) * P + p) * 3;
+    const double c = static_cast<double>(cnt);
+    o[0] = c;
+    o[1] = static_cast<double>(mean) + static_cast<double>(d1) / c;
+    o[2] = static_cast<double>(d2) - static_cast<double>(d1) * d1 / c;
+  }
+}
+
+template <typename T, bool kSilu>
+__global__ void __launch_bounds__(kApplyThreads)
+gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
+                const float* __restrict__ rstd, const float* __restrict__ gamma,
+                const float* __restrict__ beta, T* __restrict__ y, int64_t vecs,
+                int64_t row_vecs, int C, int cg, int G) {
+  constexpr int V = Vec<T>::n;
+  const int cv = C / V;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kApplyThreads + threadIdx.x;
+       i < vecs; i += static_cast<int64_t>(gridDim.x) * kApplyThreads) {
+    const int64_t n = i / row_vecs;
+    const int c0 = static_cast<int>(i % cv) * V;
+    float sc[V], of[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const int c = c0 + e;
+      const int64_t ng = n * G + c / cg;
+      sc[e] = rstd[ng] * gamma[c];
+      of[e] = static_cast<float>(static_cast<double>(beta[c]) -
+                                 static_cast<double>(mean[ng]) * sc[e]);
+    }
+    const uint4 u = reinterpret_cast<const uint4*>(x)[i];
+    reinterpret_cast<uint4*>(y)[i] = normalise<T, kSilu>(u, sc, of);
+  }
+}
+
 // ------------------------------------------------------------------- host
 template <typename T, bool kSilu>
 int launch_resident(const T* x, const float* gamma, const float* beta, T* y,
@@ -982,5 +1072,64 @@ extern "C" int wiw_copy_plus_one_bf16(const void* x, void* y, int64_t n,
   copy_plus_one_kernel<<<stride_blocks(vecs), kApplyThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(y), vecs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split entries (shard_clip). x: contiguous [N, L, C] (bf16 with
+// is_bf16, else fp32), C a multiple of 8 and of `groups`.
+// wiw_group_norm_stats: part, double [N, groups, P, 3] with P =
+// ceil(L / chunk): (count, mean, M2) of positions [p * chunk, (p + 1) *
+// chunk) of each (row, group); the caller combines the partials.
+extern "C" int wiw_group_norm_stats(const void* x, void* part, int64_t N, int64_t L,
+                                    int C, int groups, int64_t chunk, int is_bf16,
+                                    void* stream) {
+  if (N <= 0 || N > 65535 || L <= 0 || C <= 0 || C % 8 || groups <= 0 ||
+      groups > 65535 || C % groups || chunk <= 0 ||
+      chunk * (C / groups) > 0x7fffffff - kStatThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t P = (L + chunk - 1) / chunk;
+  if (P > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(P), static_cast<unsigned>(groups),
+                  static_cast<unsigned>(N));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  double* out = static_cast<double*>(part);
+  if (is_bf16) {
+    gn_stats_kernel<__nv_bfloat16><<<grid, kStatThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), out, L, C, C / groups, chunk);
+  } else {
+    gn_stats_kernel<float><<<grid, kStatThreads, 0, s>>>(
+        static_cast<const float*>(x), out, L, C, C / groups, chunk);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// wiw_group_norm_apply: y [N, L, C] (x's dtype, 16-byte aligned) from fp32
+// mean and rstd [N, groups] and gamma, beta [C]; SiLU after with `silu`.
+extern "C" int wiw_group_norm_apply(const void* x, const void* mean, const void* rstd,
+                                    const void* gamma, const void* beta, void* y,
+                                    int64_t N, int64_t L, int C, int groups,
+                                    int is_bf16, int silu, void* stream) {
+  if (N <= 0 || L <= 0 || C <= 0 || C % 8 || groups <= 0 || C % groups) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int V = is_bf16 ? Vec<__nv_bfloat16>::n : Vec<float>::n;
+  const int64_t row_vecs = L * C / V, vecs = N * row_vecs;
+  const float* m = static_cast<const float*>(mean);
+  const float* r = static_cast<const float*>(rstd);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  const int cg = C / groups;
+#define WIW_GN_APPLY(T, S)                                                          \
+  gn_apply_kernel<T, S><<<stride_blocks(vecs), kApplyThreads, 0, s>>>(             \
+      static_cast<const T*>(x), m, r, g, b, static_cast<T*>(y), vecs, row_vecs, C, \
+      cg, groups)
+  if (is_bf16) {
+    if (silu) WIW_GN_APPLY(__nv_bfloat16, true); else WIW_GN_APPLY(__nv_bfloat16, false);
+  } else {
+    if (silu) WIW_GN_APPLY(float, true); else WIW_GN_APPLY(float, false);
+  }
+#undef WIW_GN_APPLY
   return static_cast<int>(cudaGetLastError());
 }

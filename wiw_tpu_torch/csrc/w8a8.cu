@@ -27,7 +27,11 @@
 //   after a pass over all of x: quantising inside the product's loads
 //   divides every element again at each of the kh*kw taps and N tiles
 //   (that form of this kernel measured 27-93 TOPS on an H100 at 700 W).
-//   The two passes stay.
+//   The two passes stay. A conv whose rows are split over ranks
+//   (shard_clip) takes its scale from every rank's rows: `wiw_amax_abs` is
+//   launch 1 as an entry of its own, the ranks reduce its result with MAX,
+//   and the conv runs launches 2-3 with that amax given (bit 2 of `dtypes`),
+//   so its codes are the unsplit call's.
 // The operation order is the reference's and no contraction into FMAs is
 // allowed there (explicit __fmul_rn/__fadd_rn/__fdiv_rn), so the epilogue
 // rounds as XLA's does; the int32 sums are exact in any order, so K7's
@@ -756,8 +760,44 @@ extern "C" int wiw_w8a8_dense(const void* x, void* x8, void* sa,
   return launch<kDense>(out_dtype == 1, bn, amap, bmap, omap, p, stream);
 }
 
-// dtypes: bit 0 x (0 bf16, 1 fp32), bit 1 out (0 bf16, 1 fp32). `x8` is an
-// int8 scratch of x's shape, `amax` one fp32. `bw` 0 gathers A with
+namespace {
+
+unsigned pass_blocks(int64_t n8) {
+  return static_cast<unsigned>(n8 / 256 + 1 < 132 * 16 ? n8 / 256 + 1 : 132 * 16);
+}
+
+// amax(|x|) of n8 vectors of 8 into `am` (zeroed first), on `stream`
+int amax_pass(const void* x, int64_t n8, float* am, bool fp32, cudaStream_t stream) {
+  const cudaError_t e = cudaMemsetAsync(am, 0, sizeof(float), stream);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (fp32) {
+    amax_abs_kernel<float><<<pass_blocks(n8), 256, 0, stream>>>(
+        static_cast<const float*>(x), n8, am);
+  } else {
+    amax_abs_kernel<__nv_bfloat16><<<pass_blocks(n8), 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), n8, am);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// amax(|x|) of n elements (a multiple of 8, 16-byte aligned; bf16, or fp32
+// with is_fp32) into the one fp32 at `amax`: the conv's amax pass as an
+// entry of its own, for a conv whose rows are split over ranks (each
+// rank's amax is then reduced with MAX and given to wiw_w8a8_conv).
+extern "C" int wiw_amax_abs(const void* x, int64_t n, void* amax, int is_fp32,
+                            void* stream) {
+  if (n <= 0 || n % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return amax_pass(x, n / 8, static_cast<float*>(amax), is_fp32 != 0,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// dtypes: bit 0 x (0 bf16, 1 fp32), bit 1 out (0 bf16, 1 fp32), bit 2 the
+// amax given (1: `amax` already holds amax(|x|) of the whole call, e.g. all
+// ranks' rows of a row-split conv, and the amax pass is skipped; 0: the
+// pass takes it from x). `x8` is an int8 scratch of x's shape, `amax` one
+// fp32. `bw` 0 gathers A with
 // cp.async (any stride, C a multiple of 16); `bw` a power of two up to 128
 // takes A by TMA in output rectangles of bw x (128 / bw) pixels (stride 1,
 // C a multiple of 64).
@@ -802,18 +842,18 @@ extern "C" int wiw_w8a8_conv(const void* x, void* x8, void* amax, const void* w8
   const int64_t n8 = static_cast<int64_t>(Nb) * H * W * C / 8;
   float* am = static_cast<float*>(amax);
   int8_t* q = static_cast<int8_t*>(x8);
-  cudaError_t e = cudaMemsetAsync(am, 0, sizeof(float), stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const unsigned blocks = static_cast<unsigned>(
-      n8 / 256 + 1 < 132 * 16 ? n8 / 256 + 1 : 132 * 16);
+  const bool given = (dtypes >> 2) & 1;
+  if (!given) {
+    const int e = amax_pass(x, n8, am, dtypes & 1, stream);
+    if (e != 0) return e;
+  }
+  const unsigned blocks = pass_blocks(n8);
   if (dtypes & 1) {
-    const float* xf = static_cast<const float*>(x);
-    amax_abs_kernel<float><<<blocks, 256, 0, stream>>>(xf, n8, am);
-    quant_tensor_kernel<float><<<blocks, 256, 0, stream>>>(xf, n8, am, q);
+    quant_tensor_kernel<float><<<blocks, 256, 0, stream>>>(
+        static_cast<const float*>(x), n8, am, q);
   } else {
-    const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-    amax_abs_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(xb, n8, am);
-    quant_tensor_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(xb, n8, am, q);
+    quant_tensor_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), n8, am, q);
   }
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;

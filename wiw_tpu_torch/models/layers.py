@@ -21,6 +21,14 @@ whose weight `ops/quant.quantize_params` made int8, with an fp32
 its compute dtype (the model dtype). `cast_matmul_weights` leaves such a
 layer as it is (int8 weight, fp32 scale and bias).
 
+Under shard_clip (`parallel/clip_sharding.activate`) the layers that see
+more than one position run row-sharded: a 3x3 conv on this rank's halo'd
+rows, the resamplers with their output re-split to the next level,
+GroupNorm on K8's split entries, spatial self-attention head-sharded, and
+every int8 conv with the amax of the whole call. Per-position layers
+(1x1 convs, the temporal (3, 1, 1) conv, Linear, LayerNorm, K6) are
+unchanged; outside the context nothing changes.
+
 Submodule and parameter names are the diffusers ones, so checkpoints load
 with `load_state_dict` and `models/convert.py` maps the reference's flax
 trees onto them.
@@ -42,6 +50,7 @@ from wiw_tpu_torch.ops.fused_mlp import (
 from wiw_tpu_torch.ops.group_norm import group_norm
 from wiw_tpu_torch.ops.quant import w8a8_conv, w8a8_dense
 from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention
+from wiw_tpu_torch.parallel import clip_sharding
 
 
 class _Promote:
@@ -78,6 +87,9 @@ class Linear(_Promote, nn.Linear):
 
     def forward(self, x):
         if self.int8:
+            if x.numel() == 0:  # a rank without rows under shard_clip
+                return x.new_empty(*x.shape[:-1], self.out_features,
+                                   dtype=self.compute_dtype)
             return w8a8_dense(x, self.weight, self.weight_scale, self.bias,
                               self.compute_dtype)
         return F.linear(*self._promoted(x))
@@ -94,6 +106,9 @@ class Conv2d(_Promote, nn.Conv2d):
         self.pad = pad
 
     def forward(self, x):
+        cs = clip_sharding.current()
+        if cs is not None and (self.int8 or cs.row_split):
+            return self.sharded(cs, x)
         if self.int8:
             return w8a8_conv(x.contiguous(), self.weight, self.weight_scale,
                              self.bias, stride=self.stride[0],
@@ -104,6 +119,39 @@ class Conv2d(_Promote, nn.Conv2d):
             x = F.pad(x, self.pad)
         return self._conv_forward(x, w, b).permute(0, 2, 3, 1)
 
+    def valid(self, x, amax=None, padding=0):
+        """The conv at `padding` (0: of an x padded by hand), with the int8
+        activation amax given where it spans more than x; an x too short
+        for one output row gives an empty output and no launch."""
+        kh, kw = self.kernel_size
+        s = self.stride[0]
+        N, H, W, _ = x.shape
+        if H + 2 * padding < kh:
+            return x.new_empty(N, 0, (W + 2 * padding - kw) // s + 1,
+                               self.out_channels, dtype=self.compute_dtype)
+        if self.int8:
+            return w8a8_conv(x.contiguous(), self.weight, self.weight_scale,
+                             self.bias, stride=s, padding=padding,
+                             dtype=self.compute_dtype, amax=amax)
+        x, w, b = self._promoted(x)
+        return F.conv2d(x.permute(0, 3, 1, 2), w, b, s, padding).permute(0, 2, 3, 1)
+
+    def sharded(self, cs, x, resample=None):
+        """The conv under shard_clip (`parallel/clip_sharding`): an int8
+        conv's amax over every rank of the call; with rows split, a 3x3 conv
+        on this rank's halo'd rows (`resample`: the level's stride-2 conv or
+        nearest x2 + conv, `clip_sharding.downsample` / `upsample`)."""
+        if self.pad is not None or self.padding[0] != self.kernel_size[0] // 2:
+            raise ValueError("shard_clip takes SAME convs only")
+        amax = clip_sharding.global_amax(cs, x) if self.int8 else None
+        if not cs.row_split or self.kernel_size[0] == 1:
+            return self.valid(x, amax, self.padding[0])
+        if resample is not None:
+            return resample(cs, x, lambda e: self.valid(e, amax))
+        if self.stride[0] != 1:
+            raise ValueError("shard_clip: a strided conv runs as a resampler")
+        return self.valid(clip_sharding.halo(cs, x), amax)
+
 
 class TemporalConv(_Promote, nn.Conv3d):
     """(3, 1, 1) conv over the frame axis of channels-last [B, F, H, W, C]."""
@@ -112,6 +160,9 @@ class TemporalConv(_Promote, nn.Conv3d):
         super().__init__(in_ch, out_ch, (3, 1, 1), padding=(1, 0, 0))
 
     def forward(self, x):
+        if x.numel() == 0:  # a rank without rows under shard_clip
+            return x.new_empty(*x.shape[:-1], self.out_channels,
+                               dtype=self.compute_dtype)
         x, w, b = self._promoted(x)
         return self._conv_forward(x.permute(0, 4, 1, 2, 3), w, b).permute(
             0, 2, 3, 4, 1)
@@ -145,6 +196,10 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
     def forward(self, x):
+        cs = clip_sharding.row_sharded()
+        if cs is not None:  # positions split over ranks (shard_clip)
+            return clip_sharding.group_norm(cs, x, self.weight, self.bias,
+                                            self.groups, self.eps, self.silu)
         return group_norm(x, self.weight, self.bias, self.groups, self.eps,
                           self.silu)
 
@@ -235,9 +290,10 @@ class CrossAttention(nn.Module):
                     for p in (self.to_k, self.to_v))
             out = self.to_out[0](attention_bsd(self.to_q(xq), k, v, self.heads))
             return out.reshape(B, S, F_, C).transpose(1, 2)
+        spatial = context is None  # self-attention over a map's positions
         context = x if context is None else context
         out = attention_bsd(self.to_q(x), self.to_k(context),
-                            self.to_v(context), self.heads)
+                            self.to_v(context), self.heads, spatial)
         return self.to_out[0](out)
 
 
@@ -426,6 +482,9 @@ class Downsample2D(nn.Module):
             self.conv = Conv2d(ch, ch, 3, stride=2, padding=1)
 
     def forward(self, x):
+        cs = clip_sharding.row_sharded()
+        if cs is not None:  # re-split to the next level's rule
+            return self.conv.sharded(cs, x, clip_sharding.downsample)
         return self.conv(x)
 
 
@@ -437,6 +496,9 @@ class Upsample2D(nn.Module):
         self.conv = Conv2d(ch, ch, 3, padding=1)
 
     def forward(self, x):
+        cs = clip_sharding.row_sharded()
+        if cs is not None:  # re-split to the next level's rule
+            return self.conv.sharded(cs, x, clip_sharding.upsample)
         x = x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         return self.conv(x)
 

@@ -20,6 +20,13 @@ by op (~10 fp32 passes), so the port carries it on a kernel.
   walks whole rows, a batch of them between grid barriers), the cluster
   size and the positions a block holds. The C entry refuses any other
   plan.
+- The split entries, for a GroupNorm whose positions are split over ranks
+  (shard_clip, `parallel/clip_sharding.group_norm`): `group_norm_stats`
+  (per (row, group) count, mean and M2 of the positions given; the TPU
+  probe's `_stats_kernel`), `combine_stats` (Chan's rule over the parts, on
+  the host side of the kernels) and `group_norm_apply` (affine + SiLU from
+  the given mean and rstd; `_affine_silu_kernel`), each with its plain
+  version. The one-launch K8 stays what runs without a row split.
 - `copy_plus_one` (the probe's `_copy_kernel`, x + 1 in bf16) measures the
   card's copy ceiling beside K8; its plain version is `x + 1`.
 - The gradient: `GroupNormFunction` runs K8 forward and saves only x and
@@ -271,6 +278,152 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 group_norm.launches = 0
+
+
+# ------------------------------------------------- split entries (shard_clip)
+STATS_VALUES = 16384  # values of one (row, group) a statistics block reduces
+
+
+def _rows_view(x: torch.Tensor, groups: int):
+    """x as fp32 [N, L, G, C/G] (L = 0 for an x without positions)."""
+    N, C = x.shape[0], x.shape[-1]
+    L = x.numel() // (N * C) if N * C else 0
+    return x.float().reshape(N, L, groups, C // groups)
+
+
+def _chan(count, mean, m2, dim: int):
+    """Chan's combination of (count, mean, M2) partials along `dim` (in
+    double): mean = sum(n_i mean_i) / n, M2 = sum(M2_i + n_i (mean_i -
+    mean)^2); partials of count 0 add nothing."""
+    n = count.sum(dim)
+    mu = (count * mean).sum(dim) / n.clamp_min(1)
+    m2 = (m2 + count * (mean - mu.unsqueeze(dim)) ** 2).sum(dim)
+    return n, mu, m2
+
+
+def group_norm_stats_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(count, mean, M2) of each (batch row, group) of x [N, ..., C] over
+    its positions, an exact two-pass in fp32: float64 [N, G, 3] (zeros for
+    an x without positions)."""
+    g = _rows_view(x, groups)
+    N = g.shape[0]
+    out = torch.zeros(N, groups, 3, dtype=torch.float64, device=x.device)
+    count = g.shape[1] * g.shape[3]
+    if count:
+        mean = g.mean(dim=(1, 3))
+        d = g - mean[:, None, :, None]
+        out[..., 0] = count
+        out[..., 1] = mean.double()
+        out[..., 2] = (d * d).sum(dim=(1, 3)).double()
+    return out
+
+
+def group_norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The statistics half of a GroupNorm whose positions are split over
+    ranks: float64 [N, G, 3] of (count, mean, M2) per (batch row, group) of
+    x [N, ..., C]. CPU tensors take `group_norm_stats_plain`. CUDA tensors
+    launch K8's statistics entry (bf16/fp32, C a multiple of 8 and of the
+    groups; a non-contiguous x is copied first), one block per STATS_VALUES
+    values of a (row, group), whose partials are combined here by Chan's
+    rule; counted in `group_norm_stats.launches`. An x without positions
+    gives zeros with no launch."""
+    if native.on_cpu(x) or x.numel() == 0:
+        return group_norm_stats_plain(x, groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_stats: unsupported device {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"group_norm_stats takes bf16 or fp32 x, got {x.dtype}")
+    x = x.contiguous()
+    N, C = x.shape[0], x.shape[-1]
+    if C % C_STEP or C % groups or not 0 < N <= MAX_ROWS or x.data_ptr() % 16:
+        raise ValueError(f"group_norm_stats takes C a multiple of {C_STEP} and of the "
+                         f"groups, 1..{MAX_ROWS} rows, 16-byte aligned; got "
+                         f"{tuple(x.shape)}, groups={groups}")
+    L = x.numel() // (N * C)
+    chunk = max(1, STATS_VALUES // (C // groups))
+    P = -(-L // chunk)
+    part = torch.empty(N, groups, P, 3, dtype=torch.float64, device=x.device)
+    fn = native.load_library(_LIB).wiw_group_norm_stats
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), part.data_ptr(), N, L, C, groups, chunk,
+                 int(x.dtype == torch.bfloat16),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"group_norm_stats launch failed: cudaError {err}")
+    group_norm_stats.launches += 1
+    return torch.stack(_chan(part[..., 0], part[..., 1], part[..., 2], 2), dim=-1)
+
+
+group_norm_stats.launches = 0
+
+
+def combine_stats(every: torch.Tensor, eps: float):
+    """(mean, rstd), fp32 [N, G], of the (count, mean, M2) statistics
+    `every` [R, N, G, 3] of R parts of the same rows (ranks, or row shards),
+    combined by Chan's rule in the parts' order; rstd = rsqrt(M2 / count +
+    eps) in fp32, as `group_norm_plain` takes it."""
+    n, mu, m2 = _chan(every[..., 0], every[..., 1], every[..., 2], 0)
+    var = (m2 / n).float()
+    return mu.float(), torch.rsqrt(var + eps)
+
+
+def group_norm_apply_plain(x, mean, rstd, weight, bias, silu: bool = False):
+    """The apply half: ((x - mean) * rstd) * weight + bias in fp32 per
+    (batch row, group), rounded to x's dtype, then SiLU if asked
+    (`group_norm_plain`'s arithmetic from the given statistics)."""
+    G = mean.shape[1]
+    g = _rows_view(x, G)
+    out = ((g - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(x.shape)
+    out = (out * weight + bias).to(x.dtype)
+    return F.silu(out) if silu else out
+
+
+def group_norm_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                     weight: torch.Tensor, bias: torch.Tensor,
+                     silu: bool = False) -> torch.Tensor:
+    """The apply half of a split GroupNorm: x [N, ..., C] normalised with
+    the given fp32 mean and rstd [N, G] (+ SiLU). CPU tensors take
+    `group_norm_apply_plain`; CUDA tensors launch K8's apply entry (the
+    one-launch kernel's arithmetic: y = x * sc + of, sc = rstd * weight, of
+    = bias - mean * sc), counted in `group_norm_apply.launches`."""
+    if native.on_cpu(x, mean, rstd, weight, bias):
+        return group_norm_apply_plain(x, mean, rstd, weight, bias, silu)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_apply: unsupported device {x.device}")
+    _check(x, weight, bias)
+    x = x.contiguous()
+    N, C = x.shape[0], x.shape[-1]
+    G = mean.shape[1]
+    if (x.dtype not in (torch.bfloat16, torch.float32) or C % C_STEP or C % G
+            or x.data_ptr() % 16 or mean.shape != (N, G) or rstd.shape != (N, G)):
+        raise ValueError(f"group_norm_apply takes bf16/fp32 x with C a multiple of "
+                         f"{C_STEP} and of the groups, 16-byte aligned, mean and rstd "
+                         f"[N, G]; got x {tuple(x.shape)} {x.dtype}, mean "
+                         f"{tuple(mean.shape)}")
+    fn = native.load_library(_LIB).wiw_group_norm_apply
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    m, r = mean.float().contiguous(), rstd.float().contiguous()
+    w, b = weight.float().contiguous(), bias.float().contiguous()
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), m.data_ptr(), r.data_ptr(), w.data_ptr(), b.data_ptr(),
+                 y.data_ptr(), N, x.numel() // (N * C), C, G,
+                 int(x.dtype == torch.bfloat16), int(silu),
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"group_norm_apply launch failed: cudaError {err}")
+    group_norm_apply.launches += 1
+    return y
+
+
+group_norm_apply.launches = 0
 
 
 def copy_plus_one_plain(x: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,11 @@ quantisation has to be fused into the int8 product to pay:
     with it.
 Both products run on one wgmma core; `k7_plan` picks its tile width and,
 for a conv, how its A operand is loaded (the header of w8a8.cu says why).
+Under shard_clip a conv's rows are split over ranks, while its scale must
+span the whole call: `conv_amax` is K7-conv's amax pass as an entry of its
+own, the ranks reduce it with MAX (`parallel/clip_sharding.global_amax`),
+and `w8a8_conv(..., amax=)` runs the conv with that amax given, skipping
+its own pass; each has its plain version beside it.
 Dispatch is by device, as in every kernel wrapper of the port: CPU tensors
 take the plain versions (exact int32 sums, in float64), CUDA tensors launch
 K7 or raise; there is no fallback.
@@ -100,10 +105,13 @@ def _quant_rows(x: torch.Tensor):
     return torch.round(xf / scale).to(torch.int8), scale
 
 
-def _quant_tensor(x: torch.Tensor):
-    """One dynamic scale for all of x (the conv's): (x8, fp32 scalar)."""
+def _quant_tensor(x: torch.Tensor, amax=None):
+    """One dynamic scale for all of x (the conv's): (x8, fp32 scalar); with
+    `amax` given (that of a larger call, as under a row split) the scale is
+    taken from it."""
     xf = x.float()
-    scale = _div127(torch.clamp_min(xf.abs().amax(), _EPS))
+    amax = xf.abs().amax() if amax is None else amax.float().reshape(())
+    scale = _div127(torch.clamp_min(amax, _EPS))
     return torch.round(xf / scale).to(torch.int8), scale
 
 
@@ -119,10 +127,11 @@ def w8a8_dense_plain(x, w8, w_scale, bias=None, dtype=torch.bfloat16):
 
 
 def w8a8_conv_plain(x, w8, w_scale, bias=None, *, stride=1, padding=0,
-                    dtype=torch.bfloat16):
+                    dtype=torch.bfloat16, amax=None):
     """K7-conv's arithmetic: x NHWC [N, H, W, I], w8 [O, kh, kw, I] int8,
-    symmetric `padding`; the int32 sums exact (float64)."""
-    x8, sa = _quant_tensor(x)
+    symmetric `padding`, the activation's amax taken from x or `amax`; the
+    int32 sums exact (float64)."""
+    x8, sa = _quant_tensor(x, amax)
     acc = F.conv2d(x8.double().permute(0, 3, 1, 2),
                    w8.double().permute(0, 3, 1, 2), stride=stride,
                    padding=padding).permute(0, 2, 3, 1)
@@ -162,6 +171,10 @@ def _bind(lib: ctypes.CDLL):
         conv.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
                          + [ctypes.c_void_p])
         conv.restype = ctypes.c_int
+        amax = lib.wiw_amax_abs
+        amax.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                         ctypes.c_int, ctypes.c_void_p]
+        amax.restype = ctypes.c_int
     return dense, conv
 
 
@@ -238,7 +251,7 @@ w8a8_dense.launches = 0
 
 
 def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
-              dtype=torch.bfloat16):
+              dtype=torch.bfloat16, amax=None):
     """conv(x, dequant(w8)) + bias with the int8 product, channels-last.
     x [N, H, W, I] float, w8 [O, kh, kw, I] int8, symmetric integer
     `stride` and `padding`. CPU tensors take `w8a8_conv_plain`. CUDA tensors
@@ -246,10 +259,13 @@ def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
     implicit-GEMM int8 conv, tiled by `k7_plan`; counted as one launch in
     `w8a8_conv.launches`):
     contiguous bf16/fp32 x, I a multiple of 16, O of 8; anything else
-    raises."""
-    if native.on_cpu(*(t for t in (x, w8, w_scale, bias) if t is not None)):
+    raises. With `amax` (a one-element fp32 tensor on x's device: amax(|x|)
+    of a larger call, as `conv_amax` and a MAX reduction over ranks give it
+    under a row split) K7-conv skips its amax pass and quantises with it;
+    such a launch counts in `w8a8_conv.launches_given`."""
+    if native.on_cpu(*(t for t in (x, w8, w_scale, bias, amax) if t is not None)):
         return w8a8_conv_plain(x, w8, w_scale, bias, stride=stride,
-                               padding=padding, dtype=dtype)
+                               padding=padding, dtype=dtype, amax=amax)
     _check_common(x, w8, w_scale, bias, dtype, "w8a8_conv")
     if x.ndim != 4 or w8.ndim != 4 or x.shape[-1] != w8.shape[-1]:
         raise ValueError(f"w8a8_conv: x {tuple(x.shape)} (NHWC) against w8 "
@@ -267,8 +283,15 @@ def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
     OW = (W + 2 * padding - kw) // stride + 1
     if Nb == 0 or OH <= 0 or OW <= 0:
         raise ValueError(f"w8a8_conv: empty output for x {tuple(x.shape)}")
+    given = amax is not None
+    if given:
+        if (amax.device != x.device or amax.dtype != torch.float32
+                or amax.numel() != 1):
+            raise ValueError("w8a8_conv: amax must be one fp32 on x's device")
+        amax = amax.reshape(1).contiguous()
+    else:
+        amax = torch.empty(1, dtype=torch.float32, device=x.device)
     x8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    amax = torch.empty(1, dtype=torch.float32, device=x.device)
     out = torch.empty(Nb, OH, OW, O, dtype=dtype, device=x.device)
     bn, bw = k7_plan(O, C, stride, OW)
     _, conv = _bind(native.load_library(_LIB))
@@ -276,15 +299,60 @@ def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
         err = conv(x.data_ptr(), x8.data_ptr(), amax.data_ptr(), w8.data_ptr(),
                    w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
                    out.data_ptr(), Nb, H, W, C, O, kh, kw, stride, padding,
-                   OH, OW, bn, bw, _DTYPES[x.dtype] | (_DTYPES[dtype] << 1),
+                   OH, OW, bn, bw,
+                   _DTYPES[x.dtype] | (_DTYPES[dtype] << 1) | (int(given) << 2),
                    _stream(x))
     if err != 0:
         raise RuntimeError(f"w8a8_conv launch failed: cudaError {err}")
-    w8a8_conv.launches += 1
+    if given:
+        w8a8_conv.launches_given += 1
+    else:
+        w8a8_conv.launches += 1
     return out
 
 
 w8a8_conv.launches = 0
+w8a8_conv.launches_given = 0
+
+
+def conv_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """amax(|x|) in fp32 as a one-element tensor; 0 for an empty x."""
+    if x.numel() == 0:
+        return torch.zeros(1, dtype=torch.float32, device=x.device)
+    return x.float().abs().amax().reshape(1)
+
+
+def conv_amax(x: torch.Tensor) -> torch.Tensor:
+    """amax(|x|) of a conv's input, the pass K7-conv runs first, as an entry
+    of its own (a one-element fp32 tensor; 0 for an empty x, with no
+    launch). CPU tensors take `conv_amax_plain`; CUDA tensors launch K7's
+    amax pass (bf16/fp32, 16-byte aligned, a multiple of 8 elements; a
+    non-contiguous x is copied first), counted in `conv_amax.launches`."""
+    if native.on_cpu(x):
+        return conv_amax_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_amax: unsupported device {x.device}")
+    out = torch.zeros(1, dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return out
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"conv_amax takes bf16/fp32 x, got {x.dtype}")
+    x = x.contiguous()
+    if x.numel() % 8 or x.data_ptr() % 16:
+        raise ValueError("conv_amax takes a 16-byte aligned x of a multiple of 8 "
+                         "elements")
+    lib = native.load_library(_LIB)
+    _bind(lib)
+    with torch.cuda.device(x.device):
+        err = lib.wiw_amax_abs(x.data_ptr(), x.numel(), out.data_ptr(),
+                               _DTYPES[x.dtype], _stream(x))
+    if err != 0:
+        raise RuntimeError(f"conv_amax launch failed: cudaError {err}")
+    conv_amax.launches += 1
+    return out
+
+
+conv_amax.launches = 0
 
 
 def _eligible(path: Sequence[str], modules=QUANT_KERNEL_MODULES) -> bool:

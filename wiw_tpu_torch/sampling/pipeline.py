@@ -28,8 +28,29 @@ reference's batch-sharded path: every rank calls it with the same whole
 inputs and generator, draws the global batch's noise, keeps its rows of
 the batch, denoises and decodes them, and gets the whole clip batch back
 (`parallel/mesh.gather_rows`). The UNet may be whole on every rank or sharded
-by the trainer's FSDP2. Only `shard_clip` (one clip split within the
-denoise step, `wiw_tpu/parallel/clip_sharding.py`) is not ported yet.
+by the trainer's FSDP2.
+
+With a mesh and `shard_clip=True`, one clip (any B) is split within the
+denoise step instead, the reference's single-clip latency path: every rank
+draws the whole clip's noise and keeps its rows of the latent (the height,
+split over 'fsdp' by `parallel/clip_sharding.split_rows`); full CFG steps
+split the fold's two UNet rows over 'dp' (dp = 2) and all-gather the
+prediction over 'dp' for the guidance, cond and stale steps run the B rows
+on every 'dp' rank; the UNet runs row-sharded under
+`clip_sharding.activate` (head-sharded attention, halo'd convs, split
+GroupNorm statistics, the int8 convs' amax over the call's ranks). The UNet
+must be whole on every rank, as the reference replicates its parameters.
+
+Under shard_clip the decode with more frames than a chunk is
+frame-parallel, the reference's: all complete chunks are one batched
+decode whose temporal groups are split over every rank (padded with copies
+of real groups where they do not divide the world size), then
+all-gathered; the ragged tail chunk is decoded whole on every rank. An
+int8 decoder conv takes its amax over every rank, as the reference's one
+program takes it over every complete group. The batch-sharded path decodes
+each rank's rows chunk by chunk (the reference's decodes the batch as one
+frame-parallel program there too: the two differ only in an int8 decoder's
+amax, ROADMAP's known departures).
 """
 
 from __future__ import annotations
@@ -59,8 +80,9 @@ from wiw_tpu_torch.models.unet import (
 )
 from wiw_tpu_torch.models.vae import AutoencoderKLTemporal, VAEConfig
 from wiw_tpu_torch.ops import quant as Q
-from wiw_tpu_torch.parallel.mesh import batch_rows, gather_rows
 from wiw_tpu_torch.ops.resize import resize_cubic
+from wiw_tpu_torch.parallel import clip_sharding
+from wiw_tpu_torch.parallel.mesh import batch_rows, gather_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,13 +302,16 @@ class SVDPipeline:
         with `out_uint8_hw=(oh, ow)` (resize and uint8 on the device).
         Noise comes from `generator` (on the device) unless `init_latents`
         [B, F, h, w, 4] is injected. With `mesh` every rank calls it with
-        the same arguments; B must be a multiple of the mesh's size."""
-        if shard_clip:
-            raise NotImplementedError(
-                "generate(shard_clip=True), one clip split within the denoise "
-                "step (head-sharded attention, frame-parallel decode), is not "
-                "ported yet (ROADMAP Queue 1); use mesh= alone, which splits "
-                "the batch")
+        the same arguments; B must be a multiple of the mesh's size, unless
+        `shard_clip`, which splits one clip (any B) within the denoise step
+        (the module docstring) and needs an 'fsdp' axis and dp 1 or 2.
+        Without a mesh `shard_clip` does nothing, as in the reference."""
+        if mesh is not None and shard_clip:
+            self._check_shard_clip(mesh)
+            latents = self.denoise(image, gen, actions, past_images,
+                                   generator=generator, init_latents=init_latents,
+                                   mesh=mesh, shard_clip=True)
+            return self._decode_chunked(latents, gen, out_uint8_hw, mesh)
         if mesh is not None and image.shape[0] % mesh.size():
             raise ValueError(
                 f"batch {image.shape[0]} must be a multiple of the mesh "
@@ -297,6 +322,29 @@ class SVDPipeline:
                                mesh=mesh)
         frames = self._decode_chunked(latents, gen, out_uint8_hw)
         return frames if mesh is None else gather_rows(mesh, frames)
+
+    def _check_shard_clip(self, mesh) -> None:
+        """The reference's refusals of a mesh shard_clip cannot use, and a
+        UNet that is not whole on every rank."""
+        axes = tuple(mesh.mesh_dim_names or ())
+        shape = dict(zip(axes, mesh.shape))
+        if "fsdp" not in shape:
+            raise ValueError(
+                "shard_clip shards latent spatial rows over an 'fsdp' mesh axis, "
+                f"absent from this mesh (axes: {axes}); use make_mesh(dp=2, "
+                "fsdp=n//2) or make_mesh(dp=1, fsdp=n)")
+        if shape.get("dp", 1) not in (1, 2):
+            raise ValueError(
+                "shard_clip splits the CFG fold's 2 UNet rows over the 'dp' mesh "
+                "axis, which must be size 1 (rows replicated; all devices on "
+                f"latent rows) or 2 (got {shape.get('dp')}); use make_mesh(dp=2, "
+                "fsdp=n//2) or make_mesh(dp=1, fsdp=n)")
+        from torch.distributed.tensor import DTensor
+
+        if any(isinstance(p, DTensor) for p in self.unet.parameters()):
+            raise ValueError(
+                "shard_clip runs the UNet whole on every rank, as the reference "
+                "replicates its parameters; this UNet is sharded (shard_unet)")
 
     @torch.inference_mode()
     def denoise(
@@ -309,10 +357,11 @@ class SVDPipeline:
         generator: Optional[torch.Generator] = None,
         init_latents: Optional[torch.Tensor] = None,
         mesh=None,
+        shard_clip: bool = False,
     ) -> torch.Tensor:
         """`generate` up to the decode: the denoised latents divided by the
         VAE's scaling factor, fp32 [B, F, h, w, 4] (this rank's rows under
-        `mesh`)."""
+        `mesh`; the whole clip on every rank with `shard_clip`)."""
         dev = self.device
         image = image.to(dev, torch.float32)
         B, H, W, _ = image.shape
@@ -334,7 +383,12 @@ class SVDPipeline:
             noise = noise.movedim(2, -1)  # -> [B, F, h, w, 4]
         else:
             noise = torch.randn((B, F, h, w, 4), generator=generator, device=dev)
-        if mesh is not None:  # this rank's rows of the batch
+        split = None
+        if mesh is not None and shard_clip:  # this rank's rows of the latent
+            split = clip_sharding.split_rows(h, mesh["fsdp"].size())[
+                mesh.get_local_rank("fsdp")]
+            noise = noise[:, :, split.start:split.stop]
+        elif mesh is not None:  # this rank's rows of the batch
             rows = batch_rows(mesh, dist.get_rank(), B)
             cut = slice(rows.start, rows.stop)
             image, aug_noise, noise = image[cut], aug_noise[cut], noise[cut]
@@ -355,8 +409,10 @@ class SVDPipeline:
         # 2. VAE-encode the noise-augmented conditioning image (unscaled)
         aug = image + gen.noise_aug_strength * aug_noise
         img_latents = self.vae.encode(aug).float()
+        if split is not None:
+            img_latents = img_latents[:, split.start:split.stop]
         img_latents = torch.cat([torch.zeros_like(img_latents), img_latents])
-        img_latents = img_latents[:, None].expand(2 * B, F, h, w, -1)
+        img_latents = img_latents[:, None].expand(2 * B, F, *img_latents.shape[1:])
 
         # 3. added_time_ids + action conditioning
         added_time_ids = torch.tensor(
@@ -383,7 +439,25 @@ class SVDPipeline:
             latent_in = torch.cat(
                 [S.precondition_inputs(latent_in, sigma), img], dim=-1)
             t = S.sigma_to_t(sigma).expand(latent_in.shape[0])
-            return self.unet(latent_in, t, ctx, atids, acts)
+            if split is None:
+                return self.unet(latent_in, t, ctx, atids, acts)
+            split_dp = both and dp2  # the fold's two rows over 'dp'
+            if split_dp:
+                cut = slice(d * B, (d + 1) * B)
+                latent_in, t, ctx, atids = (z[cut] for z in (latent_in, t, ctx, atids))
+                acts = None if acts is None else acts[cut]
+            with clip_sharding.activate(mesh, "dp" if split_dp else None, h, w):
+                out = self.unet(latent_in, t, ctx, atids, acts)
+            if not split_dp:
+                return out
+            both_rows = out.new_empty(2 * B, *out.shape[1:])
+            dist.all_gather_into_tensor(both_rows, out.contiguous(),
+                                        group=mesh.get_group("dp"))
+            return both_rows
+
+        if split is not None:
+            dp2 = "dp" in mesh.mesh_dim_names and mesh["dp"].size() == 2
+            d = mesh.get_local_rank("dp") if dp2 else 0
 
         def advance(latents, pred, sigma, sigma_next):
             denoised = S.precondition_outputs(pred, latents, sigma)
@@ -407,20 +481,55 @@ class SVDPipeline:
                 else:  # cond
                     pred = unet_rows(latents, sigma, False)
                 latents = advance(latents, pred, sigma, sigma_next)
-        return latents / self.vae_config.scaling_factor
+        latents = latents / self.vae_config.scaling_factor
+        if split is None:
+            return latents
+        # every rank's rows of the clip
+        cs = clip_sharding.ClipSharding(mesh, None, height=h, width=w)
+        return clip_sharding.gather_level(cs, latents, dim=2)
 
-    def _decode_chunked(self, latents, gen: GenerationConfig, out_hw=None):
-        """Chunked VAE decode; each chunk is one temporal unit."""
+    def _decode(self, part, size: int, out_hw=None):
+        """One decode of [G * size, h, w, 4] as G temporal units of `size`
+        frames: [G, size, H, W, 3] in [0, 1], or resized uint8 with
+        `out_hw`."""
+        vid = (self.vae.decode(part, size) / 2.0 + 0.5).clamp(0.0, 1.0)
+        if out_hw is not None:
+            vid = resize_cubic(vid, out_hw, dims=(2, 3)).clamp(0.0, 1.0)
+            vid = torch.round(vid * 255.0).to(torch.uint8)
+        return vid
+
+    def _decode_chunked(self, latents, gen: GenerationConfig, out_hw=None,
+                        mesh=None):
+        """Chunked VAE decode; each chunk is one temporal unit. With `mesh`
+        and more frames than a chunk, the frame-parallel decode (the module
+        docstring) of the whole clip batch on every rank."""
         B, F, h, w, _ = latents.shape
         chunk = gen.resolved_decode_chunk(
             dtype_bytes=self.vae_config.torch_dtype.itemsize)
+        if mesh is not None and F > chunk:
+            main = F // chunk * chunk
+            groups = latents[:, :main].reshape(B * main // chunk, chunk, h, w, 4)
+            n, G = dist.get_world_size(), groups.shape[0]
+            per = -(-G // n)
+            pos = mesh.mesh.flatten().tolist().index(dist.get_rank())
+            # this rank's groups; past the last real group, copies of real
+            # ones (an int8 conv's amax over them is the real groups')
+            mine = groups[torch.arange(pos * per, (pos + 1) * per) % G]
+            with clip_sharding.activate(mesh, None, row_split=False):
+                vid = self._decode(mine.reshape(per * chunk, h, w, 4), chunk, out_hw)
+            every = vid.new_empty(n * per, *vid.shape[1:])
+            dist.all_gather_into_tensor(every, vid.contiguous())
+            every = every.view(n, per, *vid.shape[1:])[mesh.mesh.flatten()]
+            videos = [every.reshape(n * per, *vid.shape[1:])[:G].reshape(
+                B, main, *vid.shape[2:])]
+            if F > main:  # the ragged tail chunk, whole on every rank
+                size = F - main
+                videos.append(self._decode(
+                    latents[:, main:].reshape(B * size, h, w, 4), size, out_hw))
+            return torch.cat(videos, dim=1)
         videos = []
         for start in range(0, F, chunk):
             size = min(chunk, F - start)
             part = latents[:, start:start + size].reshape(B * size, h, w, 4)
-            vid = (self.vae.decode(part, size) / 2.0 + 0.5).clamp(0.0, 1.0)
-            if out_hw is not None:
-                vid = resize_cubic(vid, out_hw, dims=(2, 3)).clamp(0.0, 1.0)
-                vid = torch.round(vid * 255.0).to(torch.uint8)
-            videos.append(vid)
+            videos.append(self._decode(part, size, out_hw))
         return torch.cat(videos, dim=1)
