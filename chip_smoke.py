@@ -204,6 +204,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
      `python -m torch.distributed.run --nproc_per_node 1 -m
      wiw_tpu_torch.train.train_cli` at a cut width (NCCL, validation, a
      rank-0 checkpoint that must load into an unsharded TrainState)
+  9. shard_clip, last: the split entries at a rank's shapes at fsdp 2 and 4
+     (`split_checks`: K8-stats on each shape, with its plan, GB/s and
+     bound, its statistics against the plain version within STATS_RTOL and
+     equal to the bit over two calls, one launch a call; K8-combine of the
+     shards' parts against its plain version; K8-apply; K7-amax on the
+     level-0 shard and on a decoder-sized tensor, bit for bit, beside
+     `torch.linalg.vector_norm(ord=inf)`; K7-conv with the amax given; K1
+     on a padded head shard), then on a 1-rank NCCL group and make_mesh(1,
+     1) one request through `generate` and `generate(shard_clip=True)` in
+     bf16 and W8A8 (s/request, peak, the latents apart, every split
+     entry's launches), in bf16 one request of each traced (device time by
+     kernel class, device idle), one split 2-row forward against the whole
+     and its device events beside the whole forward's and the previous
+     design's count,
+     one split GroupNorm layer's device events in order, and the
+     frame-parallel decode's peak
 Then one JSON line with each kernel's time before this version of the
 kernels (`prev_kernels`, copied from PERF.md, not measured here), one JSON
 line with the kernels as this run measured them, the card line again, and
@@ -343,14 +359,15 @@ L2_BYTES = 50 * 2 ** 20
 # K6-bf16: the mma.sync kernel's; K4 and K8: the eight-lane fp32 K4's and
 # the three-launch K8's; K2-unroll2, K10 and K10-i8pv: the mma.sync
 # kernels'; K5, K9-floor and K9-noexp: the mma.sync kernels', PR 10's run
-# 1); K1-D72 is new: none), printed on a line of its own before the
-# measured `kernels` line
+# 1; K8-stats and K7-amax: their first designs, at commit bdf6e88); K1-D72,
+# K8-combine, K8-apply and K7-conv-given are on their first: none), printed
+# on a line of its own before the measured `kernels` line
 PREV_MS = {"K1": 99.0636, "K1-D72": None, "K2": 17.1462, "K2-unroll2": 18.9899,
            "K3": 150.7475, "K4": 7.4117, "K5": 247.7191, "K6": 275.2729, "K6-bf16": 363.8384,
            "K8": 14.1938, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 13.6274, "K9-noexp": 14.8971, "K9-v2": 17.7919,
-           "K10": 30.4349, "K10-i8pv": 30.1989, "K8-stats": None, "K8-apply": None,
-           "K7-amax": None, "K7-conv-given": None}
+           "K10": 30.4349, "K10-i8pv": 30.1989, "K8-stats": 1.1223, "K8-combine": None,
+           "K8-apply": None, "K7-amax": 0.0754, "K7-conv-given": None}
 PREV_FROM = "PERF.md §6, the time before this version (H100 80GB HBM3, 700 W)"
 
 
@@ -1506,6 +1523,72 @@ SPLIT_K1 = (28, 5, 9216)
 SHARD_STEPS = 10
 
 
+# K8-stats against its plain version: the counts equal, each mean within
+# STATS_RTOL of its group's standard deviation and each M2 within STATS_RTOL
+# of it (both sides sum fp32 values in another order: ~1e-7 apart at
+# commit bdf6e88); the combine entry's mean and rstd within COMBINE_RTOL (both take
+# Chan's rule in double and round once to fp32: at most an fp32 ulp or two)
+STATS_RTOL = 1e-5
+COMBINE_RTOL = 2.0 ** -22
+AMAX_DECODER = (4, 288, 512, 512)  # the frame-parallel decode's int8 convs
+# `forward_launches` run once against the package of commit bdf6e88 (the
+# first designs of K8-stats and K7-amax; a `git archive` of it on an H100
+# 80GB HBM3 at 700 W), beside this run's counts
+PREVIOUS_SPLIT_EVENTS = {"split": {"events": 5898, "memsets": 326, "copies": 153, "K1": 16},
+                     "whole": {"events": 2625, "memsets": 346, "copies": 0, "K1": 16}}
+
+
+def device_line(row, label, kernel, keys, library, bound) -> None:
+    """The device time of one launch of the kernel (named by `keys`) and of
+    the library call's reduction kernel (`device_ms`: torch.profiler; a
+    short kernel's CUDA-event time is its wrapper's host dispatch; the
+    memset before each is not counted), printed and kept in the row's
+    `device` entry by label."""
+    try:
+        k = device_ms(kernel, keys, 10)
+        lib = device_ms(library, ("reduce_kernel",), 10)
+    except RuntimeError as e:  # the profiler recorded nothing: no device time
+        print(f"{label} device time: not measured ({e})", flush=True)
+        return
+    print(f"{label} device time a launch (torch.profiler): kernel {k:.4f} ms "
+          f"({bound / k:.3f} of the bound {bound:.4f} ms), library's reduce_kernel "
+          f"{lib:.4f} ms", flush=True)
+    row.d.setdefault("device", {})[label] = {"ms": k, "library_ms": lib, "bound_ms": bound}
+
+
+def stats_err(st, ref) -> float:
+    """K8-stats' error against its plain version (see STATS_RTOL); inf
+    where a count differs."""
+    if not torch.equal(st[..., 0], ref[..., 0]):
+        return float("inf")
+    std = (ref[..., 2] / ref[..., 0]).sqrt()
+    return max(float(((st[..., 1] - ref[..., 1]).abs() / std).max()),
+               float(((st[..., 2] - ref[..., 2]).abs() / ref[..., 2]).max()))
+
+
+def amax_decoder(row, dev, g):
+    """K7-amax on a decoder-sized bf16 tensor (AMAX_DECODER, 604 MB), bits
+    against its plain version, timed beside its library call; kept in the
+    row's `decoder` entry (the row's own numbers are the level-0 shard's)."""
+    from wiw_tpu_torch.ops import quant as TQ
+
+    x = torch.randn(AMAX_DECODER, generator=g, device=dev).to(torch.bfloat16)
+    x.view(-1)[-1] = -300.0  # the extreme negative, in the last vector
+    if not torch.equal(TQ.conv_amax(x), TQ.conv_amax_plain(x)):
+        raise RuntimeError("K7-amax departs from its plain version at the decoder's size")
+    nbytes = x.numel() * x.element_size()
+    bound = bound_ms(nbytes, 0, BF16_FLOPS_S)
+    ms, plain_ms, lib = timed(
+        f"K7-amax a decoder-sized {AMAX_DECODER} bf16 (bits equal to its plain version)",
+        lambda: TQ.conv_amax_plain(x), lambda: TQ.conv_amax(x),
+        lambda: torch.linalg.vector_norm(x, ord=float("inf")), 5, 1, bound,
+        lambda ms: f"{nbytes / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the bound")
+    row.d["decoder"] = {"shape": list(AMAX_DECODER), "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "library_ms": lib}
+    device_line(row, f"K7-amax {AMAX_DECODER}", lambda: TQ.conv_amax(x), ("amax_abs",),
+                lambda: torch.linalg.vector_norm(x, ord=float("inf")), bound)
+
+
 def split_checks(rows: dict, dev, g):
     """The split kernel entries inside one process, at the shapes of a rank
     at fsdp 2 and 4: K8's statistics over each row shard, combined
@@ -1516,7 +1599,10 @@ def split_checks(rows: dict, dev, g):
     conv; K1 on the padded head shard that holds the last real head and a
     pad head. Each new entry is timed on the largest shard at fsdp 4
     against its plain version (and the library call where one computes the
-    same function)."""
+    same function): K8-stats per shape with its plan, GB/s and bound, and
+    its statistics held to STATS_RTOL and to their own bits on a second
+    call; K8-combine on that shape's parts; K7-amax also on a
+    decoder-sized tensor (`amax_decoder`)."""
     import torch.nn.functional as F
 
     from wiw_tpu_torch.ops import group_norm as TG
@@ -1528,6 +1614,7 @@ def split_checks(rows: dict, dev, g):
         return [x.narrow(-3, r.start, len(r)).contiguous()
                 for r in split_rows(x.shape[-3], n) if len(r)]
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for shape, silu in SPLIT_GN_SHAPES:
         x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3).to(torch.bfloat16)
         C = shape[-1]
@@ -1556,22 +1643,50 @@ def split_checks(rows: dict, dev, g):
                 continue
             s0 = parts[0]
             N, L = s0.shape[0], s0.numel() // (s0.shape[0] * C)
+            plan = TG.stats_plan(N, L, C, 32, s0.dtype, sms)
+            before = (TG.group_norm_stats.launches, TG.combine_stats.launches)
             st = TG.group_norm_stats(s0, 32)
-            mean, rstd = TG.combine_stats(st[None], 1e-5)
-            ref_st = TG.group_norm_stats_plain(s0, 32)
-            e1 = max(float((st[..., 1] - ref_st[..., 1]).abs().max()),
-                     float(((st[..., 2] - ref_st[..., 2]).abs() / ref_st[..., 2]).max()))
+            every = torch.stack([TG.group_norm_stats(s, 32) for s in parts])
+            mean, rstd = TG.combine_stats(every, 1e-5)
+            done = (TG.group_norm_stats.launches - before[0],
+                    TG.combine_stats.launches - before[1])
+            if done != (1 + len(parts), 1):
+                raise RuntimeError(f"K8-stats / K8-combine launched {done} times for "
+                                   f"{1 + len(parts)} / 1 calls")
+            e1 = stats_err(st, TG.group_norm_stats_plain(s0, 32))
+            if not e1 <= STATS_RTOL:
+                raise RuntimeError(f"K8-stats departs from its plain version: {e1:.3g} "
+                                   f"(tol {STATS_RTOL})")
+            if not torch.equal(st, TG.group_norm_stats(s0, 32)):
+                raise RuntimeError("K8-stats' bits differ between two calls")
             view = s0.view(N, L, 32, C // 32)
             nbytes = s0.numel() * s0.element_size()
+            bound = bound_ms(nbytes, 0, BF16_FLOPS_S)
             ms, plain_ms, lib = timed(
-                f"K8-stats a rank's shard {tuple(s0.shape)} (against the plain version: "
-                f"max of |mean - mean'| and |M2 - M2'| / M2' {e1:.3g})",
+                f"K8-stats a rank's shard {tuple(s0.shape)} ({plan}; against the plain "
+                f"version: max of |mean - mean'| / std' and |M2 - M2'| / M2' {e1:.3g}, tol "
+                f"{STATS_RTOL})",
                 lambda: TG.group_norm_stats_plain(s0, 32), lambda: TG.group_norm_stats(s0, 32),
-                lambda: torch.var_mean(view, dim=(1, 3), correction=0), 10, 3,
-                bound_ms(nbytes, 0, BF16_FLOPS_S),
-                lambda ms: f"{nbytes / ms / 1e6:.1f} GB/s")
-            rows["K8-stats"].add(1, e1, ms, plain_ms, bound_ms(nbytes, 0, BF16_FLOPS_S),
-                                 "bytes", lib)
+                lambda: torch.var_mean(view, dim=(1, 3), correction=0), 10, 3, bound,
+                lambda ms: f"{nbytes / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the bound")
+            rows["K8-stats"].add(1, e1, ms, plain_ms, bound, "bytes", lib)
+            device_line(rows["K8-stats"], f"K8-stats {tuple(s0.shape)}",
+                        lambda: TG.group_norm_stats(s0, 32), ("gn_stats",),
+                        lambda: torch.var_mean(view, dim=(1, 3), correction=0), bound)
+            m_p, r_p = TG.combine_stats_plain(every, 1e-5)
+            e3 = max(float((mean - m_p).abs().max()),
+                     float(((rstd - r_p).abs() / r_p).max()))
+            if not e3 <= COMBINE_RTOL:
+                raise RuntimeError(f"K8-combine departs from its plain version: {e3:.3g}")
+            cbytes = every.numel() * 8 + 2 * mean.numel() * 4
+            cbound = bound_ms(cbytes, 0, BF16_FLOPS_S)
+            ms, plain_ms, _ = timed(
+                f"K8-combine of {len(parts)} parts {tuple(every.shape)} (max of |mean - "
+                f"mean'| and |rstd - rstd'| / rstd' against the plain version {e3:.3g})",
+                lambda: TG.combine_stats_plain(every, 1e-5),
+                lambda: TG.combine_stats(every, 1e-5), None, 10, 3, cbound,
+                lambda ms: f"{cbytes / ms / 1e6:.1f} GB/s")
+            rows["K8-combine"].add(1, e3, ms, plain_ms, cbound, "bytes")
             ap = TG.group_norm_apply(s0, mean, rstd, w, b, silu)
             e2, line = compare("K8-apply", ap, TG.group_norm_apply_plain(s0, mean, rstd, w, b,
                                                                           silu))
@@ -1612,12 +1727,18 @@ def split_checks(rows: dict, dev, g):
         s0, e0 = x[:, rs[0].start:rs[0].stop].contiguous(), halo[0]
         nbytes = s0.numel() * s0.element_size()
         ms, plain_ms, lib = timed(
-            f"K7-amax a rank's shard {tuple(s0.shape)}", lambda: TQ.conv_amax_plain(s0),
-            lambda: TQ.conv_amax(s0),
+            f"K7-amax a rank's shard {tuple(s0.shape)} (bits equal to its plain version)",
+            lambda: TQ.conv_amax_plain(s0), lambda: TQ.conv_amax(s0),
             lambda: torch.linalg.vector_norm(s0, ord=float("inf")), 10, 3,
-            bound_ms(nbytes, 0, BF16_FLOPS_S), lambda ms: f"{nbytes / ms / 1e6:.1f} GB/s")
+            bound_ms(nbytes, 0, BF16_FLOPS_S),
+            lambda ms: f"{nbytes / ms / 1e6:.1f} GB/s, "
+                       f"{bound_ms(nbytes, 0, BF16_FLOPS_S) / ms:.3f} of the bound")
         rows["K7-amax"].add(1, 0.0, ms, plain_ms, bound_ms(nbytes, 0, BF16_FLOPS_S),
                             "bytes", lib)
+        device_line(rows["K7-amax"], f"K7-amax {tuple(s0.shape)}", lambda: TQ.conv_amax(s0),
+                    ("amax_abs",), lambda: torch.linalg.vector_norm(s0, ord=float("inf")),
+                    bound_ms(nbytes, 0, BF16_FLOPS_S))
+        amax_decoder(rows["K7-amax"], dev, g)
         plain = TQ.w8a8_conv_plain(e0, w8, ws, bias, padding=0, amax=amax)
         got = TQ.w8a8_conv(e0, w8, ws, bias, padding=0, amax=amax)
         if not torch.equal(got, plain):
@@ -1748,7 +1869,8 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
             max_rel = float(dl.max() / l0.abs().max())
             mean_rel = float(dl.mean() / l0.abs().mean())
             df = (f1 - f0).abs()
-            new = {k: c1[k] for k in ("K8-stats", "K8-apply", "K7-amax", "K7-conv-given")}
+            new = {k: c1[k] for k in ("K8-stats", "K8-combine", "K8-apply", "K7-amax",
+                                      "K7-conv-given")}
             print(f"shard_clip {label}: generate(shard_clip=True) on make_mesh(1, 1) "
                   f"{s1:.3f} s/request, peak {p1:.2f} GiB; generate {s0:.3f} s/request, peak "
                   f"{p0:.2f} GiB ({SHARD_STEPS} steps, 576x1024, 14 frames, serving CFG); "
@@ -1763,6 +1885,7 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
                     or max_rel > bounds[0] or mean_rel > bounds[1]):
                 raise RuntimeError(f"shard_clip {label}: departs from generate")
             if (c1["K1"] != c0["K1"] or c1["K8-stats"] != c1["K8-apply"] or not c1["K8-stats"]
+                    or c1["K8-combine"] != c1["K8-stats"]
                     or (label == "int8") != bool(c1["K7-amax"])
                     or c1["K7-amax"] != c1["K7-conv-given"]):
                 raise RuntimeError(f"shard_clip {label}: launches {c1} against {c0}")
@@ -1800,6 +1923,14 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
                 if not rel <= tol:
                     raise RuntimeError("shard_clip: the split UNet forward departs by more "
                                        "than one bf16 step of its input")
+                counts = forward_launches(pipe.unet, args, mesh)
+                now, before = (c["split"]["events"] for c in (counts, PREVIOUS_SPLIT_EVENTS))
+                print(f"shard_clip: device events of one 2-row UNet forward (torch.profiler): "
+                      f"split {counts['split']}, whole {counts['whole']}; commit bdf6e88's "
+                      f"package, counted the same way: {PREVIOUS_SPLIT_EVENTS}; the split "
+                      f"forward's events {now} against bdf6e88's {before} "
+                      f"({now - before:+d})", flush=True)
+                split_group_norm_events(mesh, dev, torch.Generator(device=dev).manual_seed(3))
                 del args, whole, split, moved, step
                 peaks = {}
                 for name, m in (("sequential", None), ("frame-parallel", mesh)):
@@ -1824,6 +1955,100 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
         dist.destroy_process_group()
     print(f"shard_clip phase {time.perf_counter() - t_phase:.1f} s", flush=True)
     return total
+
+
+def device_events(fn) -> list:
+    """The names of the device events (kernels, memsets, copies) of one call
+    of `fn` under torch.profiler, in the order they started."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if "CUDA" in str(e.device_type)),
+                    key=lambda e: e.time_range.start)
+    return [e.name for e in events]
+
+
+def forward_launches(unet, args, mesh) -> dict:
+    """The device events of one 2-row UNet forward, whole and split
+    (`clip_sharding.activate(mesh, None, 72, 128)`), each counted in one
+    profiled forward after an unprofiled one: all events, of them memsets
+    and copies, and K1's kernels (16 a forward: fewer means the profiler
+    dropped events)."""
+    from wiw_tpu_torch.parallel import clip_sharding
+
+    out = {}
+    for label in ("whole", "split"):
+        def forward():
+            with torch.inference_mode():
+                if label == "whole":
+                    unet(*args)
+                    return
+                with clip_sharding.activate(mesh, None, 72, 128):
+                    unet(*args)
+
+        forward()
+        for _ in range(4):  # a profile that dropped events (K1's 16) is taken again
+            names = device_events(forward)
+            out[label] = {"events": len(names),
+                          "memsets": sum("Memset" in n for n in names),
+                          "copies": sum("Memcpy" in n for n in names),
+                          "K1": sum("flash_attn" in n for n in names)}
+            if out[label]["K1"] == 16:
+                break
+    return out
+
+
+def split_group_norm_events(mesh, dev, g) -> list:
+    """The device events of one split GroupNorm (+ SiLU) layer, bf16
+    parameters as served, on a level-0 temporal input under
+    `activate(mesh, ...)`: checks that K8-stats is a memset and one kernel,
+    that only the all-gather runs between it and the combine entry, and
+    only the combine entry between the all-gather and K8-apply, the last
+    event."""
+    from wiw_tpu_torch.models.layers import GroupNorm
+    from wiw_tpu_torch.parallel import clip_sharding
+
+    norm = GroupNorm(320, silu=True).to(device=dev, dtype=torch.bfloat16)
+    x = torch.randn(2, FRAMES, 72, 128, 320, generator=g, device=dev).to(torch.bfloat16)
+
+    def layer():
+        with torch.inference_mode(), clip_sharding.activate(mesh, None, 72, 128):
+            norm(x)
+
+    def layers():
+        for _ in range(3):
+            layer()
+
+    def in_order(names) -> bool:
+        at = {k: [i for i, n in enumerate(names) if k in n]
+              for k in ("gn_stats", "gn_combine", "gn_apply")}
+        if not all(len(v) == 1 for v in at.values()):
+            return False
+        i, j, k = at["gn_stats"][0], at["gn_combine"][0], at["gn_apply"][0]
+        return (i > 0 and "Memset" in names[i - 1] and k == j + 1 == len(names) - 1
+                and all("nccl" in n.lower() or "Memcpy" in n for n in names[i + 1:j]))
+
+    layer()
+    # the profiler may miss events of a short profile (the first ones, or
+    # all late in a long run): read the last of three calls, the events
+    # after the second K8-apply, and take a profile that missed some again
+    for _ in range(4):
+        names = device_events(layers)
+        applies = [i for i, n in enumerate(names) if "gn_apply" in n]
+        recorded = len(applies) == 3
+        names = names[applies[-2] + 1:] if recorded else names
+        ok = recorded and in_order(names)
+        if ok:
+            break
+    print(f"shard_clip: one split GroupNorm layer's device events, in order (the last of "
+          f"three calls): {[n[:60] for n in names]}"
+          + ("" if recorded else " (not checked: the profiler missed events in four "
+             "profiles)"), flush=True)
+    if recorded and not ok:
+        raise RuntimeError("the split GroupNorm runs more than memset + K8-stats, the "
+                           "all-gather, K8-combine and K8-apply in that order")
+    return names
 
 
 def request_gap(request, wall: dict, k1: dict) -> None:
@@ -2380,6 +2605,7 @@ def _counters() -> dict:
             "K10": (TI.int8_qk_attention, "launches"),
             "K10-i8pv": (TI.int8_qk_attention, "launches_i8pv"),
             "K8-stats": (TG.group_norm_stats, "launches"),
+            "K8-combine": (TG.combine_stats, "launches"),
             "K8-apply": (TG.group_norm_apply, "launches"),
             "K7-amax": (TQ.conv_amax, "launches"),
             "K7-conv-given": (TQ.w8a8_conv, "launches_given")}
@@ -2465,7 +2691,7 @@ def busy_ms(prof) -> float:
 # port's hand-written kernels, products (cuBLAS, cuDNN, CUTLASS), norms,
 # and the rest (elementwise, copies, reductions)
 KERNEL_CLASSES = (
-    ("K8 GroupNorm", ("gn_resident", "gn_stream", "gn_stats", "gn_apply")),
+    ("K8 GroupNorm", ("gn_resident", "gn_stream", "gn_stats", "gn_combine", "gn_apply")),
     ("port attention and feed-forward kernels",
      ("flash_attn", "frame_attn", "geglu_ffn")),
     ("K7 W8A8 product and conv", ("w8a8_wgmma", "quant_rows", "amax_abs",
@@ -4711,6 +4937,11 @@ def main() -> int:
                         "shard_clip: one call on each GroupNorm shape of SPLIT_GN_SHAPES, "
                         "the largest shard of a rank at fsdp 4; library: torch.var_mean",
                         library=True),
+        "K8-combine": Row("combine_stats", "wiw_tpu_torch/csrc/group_norm.cu",
+                          "scripts/tune_temporal3.py:74",
+                          "shard_clip: one call on each GroupNorm shape of SPLIT_GN_SHAPES, "
+                          "the parts of fsdp 4's shards; no single PyTorch call",
+                          library=False),
         "K8-apply": Row("group_norm_apply", "wiw_tpu_torch/csrc/group_norm.cu",
                         "scripts/tune_temporal3.py:80",
                         "shard_clip: as K8-stats; no single PyTorch call", library=False),

@@ -1133,3 +1133,107 @@ def test_given_amax_conv_on_halo_rows_equals_the_whole_conv(cuda_device, x_dtype
     assert TQ.conv_amax.launches == a0 + len(shards)
     assert TQ.w8a8_conv.launches_given == c0 + len(shards)
     assert torch.equal(out, whole)
+
+
+# K8-stats against its plain version: the counts equal, each mean within
+# STATS_RTOL of its group's standard deviation and each M2 within STATS_RTOL
+# of it (chip_smoke.py's STATS_RTOL: both sides sum fp32 values in another
+# order, ~1e-7 apart)
+STATS_RTOL = 1e-5
+
+
+def _stats_close(st, ref):
+    assert torch.equal(st[..., 0], ref[..., 0])
+    std = (ref[..., 2] / ref[..., 0]).sqrt()
+    assert bool(((st[..., 1] - ref[..., 1]).abs() <= STATS_RTOL * std).all())
+    assert bool(((st[..., 2] - ref[..., 2]).abs() <= STATS_RTOL * ref[..., 2]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    # chip_smoke's SPLIT_GN_SHAPES, the largest shard of each at fsdp 4
+    ((28, 18, 128, 320), torch.bfloat16),        # level 0, C/G 10
+    ((2, 14, 18, 128, 320), torch.bfloat16),     # the temporal rows of level 0
+    ((28, 3, 16, 1280), torch.bfloat16),         # level 3, C/G 40
+    ((6, 9, 32, 640), torch.float32),            # fp32, C/G 20
+    ((5, 7, 13, 640), torch.bfloat16),           # C/G 20, L 91: the last tile ragged
+    ((3, 5, 7, 2560), torch.float32)])           # a position wider than the block
+def test_stats_kernel_matches_plain_on_card(cuda_device, shape, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.3).to(dtype)
+    N, C = shape[0], shape[-1]
+    L = x.numel() // (N * C)
+    plan = TG.stats_plan(N, L, C, 32, dtype,
+                         torch.cuda.get_device_properties(cuda_device).multi_processor_count)
+    if shape == (5, 7, 13, 640):
+        assert plan.tiles > 1 and L % plan.tile != 0
+    before = TG.group_norm_stats.launches
+    st = TG.group_norm_stats(x, 32)
+    torch.cuda.synchronize()
+    assert TG.group_norm_stats.launches == before + 1
+    assert st.shape == (N, 32, 3) and st.dtype == torch.float64
+    _stats_close(st, TG.group_norm_stats_plain(x, 32))
+
+
+@pytest.mark.cuda
+def test_stats_kernel_is_deterministic_across_calls_and_streams(cuda_device):
+    """Two calls give the same bits, also two launched at once on two
+    streams (each call has its own arrival counters)."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(2, 14, 18, 128, 320, generator=g, device=cuda_device).to(torch.bfloat16)
+    a = TG.group_norm_stats(x, 32)
+    b = TG.group_norm_stats(x, 32)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    out = []
+    for s in streams:
+        with torch.cuda.stream(s):
+            out.append(TG.group_norm_stats(x, 32))
+    torch.cuda.synchronize()
+    for t in [b] + out:
+        assert torch.equal(a, t)
+
+
+@pytest.mark.cuda
+def test_combine_entry_matches_cpu_combine_stats(cuda_device):
+    """K8's combine entry on the card against `combine_stats` on the CPU,
+    over the parts of four row shards of which one holds no rows."""
+    rng = torch.Generator().manual_seed(5)
+    x = torch.randn(3, 11, 8, 320, generator=rng) * 3 + 0.7
+    parts = [x[:, :4], x[:, 4:4], x[:, 4:8], x[:, 8:]]
+    every = torch.stack([TG.group_norm_stats_plain(p, 32) for p in parts])
+    before = TG.combine_stats.launches
+    mean, rstd = TG.combine_stats(every.to(cuda_device), 1e-5)
+    torch.cuda.synchronize()
+    assert TG.combine_stats.launches == before + 1
+    want_mean, want_rstd = TG.combine_stats(every, 1e-5)
+    torch.testing.assert_close(mean.cpu(), want_mean, rtol=2.0 ** -22, atol=1e-7)
+    torch.testing.assert_close(rstd.cpu(), want_rstd, rtol=2.0 ** -22, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["last", "negative", "zeros", "fp32", "ragged", "decoder"])
+def test_amax_kernel_equals_plain_bit_for_bit(cuda_device, case):
+    """K7-amax against `conv_amax_plain`, bit for bit: the max in the last
+    vector, a negative extreme, all zeros, fp32, a size that is not a
+    multiple of a block's work (the grid's 4 loads of 16 bytes a thread),
+    and a decoder-sized tensor (the frame-parallel decode's int8 convs)."""
+    from wiw_tpu_torch.ops import quant as TQ
+
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    shape = {"decoder": (4, 288, 512, 512), "ragged": (1081357, 8),
+             "fp32": (3, 17, 40, 64)}.get(case, (28, 18, 128, 320))
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    if case == "zeros":
+        x.zero_()
+    elif case == "negative":
+        x.view(-1)[x.numel() // 3] = -97.5
+    else:
+        x.view(-1)[-1] = 55.25 if case != "fp32" else -55.125
+    before = TQ.conv_amax.launches
+    out = TQ.conv_amax(x)
+    torch.cuda.synchronize()
+    assert TQ.conv_amax.launches == before + 1
+    assert out.shape == (1,) and out.dtype == torch.float32
+    assert torch.equal(out, TQ.conv_amax_plain(x))

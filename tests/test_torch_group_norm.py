@@ -186,3 +186,48 @@ def test_wrappers_refuse_devices_other_than_cpu_and_cuda():
         TG.group_norm(m, p, p, 4, 1e-5)
     with pytest.raises(ValueError, match="unsupported device"):
         TG.copy_plus_one(m.bfloat16())
+
+
+def test_combine_of_row_shards_with_an_empty_one_equals_the_whole():
+    """Chan's rule over the row shards' statistics (one shard without rows,
+    as a rank without rows of a level gives) gives the whole's mean and
+    rstd within 1e-6."""
+    x = torch.from_numpy(_rand((3, 10, 6, 64), 20, 2.0, 0.3))
+    parts = [x[:, :4], x[:, 4:4], x[:, 4:]]
+    every = torch.stack([TG.group_norm_stats_plain(p, 32) for p in parts])
+    assert torch.equal(every[1], torch.zeros(3, 32, 3, dtype=torch.float64))
+    mean, rstd = TG.combine_stats(every, 1e-5)
+    whole = TG.group_norm_stats_plain(x, 32)
+    assert torch.equal(every[..., 0].sum(0), whole[..., 0])
+    np.testing.assert_allclose(mean.numpy(), whole[..., 1].numpy(), atol=1e-6, rtol=1e-6)
+    want = torch.rsqrt((whole[..., 2] / whole[..., 0]).float() + 1e-5)
+    np.testing.assert_allclose(rstd.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def test_split_wrappers_on_cpu_take_the_plain_versions_and_count_no_launch():
+    from wiw_tpu_torch.ops import quant as TQ
+
+    x = torch.from_numpy(_rand((2, 9, 4, 32), 21, 1.5, -0.2))
+    before = (TG.group_norm_stats.launches, TG.combine_stats.launches,
+              TQ.conv_amax.launches)
+    st = TG.group_norm_stats(x, 8)
+    assert torch.equal(st, TG.group_norm_stats_plain(x, 8))
+    every = torch.stack([st, TG.group_norm_stats(x[:, :0], 8)])
+    for got, want in zip(TG.combine_stats(every, 1e-6),
+                         TG.combine_stats_plain(every, 1e-6)):
+        assert torch.equal(got, want)
+    assert torch.equal(TQ.conv_amax(x.bfloat16()), TQ.conv_amax_plain(x.bfloat16()))
+    assert (TG.group_norm_stats.launches, TG.combine_stats.launches,
+            TQ.conv_amax.launches) == before
+
+
+def test_split_wrappers_refuse_devices_other_than_cpu_and_cuda():
+    from wiw_tpu_torch.ops import quant as TQ
+
+    m = torch.zeros(2, 4, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        TG.group_norm_stats(m, 4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TG.combine_stats(torch.zeros(2, 2, 4, 3, dtype=torch.float64, device="meta"), 1e-5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        TQ.conv_amax(m.bfloat16())

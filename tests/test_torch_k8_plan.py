@@ -189,3 +189,52 @@ def test_served_groupnorm_shapes_are_the_listed_ones(monkeypatch):
         seen.clear()
         pipe.vae.decode(torch.randn(4, 72, 128, 4), 4)
         assert dict(seen) == DECODE_CHUNK
+
+
+# K8-stats' plan at every UNet GroupNorm shape, whole and as the largest
+# row shard at fsdp 4 (the height split; L shrinks in proportion)
+def _shard_L(N, L, C, n):
+    H = {9216: 72, 2304: 36, 576: 18, 144: 9}.get(L // (14 if N == 2 else 1))
+    if n == 1 or H is None:
+        return L
+    return L // H * -(-H // n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("fsdp", [1, 4])
+def test_stats_plan_tiles_every_position_once_in_one_wave(dtype, fsdp):
+    for N, L0, C in sorted(UNET):
+        L = _shard_L(N, L0, C, fsdp)
+        plan = TG.stats_plan(N, L, C, 32, dtype)
+        nv = C * _isz(dtype) // 16
+        assert plan.threads % 32 == 0
+        assert TG.STATS_THREADS <= plan.threads <= TG.STATS_MAX_THREADS
+        rs = max(1, plan.threads // nv)
+        # a block holds whole positions (rs of them a step), or one position
+        # taken in turns where it is wider than the block
+        assert rs * nv <= plan.threads or plan.threads == TG.STATS_MAX_THREADS
+        # the tiles cover the row once, the last one ragged
+        assert (plan.tiles - 1) * plan.tile < L <= plan.tiles * plan.tile
+        # one wave: two blocks an SM, or one of the widest
+        per_sm = 2 if plan.threads < TG.STATS_MAX_THREADS else 1
+        assert N * plan.tiles <= per_sm * TG.H100_SMS or plan.tiles == 1
+        # the row's last block reads at most STATS_TILE_LOADS partials a
+        # thread a pass, and a thread loads STATS_MIN_CHUNKS chunks where
+        # the row has that many
+        assert plan.tiles <= TG.STATS_TILE_LOADS * (plan.threads // 32)
+        if plan.tiles > 1:
+            assert plan.tile >= rs * TG.STATS_CHUNK * TG.STATS_MIN_CHUNKS // 2
+        work = TG.stats_work_bytes(plan, N, 32)
+        assert work == N * plan.tiles * 32 * 16 + 4 * N
+
+
+def test_stats_plan_fills_the_card_at_the_level_0_shards():
+    """fsdp 4's level-0 shards: the spatial rows (28) give two blocks of
+    256 threads on most SMs; the temporal rows (2) one block of 512 on
+    most, as many tiles a row as the combination reads in one pass."""
+    level0 = TG.stats_plan(28, 2304, 320, 32, torch.bfloat16)
+    assert level0.threads == TG.STATS_THREADS
+    assert 28 * level0.tiles > 1.5 * TG.H100_SMS
+    temporal = TG.stats_plan(2, 32256, 320, 32, torch.bfloat16)
+    assert temporal.threads == TG.STATS_MAX_THREADS
+    assert temporal.tiles == TG.STATS_TILE_LOADS * TG.STATS_MAX_THREADS // 32

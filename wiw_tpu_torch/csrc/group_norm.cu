@@ -207,12 +207,14 @@ __device__ __forceinline__ float ld_cluster(const float* p, uint32_t cta) {
 // ---------------------------------------------------------- the slab's work
 // A thread's place in a slab of w channels: column `col` of the nv 16-byte
 // vectors of a position, positions row0, row0 + rs, ...
+// (K8-stats also runs blocks narrower than a position, nv > threads: then
+// rs = 1 and thread t takes the columns t, t + threads, ... in turn.)
 struct Lanes {
   int nv, rs, col, row0;
   bool active;
   __device__ Lanes(int w, int vec) {
     nv = w / vec;
-    rs = static_cast<int>(blockDim.x) / nv;
+    rs = max(1, static_cast<int>(blockDim.x) / nv);
     col = threadIdx.x % nv;
     row0 = threadIdx.x / nv;
     active = row0 < rs;
@@ -609,15 +611,16 @@ __device__ Range range_of(int j, int P, int64_t L, int n_slabs, int w) {
   return r;
 }
 
-// The (mean, 1/std) of a slab's gs groups from its Q blocks' partials `in`
-// ([Q][gs] (mean, M2) pairs, block q holding `per` positions, fewer at the
-// end): mean = sum(n mean) / n, M2 = sum(M2 + n (mean_q - mean)^2), in
+// The (count, mean, M2) of a slab's gs groups from its Q blocks' partials
+// `in` ([Q][gs] (mean, M2) pairs, block q holding `per` positions, fewer at
+// the end): mean = sum(n mean) / n, M2 = sum(M2 + n (mean_q - mean)^2), in
 // double. Thread t takes group g = t mod gsub of each run of gsub groups
 // and the partials q = t / gsub, + S, ... (S = threads / gsub), four loads
-// in flight; the S sums of a group then add in order. Into `out` [gs].
+// in flight; the S sums of a group then add in order. out(g, n, mean, M2)
+// once a group (path S: its mean and 1/std; K8-stats: the row's result).
+template <typename Out>
 __device__ void combine_slab(const double2* in, int Q, int per, int64_t L, int cg,
-                             int gs, float eps, float2* out, double* red_n,
-                             double* red_nm) {
+                             int gs, double* red_n, double* red_nm, const Out& out) {
   const int nt = static_cast<int>(blockDim.x);
   for (int g0 = 0; g0 < gs; g0 += nt) {
     const int gsub = min(nt, gs - g0);
@@ -665,8 +668,7 @@ __device__ void combine_slab(const double2* in, int Q, int per, int64_t L, int c
     if (k == 0) {
       double m2 = 0.0;
       for (int i = 0; i < S; ++i) m2 += red_n[i * gsub + threadIdx.x];
-      out[g] = make_float2(static_cast<float>(mu),
-                           static_cast<float>(1.0 / sqrt(m2 / tot + static_cast<double>(eps))));
+      out(g, tot, mu, m2);
     }
     __syncthreads();
   }
@@ -750,9 +752,13 @@ gn_stream_kernel(const T* __restrict__ x, const float* __restrict__ gamma,
       if (rg.js < n_slabs && ticket == static_cast<unsigned>(rg.Q - 1)) {
         // the slab's last block: its groups from the Q blocks' partials
         __threadfence();
+        float2* st = stats + (static_cast<int64_t>(b & 1) * rb * n_slabs + slot) * gs;
         combine_slab(part + static_cast<int64_t>(slot) * rg.Q * gs, rg.Q, rg.per, L, cg, gs,
-                     eps, stats + (static_cast<int64_t>(b & 1) * rb * n_slabs + slot) * gs,
-                     red_n, red_nm);
+                     red_n, red_nm, [&](int g, double tot, double mu, double m2) {
+                       st[g] = make_float2(static_cast<float>(mu),
+                                           static_cast<float>(1.0 / sqrt(
+                                               m2 / tot + static_cast<double>(eps))));
+                     });
         if (threadIdx.x == 0) arrived[slot] = 0u;  // for the next batch
       }
     }
@@ -837,66 +843,229 @@ int stride_blocks(int64_t vecs) {
 
 // ------------------------------------------------- split entries (shard_clip)
 // When a (row, group) has positions on several ranks, the statistics and
-// the apply are two entries with the ranks' combination between them.
-// `gn_stats_kernel`: block (p, g, n) reduces positions [p * chunk, (p + 1) *
-// chunk) of group g of row n to (count, mean, M2) in double, a two-pass in
-// fp32 over its values with the first pass's rounding folded back (the
-// mean corrected by sum(x - mean) / count, M2 by (sum(x - mean))^2 / count).
-// `gn_apply_kernel`: y = x * sc + of per 16-byte vector, sc = rstd * gamma,
-// of = beta - mean * sc (in double, as the one-launch kernel's), rounded to
-// T, then SiLU: `normalise`, the one-launch kernel's arithmetic.
-constexpr int kStatThreads = 256;
+// the apply are entries of their own, with the ranks' combination between
+// them.
+//
+// K8-stats (`gn_stats_kernel`), x to each row's final (count, mean, M2) per
+// group in one launch. Bound by bytes: x read once (~10 operations a
+// value). Block (t, n) takes tile t of row n: positions [t * tile, (t + 1)
+// * tile) and every channel, as the TPU `_stats_kernel` tiles whole
+// positions [TR, C]. Thread r * nv + c owns the 16-byte column c (of the
+// nv of a position) at positions r, r + rs, ... of the tile (rs =
+// threads / nv; where a position is wider than the block, rs = 1 and a
+// thread takes its columns in turn), two chunks of kStatChunk read-only
+// loads in flight that L1 does not keep (the apply reads x again, from L2
+// where it fits). Each channel's (mean, M2) is path S's: a two-pass over
+// each chunk merged by Chan's formula (`chunk_merge`). Then, in double
+// and in a fixed order (`fold_tile`), each channel over the row threads
+// and each group over its channels (at C/G 10 a vector straddles two
+// groups), one (mean, M2) per (row, tile, group) into the call's
+// workspace; the last block of a row to arrive (a counter a row in the
+// same workspace, zeroed on the call's stream before the launch, so no two
+// calls share one) combines the row's tiles in tile order
+// (path S's `combine_slab`; the plan keeps it to one round of loads a
+// pass) into the float64 [N, G, 3] result. Every sum has a fixed order: the
+// bits repeat from run to run. (Path S's `block_groups`, one warp a group
+// in turn, took longer on an H100 than a tile's loads: `fold_tile` keeps
+// every thread of the block busy.)
+//
+// The ranks' combination (`gn_combine_kernel`): one thread a (row, group)
+// takes the all-gathered [R, N, G, 3] in rank order, Chan's rule in double
+// skipping parts of count 0, and writes fp32 mean and rstd = 1 / sqrt(M2 / n
+// + eps) (IEEE square root and division: the CPU's rsqrt).
+//
+// K8-apply (`gn_apply_kernel`): y = x * sc + of per 16-byte vector, sc =
+// rstd * gamma, of = beta - mean * sc (in double, as the one-launch
+// kernel's), rounded to T, then SiLU: `normalise`, the one-launch kernel's
+// arithmetic.
+constexpr int kStatMaxThreads = 512;
+constexpr int kStatChunk = 4;       // 16-byte loads a chunk, two chunks in flight
+constexpr int kCombineThreads = 128;
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+__device__ __forceinline__ uint4 ld_nc_na(const void* p) {
+  uint4 u;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "l"(p));
+  return u;
 }
 
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();  // red may still be read from the previous sum
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+// bytes of dynamic shared memory of a statistics block: scratch of the fold
+// and the tiles' combination (three doubles a thread), each channel's
+// (mean, M2) in double, and the threads' channel means and M2 (fp32)
+__host__ __device__ inline int stats_smem(int threads, int C, int nv, int vec) {
+  return 24 * threads + 16 * C + 8 * (threads > nv ? threads : nv) * vec;
+}
+
+// A tile's groups from its threads' channels (tmean, tm2: [rs][C], row
+// thread r holding owned(rows, r, rs) positions), in double, in a fixed
+// order: each channel over the row threads into cmean, cm2 [C] (a thread a
+// channel); then each group over its cg channels (`rows` positions each),
+// P = threads / G threads a group taking channels p, p + P, ... and their
+// sums added in order (red: three doubles a thread). out(g, mean, M2) once
+// a group.
+template <typename Out>
+__device__ void fold_tile(const float* tmean, const float* tm2, int rows, int rs, int C,
+                          int cg, double* cmean, double* cm2, double* red, const Out& out) {
+  const int nt = static_cast<int>(blockDim.x);
+  const int base = rows / rs, extra = rows % rs;  // row thread r: base + (r < extra)
+  const double inv = 1.0 / rows;
+  for (int c = threadIdx.x; c < C; c += nt) {
+    double nm = 0.0;
+    for (int r = 0; r < rs; ++r) {
+      nm += (base + (r < extra)) * static_cast<double>(tmean[r * C + c]);
+    }
+    const double mu = nm * inv;
+    double m2 = 0.0;
+    for (int r = 0; r < rs; ++r) {
+      const double d = tmean[r * C + c] - mu;
+      m2 += tm2[r * C + c] + (base + (r < extra)) * d * d;
+    }
+    cmean[c] = mu;
+    cm2[c] = m2;
+  }
   __syncthreads();
-  float t = 0.f;
-  for (int w = 0; w < kStatThreads / 32; ++w) t += red[w];  // a fixed order
-  return t;
+  const int G = C / cg;
+  for (int g0 = 0; g0 < G; g0 += nt) {
+    const int gsub = min(nt, G - g0);
+    const int P = min(nt / gsub, cg);
+    const int gl = static_cast<int>(threadIdx.x) % gsub;
+    const int p = static_cast<int>(threadIdx.x) / gsub;
+    const double* cm = cmean + (g0 + gl) * cg;
+    const double* c2 = cm2 + (g0 + gl) * cg;
+    double sum = 0.0;
+    if (p < P) {
+      for (int j = p; j < cg; j += P) sum += cm[j];
+    }
+    red[threadIdx.x] = sum;
+    __syncthreads();
+    if (p == 0) {
+      double t = 0.0;
+      for (int i = 0; i < P; ++i) t += red[i * gsub + gl];
+      red[nt + gl] = t / cg;
+    }
+    __syncthreads();
+    const double mu = red[nt + gl];
+    double m2 = 0.0;
+    if (p < P) {
+      for (int j = p; j < cg; j += P) {
+        const double d = cm[j] - mu;
+        m2 += c2[j] + rows * d * d;
+      }
+    }
+    red[2 * nt + threadIdx.x] = m2;
+    __syncthreads();
+    if (p == 0) {
+      double t = 0.0;
+      for (int i = 0; i < P; ++i) t += red[2 * nt + i * gsub + gl];
+      out(g0 + gl, mu, t);
+    }
+    __syncthreads();
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-gn_stats_kernel(const T* __restrict__ x, double* __restrict__ part, int64_t L, int C,
-                int cg, int64_t chunk) {
-  __shared__ float red[kStatThreads / 32];
-  const int p = blockIdx.x, g = blockIdx.y, G = gridDim.y, P = gridDim.x;
-  const int64_t n = blockIdx.z;
-  const int64_t l0 = p * chunk;
-  const int64_t l1 = l0 + chunk < L ? l0 + chunk : L;
-  // a block's values fit 32-bit indices (a 64-bit division would be a call)
-  const int cnt = static_cast<int>((l1 - l0) * cg);
-  const T* base = x + (n * L + l0) * C + static_cast<int64_t>(g) * cg;
-  float s = 0.f;
-  for (int i = threadIdx.x; i < cnt; i += kStatThreads) {
-    const int l = i / cg;
-    s += load1(base + static_cast<int64_t>(l) * C + (i - l * cg));
+__global__ void __launch_bounds__(kStatMaxThreads, 1)
+gn_stats_kernel(const T* __restrict__ x, double2* __restrict__ part,
+                unsigned* __restrict__ arrived, double* __restrict__ out, int64_t L, int C,
+                int cg, int tile) {
+  constexpr int V = Vec<T>::n;
+  extern __shared__ __align__(16) double sdyn[];
+  __shared__ unsigned ticket;
+  const int nt = static_cast<int>(blockDim.x);
+  const int Q = static_cast<int>(gridDim.x);
+  const int t = static_cast<int>(blockIdx.x);
+  const int64_t n = blockIdx.y;
+  const int G = C / cg;
+  const Lanes ln(C, V);
+  double* scratch = sdyn;
+  double* cmean = sdyn + 3 * nt;
+  double* cm2 = cmean + C;
+  float* tmean = reinterpret_cast<float*>(cm2 + C);
+  float* tm2 = tmean + (nt > ln.nv ? nt : ln.nv) * V;
+  const int64_t lo = static_cast<int64_t>(t) * tile;
+  const int rows = static_cast<int>(L - lo < tile ? L - lo : tile);
+  const int mine = ln.active ? owned(rows, ln.row0, ln.rs) : 0;
+  const int64_t step = static_cast<int64_t>(ln.rs) * C;
+
+  for (int col = ln.col; ln.active && col < ln.nv; col += min(ln.nv, nt)) {
+    const T* src = x + (n * L + lo + ln.row0) * C + col * V;
+    float cnt = 0.f, mean[V], m2[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) mean[e] = m2[e] = 0.f;
+    // two chunks in flight: the next chunk's loads are issued before this
+    // one is merged
+    uint4 u[kStatChunk], ahead[kStatChunk] = {};
+#pragma unroll
+    for (int c = 0; c < kStatChunk; ++c) {
+      if (c < mine) ahead[c] = ld_nc_na(src + c * step);
+    }
+    for (int i0 = 0; i0 < mine; i0 += kStatChunk) {
+      const int k = min(kStatChunk, mine - i0);
+#pragma unroll
+      for (int c = 0; c < kStatChunk; ++c) u[c] = ahead[c];
+#pragma unroll
+      for (int c = 0; c < kStatChunk; ++c) {
+        const int i = i0 + kStatChunk + c;
+        if (i < mine) ahead[c] = ld_nc_na(src + i * step);
+      }
+      chunk_merge<T, kStatChunk>(u, k, cnt, mean, m2);
+    }
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      tmean[ln.row0 * C + col * V + e] = mean[e];
+      tm2[ln.row0 * C + col * V + e] = m2[e];
+    }
   }
-  const float mean = block_sum(s, red) / static_cast<float>(cnt);
-  float d1 = 0.f, d2 = 0.f;
-  for (int i = threadIdx.x; i < cnt; i += kStatThreads) {
-    const int l = i / cg;
-    const float d = load1(base + static_cast<int64_t>(l) * C + (i - l * cg)) - mean;
-    d1 += d;
-    d2 += d * d;
+  __syncthreads();
+  // the tile's groups into the row's partials
+  double2* row_part = part + n * Q * G;
+  fold_tile(tmean, tm2, rows, ln.rs, C, cg, cmean, cm2, scratch,
+            [&](int g, double mu, double m2) {
+    row_part[static_cast<int64_t>(t) * G + g] = make_double2(mu, m2);
+  });
+  __threadfence();  // each writer's partials, before the block arrives
+  __syncthreads();
+  if (threadIdx.x == 0) ticket = atomicAdd(&arrived[n], 1u);
+  __syncthreads();
+  if (ticket == static_cast<unsigned>(Q - 1)) {
+    // the row's last block: its groups from the Q tiles' partials
+    __threadfence();
+    double* o = out + n * G * 3;
+    combine_slab(row_part, Q, tile, L, cg, G, scratch, scratch + nt,
+                 [&](int g, double tot, double mu, double m2) {
+                   o[g * 3] = tot;
+                   o[g * 3 + 1] = mu;
+                   o[g * 3 + 2] = m2;
+                 });
   }
-  d1 = block_sum(d1, red);
-  d2 = block_sum(d2, red);
-  if (threadIdx.x == 0) {
-    double* o = part + ((n * G + g) * P + p) * 3;
-    const double c = static_cast<double>(cnt);
-    o[0] = c;
-    o[1] = static_cast<double>(mean) + static_cast<double>(d1) / c;
-    o[2] = static_cast<double>(d2) - static_cast<double>(d1) * d1 / c;
+}
+
+__global__ void __launch_bounds__(kCombineThreads)
+gn_combine_kernel(const double* __restrict__ every, float* __restrict__ mean,
+                  float* __restrict__ rstd, int R, int64_t NG, float eps) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
+  if (i >= NG) return;
+  double n = 0.0, nm = 0.0;
+  for (int r = 0; r < R; ++r) {
+    const double* p = every + (r * NG + i) * 3;
+    if (p[0] > 0.0) {
+      n += p[0];
+      nm += p[0] * p[1];
+    }
   }
+  const double mu = nm / (n > 1.0 ? n : 1.0);
+  double m2 = 0.0;
+  for (int r = 0; r < R; ++r) {
+    const double* p = every + (r * NG + i) * 3;
+    if (p[0] > 0.0) {
+      const double d = p[1] - mu;
+      m2 += p[2] + p[0] * d * d;
+    }
+  }
+  mean[i] = static_cast<float>(mu);
+  const float var = static_cast<float>(m2 / n);
+  rstd[i] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
 }
 
 template <typename T, bool kSilu>
@@ -1075,32 +1244,66 @@ extern "C" int wiw_copy_plus_one_bf16(const void* x, void* y, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <typename T>
+int launch_stats(const void* x, void* work, void* out, int64_t N, int64_t L, int C,
+                 int groups, int threads, int tile, cudaStream_t s) {
+  const int smem = stats_smem(threads, C, C / Vec<T>::n, Vec<T>::n);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gn_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int64_t Q = (L + tile - 1) / tile;
+  double2* part = static_cast<double2*>(work);
+  unsigned* arrived = reinterpret_cast<unsigned*>(part + N * Q * groups);
+  const cudaError_t err = cudaMemsetAsync(arrived, 0, N * sizeof(unsigned), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gn_stats_kernel<T><<<dim3(static_cast<unsigned>(Q), static_cast<unsigned>(N)), threads,
+                       smem, s>>>(
+      static_cast<const T*>(x), part, arrived, static_cast<double*>(out), L, C, C / groups,
+      tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // The split entries (shard_clip). x: contiguous [N, L, C] (bf16 with
-// is_bf16, else fp32), C a multiple of 8 and of `groups`.
-// wiw_group_norm_stats: part, double [N, groups, P, 3] with P =
-// ceil(L / chunk): (count, mean, M2) of positions [p * chunk, (p + 1) *
-// chunk) of each (row, group); the caller combines the partials.
-extern "C" int wiw_group_norm_stats(const void* x, void* part, int64_t N, int64_t L,
-                                    int C, int groups, int64_t chunk, int is_bf16,
-                                    void* stream) {
-  if (N <= 0 || N > 65535 || L <= 0 || C <= 0 || C % 8 || groups <= 0 ||
-      groups > 65535 || C % groups || chunk <= 0 ||
-      chunk * (C / groups) > 0x7fffffff - kStatThreads) {
+// is_bf16, else fp32), 16-byte aligned, C a multiple of 8 and of `groups`.
+// wiw_group_norm_stats: out, double [N, groups, 3]: (count, mean, M2) of
+// each (row, group) over its L positions. The plan
+// (`ops/group_norm.stats_plan`): blocks of `threads` (a multiple of 32, at
+// most 512), `tile` positions a block, Q = ceil(L / tile) blocks a row;
+// work: `ops/group_norm.stats_work_bytes` (double2 [N, Q, groups] partials,
+// then N arrival counters, zeroed here on the stream). One launch.
+extern "C" int wiw_group_norm_stats(const void* x, void* work, void* out, int64_t N,
+                                    int64_t L, int C, int groups, int threads, int64_t tile,
+                                    int is_bf16, void* stream) {
+  if (N <= 0 || N > 65535 || L <= 0 || C <= 0 || C % 8 || groups <= 0 || C % groups ||
+      threads < 32 || threads > kStatMaxThreads || threads % 32 || tile <= 0 ||
+      tile > 0x7fffffff || (L + tile - 1) / tile > 0x7fffffff || work == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t P = (L + chunk - 1) / chunk;
-  if (P > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>(P), static_cast<unsigned>(groups),
-                  static_cast<unsigned>(N));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  double* out = static_cast<double*>(part);
-  if (is_bf16) {
-    gn_stats_kernel<__nv_bfloat16><<<grid, kStatThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), out, L, C, C / groups, chunk);
-  } else {
-    gn_stats_kernel<float><<<grid, kStatThreads, 0, s>>>(
-        static_cast<const float*>(x), out, L, C, C / groups, chunk);
+  const int tl = static_cast<int>(tile);
+  return is_bf16 ? launch_stats<__nv_bfloat16>(x, work, out, N, L, C, groups, threads, tl, s)
+                 : launch_stats<float>(x, work, out, N, L, C, groups, threads, tl, s);
+}
+
+// wiw_group_norm_combine: every, double [R, N * groups, 3], the parts'
+// (count, mean, M2) in rank order, to fp32 mean and rstd [N * groups] (ng =
+// N * groups). One launch.
+extern "C" int wiw_group_norm_combine(const void* every, void* mean, void* rstd, int R,
+                                      int64_t ng, float eps, void* stream) {
+  if (R <= 0 || ng <= 0 || (ng + kCombineThreads - 1) / kCombineThreads > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  gn_combine_kernel<<<static_cast<unsigned>((ng + kCombineThreads - 1) / kCombineThreads),
+                      kCombineThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const double*>(every), static_cast<float*>(mean),
+      static_cast<float*>(rstd), R, ng, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

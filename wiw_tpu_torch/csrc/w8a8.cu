@@ -16,8 +16,11 @@
 //      * s_w[col] + bias[col], rounded once to the output dtype.
 // Conv (NHWC x [Nb, H, W, I], w8 [O, kh, kw, I] = [O, K], K = kh*kw*I),
 // three launches:
-//   1. `amax_abs`: amax(|x|) over the whole call, an atomicMax on the bits
-//      of non-negative floats (order-free, so deterministic); no host sync.
+//   1. `amax_abs`: amax(|x|) over the whole call at the card's bandwidth
+//      (a grid of SMs x resident blocks, eight 16-byte loads in flight a
+//      thread, an integer max of the values' bits with the sign cleared),
+//      one atomicMax a block on the bits of non-negative floats
+//      (order-free, so deterministic); no host sync.
 //   2. `quant_tensor`: s_a = max(amax, 1e-8) / 127 and x8 = rint(x / s_a),
 //      int8 NHWC, once per element.
 //   3. `w8a8_wgmma` (kConvTma or kConvGather): the same product as an
@@ -174,28 +177,66 @@ quant_rows_kernel(const T* __restrict__ x, int8_t* __restrict__ x8,
   }
 }
 
+// K7-amax: amax(|x|), bound by reading x once. Every thread of a grid of
+// SMs x resident blocks issues kAmaxLoads read-only 16-byte loads at once
+// (not kept in L1; the last round's predicated, so that no load waits on
+// another) and keeps the max as bits: |v| of a float is its bits
+// with the sign cleared, and non-negative floats order as their bits, so
+// the max is an integer max (two bf16 halves a word by __vmaxu2), exact,
+// order-free and NaN-propagating as jnp.max is. Then a warp-shuffle max, a
+// block max and one atomicMax a block on the output, zeroed once a call.
+constexpr int kAmaxThreads = 256;
+constexpr int kAmaxLoads = 8;
+
+__device__ __forceinline__ uint4 ld_nc_na(const uint4* p) {
+  uint4 u;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+      : "l"(p));
+  return u;
+}
+
+// the running max of |v| over the 16 bytes u, as bits (bf16: two halves)
+__device__ __forceinline__ uint32_t abs_max(const uint4& u, uint32_t m, const __nv_bfloat16*) {
+  constexpr uint32_t k = 0x7fff7fffu;
+  return __vmaxu2(m, __vmaxu2(__vmaxu2(u.x & k, u.y & k), __vmaxu2(u.z & k, u.w & k)));
+}
+__device__ __forceinline__ uint32_t abs_max(const uint4& u, uint32_t m, const float*) {
+  constexpr uint32_t k = 0x7fffffffu;
+  return max(max(m, max(u.x & k, u.y & k)), max(u.z & k, u.w & k));
+}
+// those bits as an fp32's
+__device__ __forceinline__ uint32_t as_f32_bits(uint32_t m, const __nv_bfloat16*) {
+  return max(m & 0xffffu, m >> 16) << 16;
+}
+__device__ __forceinline__ uint32_t as_f32_bits(uint32_t m, const float*) { return m; }
+
 template <typename T>
-__global__ void __launch_bounds__(256)
-amax_abs_kernel(const T* __restrict__ x, int64_t n8, float* __restrict__ amax) {
-  float m = 0.f;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n8; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float f[8];
-    load8(x + i * 8, f);
+__global__ void __launch_bounds__(kAmaxThreads)
+amax_abs_kernel(const uint4* __restrict__ x, int64_t n16, unsigned* __restrict__ amax) {
+  const T* tag = nullptr;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kAmaxThreads;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * kAmaxThreads + threadIdx.x;
+  uint32_t m = 0;
+  for (; i < n16; i += kAmaxLoads * stride) {
+    uint4 u[kAmaxLoads];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(f[j]));
-  }
+    for (int j = 0; j < kAmaxLoads; ++j) {
+      u[j] = i + j * stride < n16 ? ld_nc_na(x + i + j * stride) : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    for (int j = 0; j < kAmaxLoads; ++j) m = abs_max(u[j], m, tag);
   }
-  __shared__ float part[8];
+  m = as_f32_bits(m, tag);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  __shared__ uint32_t part[kAmaxThreads / 32];
   if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) m = fmaxf(m, part[w]);
-    // non-negative floats order as their bit patterns
-    atomicMax(reinterpret_cast<unsigned int*>(amax), __float_as_uint(m));
+#pragma unroll
+    for (int w = 1; w < kAmaxThreads / 32; ++w) m = max(m, part[w]);
+    atomicMax(amax, m);
   }
 }
 
@@ -766,16 +807,45 @@ unsigned pass_blocks(int64_t n8) {
   return static_cast<unsigned>(n8 / 256 + 1 < 132 * 16 ? n8 / 256 + 1 : 132 * 16);
 }
 
-// amax(|x|) of n8 vectors of 8 into `am` (zeroed first), on `stream`
+// the amax pass's grid: every block resident at once, SMs x blocks an SM
+// (a device's figures read once)
+int amax_blocks(bool fp32, unsigned* blocks) {
+  static int cached[2][64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  int& b = cached[fp32][dev];
+  if (b == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = fp32 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, amax_abs_kernel<float>, kAmaxThreads, 0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, amax_abs_kernel<__nv_bfloat16>, kAmaxThreads, 0);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    b = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  *blocks = static_cast<unsigned>(b);
+  return 0;
+}
+
+// amax(|x|) of n8 vectors of 8 into `am` (zeroed here, the call's one
+// zeroing), on `stream`
 int amax_pass(const void* x, int64_t n8, float* am, bool fp32, cudaStream_t stream) {
-  const cudaError_t e = cudaMemsetAsync(am, 0, sizeof(float), stream);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  unsigned blocks = 0;
+  const int e = amax_blocks(fp32, &blocks);
+  if (e != 0) return e;
+  const cudaError_t err = cudaMemsetAsync(am, 0, sizeof(float), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint4* v = static_cast<const uint4*>(x);
+  unsigned* out = reinterpret_cast<unsigned*>(am);
   if (fp32) {
-    amax_abs_kernel<float><<<pass_blocks(n8), 256, 0, stream>>>(
-        static_cast<const float*>(x), n8, am);
+    amax_abs_kernel<float><<<blocks, kAmaxThreads, 0, stream>>>(v, 2 * n8, out);
   } else {
-    amax_abs_kernel<__nv_bfloat16><<<pass_blocks(n8), 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), n8, am);
+    amax_abs_kernel<__nv_bfloat16><<<blocks, kAmaxThreads, 0, stream>>>(v, n8, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,10 +22,12 @@ by op (~10 fp32 passes), so the port carries it on a kernel.
   plan.
 - The split entries, for a GroupNorm whose positions are split over ranks
   (shard_clip, `parallel/clip_sharding.group_norm`): `group_norm_stats`
-  (per (row, group) count, mean and M2 of the positions given; the TPU
-  probe's `_stats_kernel`), `combine_stats` (Chan's rule over the parts, on
-  the host side of the kernels) and `group_norm_apply` (affine + SiLU from
-  the given mean and rstd; `_affine_silu_kernel`), each with its plain
+  (K8-stats: per (row, group) count, mean and M2 of the positions given,
+  its tiles' partials combined on the card in the same launch; the TPU
+  probe's `_stats_kernel` and the glue that merges its partials;
+  `stats_plan` picks its tiles), `combine_stats` (the ranks' parts by
+  Chan's rule, one launch) and `group_norm_apply` (affine + SiLU from the
+  given mean and rstd; `_affine_silu_kernel`), each with its plain
   version. The one-launch K8 stays what runs without a row split.
 - `copy_plus_one` (the probe's `_copy_kernel`, x + 1 in bf16) measures the
   card's copy ceiling beside K8; its plain version is `x + 1`.
@@ -281,7 +283,56 @@ group_norm.launches = 0
 
 
 # ------------------------------------------------- split entries (shard_clip)
-STATS_VALUES = 16384  # values of one (row, group) a statistics block reduces
+STATS_THREADS = 256       # K8-stats: a block's threads, two blocks an SM
+STATS_MAX_THREADS = 512   # csrc/group_norm.cu kStatMaxThreads; one block an SM
+STATS_CHUNK = 4           # 16-byte loads a chunk (kStatChunk)
+STATS_MIN_CHUNKS = 4      # chunks a thread loads at least, against a block's fold
+STATS_TILE_LOADS = 4      # partials a thread of a row's last block reads a pass
+
+
+class StatsPlan(NamedTuple):
+    """K8-stats' work for one [N, L, C] shape: blocks of `threads`, each
+    taking `tile` positions of one row (every channel), `tiles` a row."""
+    threads: int
+    tile: int
+    tiles: int
+
+
+@functools.lru_cache(maxsize=None)
+def stats_plan(N: int, L: int, C: int, groups: int, dtype: torch.dtype,
+               sms: int = H100_SMS) -> StatsPlan:
+    """K8-stats' plan. A thread owns one 16-byte column of the nv = C *
+    itemsize / 16 of a position at every rs-th position of its tile. One
+    wave of blocks: two of STATS_THREADS threads an SM (rs = threads // nv
+    row threads, at least one), or one of up to STATS_MAX_THREADS where a
+    position is wider or the rows are too few for that (a position wider
+    than the block is taken in turns). Tiles of at least STATS_MIN_CHUNKS
+    chunks a thread, and at most STATS_TILE_LOADS tiles for each of a row's
+    last block's threads on a group (that block combines them)."""
+    nv = C * dtype.itemsize // 16
+
+    def plan(width: int) -> StatsPlan:
+        rs = max(1, width // nv)
+        threads = min(STATS_MAX_THREADS, max(width, -(-rs * nv // 32) * 32))
+        rs = max(1, threads // nv)
+        per_sm = 2 if threads <= STATS_THREADS else 1
+        most = min(STATS_TILE_LOADS * max(1, threads // groups),
+                   -(-L // (rs * STATS_CHUNK * STATS_MIN_CHUNKS)))
+        tiles = max(1, min(most, per_sm * sms // N))
+        tile = -(-L // tiles)
+        return StatsPlan(threads, tile, -(-L // tile))
+
+    two = plan(STATS_THREADS)
+    if N * two.tiles >= sms:
+        return two
+    one = plan(STATS_MAX_THREADS)
+    return one if one.tiles * one.threads > two.tiles * two.threads else two
+
+
+def stats_work_bytes(plan: StatsPlan, N: int, groups: int) -> int:
+    """K8-stats' workspace: each (row, tile, group)'s (mean, M2) as float64
+    pairs, then an arrival counter a row."""
+    return N * plan.tiles * groups * 16 + 4 * N
 
 
 def _rows_view(x: torch.Tensor, groups: int):
@@ -289,16 +340,6 @@ def _rows_view(x: torch.Tensor, groups: int):
     N, C = x.shape[0], x.shape[-1]
     L = x.numel() // (N * C) if N * C else 0
     return x.float().reshape(N, L, groups, C // groups)
-
-
-def _chan(count, mean, m2, dim: int):
-    """Chan's combination of (count, mean, M2) partials along `dim` (in
-    double): mean = sum(n_i mean_i) / n, M2 = sum(M2_i + n_i (mean_i -
-    mean)^2); partials of count 0 add nothing."""
-    n = count.sum(dim)
-    mu = (count * mean).sum(dim) / n.clamp_min(1)
-    m2 = (m2 + count * (mean - mu.unsqueeze(dim)) ** 2).sum(dim)
-    return n, mu, m2
 
 
 def group_norm_stats_plain(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -322,11 +363,11 @@ def group_norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
     """The statistics half of a GroupNorm whose positions are split over
     ranks: float64 [N, G, 3] of (count, mean, M2) per (batch row, group) of
     x [N, ..., C]. CPU tensors take `group_norm_stats_plain`. CUDA tensors
-    launch K8's statistics entry (bf16/fp32, C a multiple of 8 and of the
-    groups; a non-contiguous x is copied first), one block per STATS_VALUES
-    values of a (row, group), whose partials are combined here by Chan's
-    rule; counted in `group_norm_stats.launches`. An x without positions
-    gives zeros with no launch."""
+    launch K8-stats (bf16/fp32, C a multiple of 8 and of the groups; a
+    non-contiguous x is copied first), whose last block of each row
+    combines the row's tiles, so its output is the result; counted in
+    `group_norm_stats.launches`. An x without positions gives zeros with no
+    launch."""
     if native.on_cpu(x) or x.numel() == 0:
         return group_norm_stats_plain(x, groups)
     if x.device.type != "cuda":
@@ -340,35 +381,77 @@ def group_norm_stats(x: torch.Tensor, groups: int) -> torch.Tensor:
                          f"groups, 1..{MAX_ROWS} rows, 16-byte aligned; got "
                          f"{tuple(x.shape)}, groups={groups}")
     L = x.numel() // (N * C)
-    chunk = max(1, STATS_VALUES // (C // groups))
-    P = -(-L // chunk)
-    part = torch.empty(N, groups, P, 3, dtype=torch.float64, device=x.device)
+    plan = stats_plan(N, L, C, groups, x.dtype, native.sm_count(x.device))
+    work = torch.empty(stats_work_bytes(plan, N, groups), dtype=torch.uint8,
+                       device=x.device)
+    out = torch.empty(N, groups, 3, dtype=torch.float64, device=x.device)
     fn = native.load_library(_LIB).wiw_group_norm_stats
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), part.data_ptr(), N, L, C, groups, chunk,
-                 int(x.dtype == torch.bfloat16),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    with native.device_of(x):
+        err = fn(x.data_ptr(), work.data_ptr(), out.data_ptr(), N, L, C, groups,
+                 plan.threads, plan.tile, int(x.dtype == torch.bfloat16),
+                 native.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"group_norm_stats launch failed: cudaError {err}")
     group_norm_stats.launches += 1
-    return torch.stack(_chan(part[..., 0], part[..., 1], part[..., 2], 2), dim=-1)
+    return out
 
 
 group_norm_stats.launches = 0
 
 
-def combine_stats(every: torch.Tensor, eps: float):
+def combine_stats_plain(every: torch.Tensor, eps: float):
     """(mean, rstd), fp32 [N, G], of the (count, mean, M2) statistics
     `every` [R, N, G, 3] of R parts of the same rows (ranks, or row shards),
-    combined by Chan's rule in the parts' order; rstd = rsqrt(M2 / count +
-    eps) in fp32, as `group_norm_plain` takes it."""
-    n, mu, m2 = _chan(every[..., 0], every[..., 1], every[..., 2], 0)
+    combined by Chan's rule in double in the parts' order: mean = sum(n_i
+    mean_i) / n, M2 = sum(M2_i + n_i (mean_i - mean)^2), parts of count 0
+    adding nothing; rstd = rsqrt(M2 / count + eps) in fp32, as
+    `group_norm_plain` takes it."""
+    count, mean = every[..., 0], every[..., 1]
+    n = count.sum(0)
+    mu = (count * mean).sum(0) / n.clamp_min(1)
+    m2 = (every[..., 2] + count * (mean - mu) ** 2).sum(0)
     var = (m2 / n).float()
     return mu.float(), torch.rsqrt(var + eps)
+
+
+def combine_stats(every: torch.Tensor, eps: float):
+    """The ranks' combination of a split GroupNorm: (mean, rstd), fp32 [N,
+    G], from the parts' statistics `every` [R, N, G, 3] (float64). CPU
+    tensors take `combine_stats_plain`; CUDA tensors launch K8's combine
+    entry (one thread a (row, group), the plain version's arithmetic),
+    counted in `combine_stats.launches`."""
+    if native.on_cpu(every):
+        return combine_stats_plain(every, eps)
+    if every.device.type != "cuda":
+        raise ValueError(f"combine_stats: unsupported device {every.device}")
+    if every.dtype != torch.float64 or every.ndim != 4 or every.shape[-1] != 3:
+        raise ValueError(f"combine_stats takes float64 [R, N, G, 3], got "
+                         f"{tuple(every.shape)} {every.dtype}")
+    every = every.contiguous()
+    R, N, G, _ = every.shape
+    mean = torch.empty(N, G, dtype=torch.float32, device=every.device)
+    rstd = torch.empty_like(mean)
+    if mean.numel() == 0:
+        return mean, rstd
+    fn = native.load_library(_LIB).wiw_group_norm_combine
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64,
+                                                ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    with native.device_of(every):
+        err = fn(every.data_ptr(), mean.data_ptr(), rstd.data_ptr(), R, N * G, float(eps),
+                 native.raw_stream(every.device))
+    if err != 0:
+        raise RuntimeError(f"combine_stats launch failed: cudaError {err}")
+    combine_stats.launches += 1
+    return mean, rstd
+
+
+combine_stats.launches = 0
 
 
 def group_norm_apply_plain(x, mean, rstd, weight, bias, silu: bool = False):

@@ -14,6 +14,7 @@ backward kernel is differentiated through its plain version).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -110,6 +111,38 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if needed and return the loaded library."""
     lib = _loaded.get(name)
     return lib if lib is not None else load_libraries(name)[0]
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def _index(device: torch.device) -> int:
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's multiprocessor count, read once a device."""
+    i = _index(device)
+    n = _sm_counts.get(i)
+    if n is None:
+        n = _sm_counts[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return n
+
+
+def raw_stream(device: torch.device) -> int:
+    """The handle of the device's current stream, as
+    `torch.cuda.current_stream(device).cuda_stream` gives it but without
+    making a Stream object (a wrapper on a short kernel's path pays the
+    host's time for every call)."""
+    return torch._C._cuda_getCurrentRawStream(_index(device))
+
+
+def device_of(t: torch.Tensor):
+    """A context that makes t's device the current one: `torch.cuda.device`
+    where it is not, nothing to do where it already is."""
+    if t.device.index in (None, torch.cuda.current_device()):
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def on_cpu(*ts: torch.Tensor) -> bool:

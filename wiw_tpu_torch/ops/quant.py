@@ -171,10 +171,6 @@ def _bind(lib: ctypes.CDLL):
         conv.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 14
                          + [ctypes.c_void_p])
         conv.restype = ctypes.c_int
-        amax = lib.wiw_amax_abs
-        amax.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                         ctypes.c_int, ctypes.c_void_p]
-        amax.restype = ctypes.c_int
     return dense, conv
 
 
@@ -327,25 +323,29 @@ def conv_amax(x: torch.Tensor) -> torch.Tensor:
     of its own (a one-element fp32 tensor; 0 for an empty x, with no
     launch). CPU tensors take `conv_amax_plain`; CUDA tensors launch K7's
     amax pass (bf16/fp32, 16-byte aligned, a multiple of 8 elements; a
-    non-contiguous x is copied first), counted in `conv_amax.launches`."""
-    if native.on_cpu(x):
-        return conv_amax_plain(x)
+    non-contiguous x is copied first), which zeroes its output itself,
+    counted in `conv_amax.launches`."""
     if x.device.type != "cuda":
+        if native.on_cpu(x):
+            return conv_amax_plain(x)
         raise ValueError(f"conv_amax: unsupported device {x.device}")
-    out = torch.zeros(1, dtype=torch.float32, device=x.device)
     if x.numel() == 0:
-        return out
+        return torch.zeros(1, dtype=torch.float32, device=x.device)
     if x.dtype not in _DTYPES:
         raise TypeError(f"conv_amax takes bf16/fp32 x, got {x.dtype}")
     x = x.contiguous()
     if x.numel() % 8 or x.data_ptr() % 16:
         raise ValueError("conv_amax takes a 16-byte aligned x of a multiple of 8 "
                          "elements")
-    lib = native.load_library(_LIB)
-    _bind(lib)
-    with torch.cuda.device(x.device):
-        err = lib.wiw_amax_abs(x.data_ptr(), x.numel(), out.data_ptr(),
-                               _DTYPES[x.dtype], _stream(x))
+    fn = native.load_library(_LIB).wiw_amax_abs
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = torch.empty(1, dtype=torch.float32, device=x.device)
+    with native.device_of(x):
+        err = fn(x.data_ptr(), x.numel(), out.data_ptr(), _DTYPES[x.dtype],
+                 native.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"conv_amax launch failed: cudaError {err}")
     conv_amax.launches += 1

@@ -26,7 +26,7 @@ one is explicit code, called by the layers that need it while a
   * GroupNorm (`group_norm`): K8's statistics entry on this rank's
     positions (count, mean, M2 per (row, group)), one all-gather of the
     small [N, G, 3] tensor over 'fsdp', Chan's combination in rank order
-    on every rank, then K8's apply entry.
+    on every rank (K8's combine entry), then K8's apply entry.
   * int8 convs (`global_amax`): the activation scale of a W8A8 conv spans
     the whole call, as the reference's does, so this rank's amax(|x|) is
     all-reduced (MAX) over every rank that holds rows of the call (the
@@ -301,7 +301,10 @@ def group_norm(cs: ClipSharding, x: torch.Tensor, weight: torch.Tensor,
                silu: bool = False) -> torch.Tensor:
     """GroupNorm (+ SiLU) of x [N, ..., C] whose positions are split over
     the 'fsdp' group: K8's statistics of this rank's positions, one
-    all-gather, Chan's combination, K8's apply."""
+    all-gather, Chan's combination (K8's combine entry), K8's apply. The
+    parameters are cast to fp32 first, so that nothing but the combination
+    runs between the all-gather and the apply."""
+    weight, bias = weight.float(), bias.float()
     stats = G.group_norm_stats(x, groups)  # [N, G, 3] float64
     every = stats.new_empty(cs.n * stats.shape[0], *stats.shape[1:])
     dist.all_gather_into_tensor(every, stats.contiguous(), group=cs.group)
