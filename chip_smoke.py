@@ -207,19 +207,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
   9. shard_clip, last: the split entries at a rank's shapes at fsdp 2 and 4
      (`split_checks`: K8-stats on each shape, with its plan, GB/s and
      bound, its statistics against the plain version within STATS_RTOL and
-     equal to the bit over two calls, one launch a call; K8-combine of the
-     shards' parts against its plain version; K8-apply; K7-amax on the
+     equal to the bit over two calls, one launch a call; K8-apply from the
+     shards' parts on each shape, with its device time; K7-amax on the
      level-0 shard and on a decoder-sized tensor, bit for bit, beside
-     `torch.linalg.vector_norm(ord=inf)`; K7-conv with the amax given; K1
-     on a padded head shard), then on a 1-rank NCCL group and make_mesh(1,
+     `torch.linalg.vector_norm(ord=inf)`; K7-conv-given on halo'd rows and
+     K7-conv-halo on a shard's own rows and neighbour rows, bit for bit,
+     the halo entry's pass and product timed apart on the card; K1 on a
+     padded head shard), then
+     on a 1-rank NCCL group and make_mesh(1,
      1) one request through `generate` and `generate(shard_clip=True)` in
      bf16 and W8A8 (s/request, peak, the latents apart, every split
      entry's launches), in bf16 one request of each traced (device time by
      kernel class, device idle), one split 2-row forward against the whole
      and its device events beside the whole forward's and the previous
      design's count,
-     one split GroupNorm layer's device events in order, and the
-     frame-parallel decode's peak
+     one split GroupNorm layer's device events in order (memset, K8-stats,
+     the all-gather, K8-apply), one split int8 3x3 conv's (no copy kernel:
+     the halo goes straight into K7's pass), and the frame-parallel
+     decode's peak
 Then one JSON line with each kernel's time before this version of the
 kernels (`prev_kernels`, copied from PERF.md, not measured here), one JSON
 line with the kernels as this run measured them, the card line again, and
@@ -359,15 +364,17 @@ L2_BYTES = 50 * 2 ** 20
 # K6-bf16: the mma.sync kernel's; K4 and K8: the eight-lane fp32 K4's and
 # the three-launch K8's; K2-unroll2, K10 and K10-i8pv: the mma.sync
 # kernels'; K5, K9-floor and K9-noexp: the mma.sync kernels', PR 10's run
-# 1; K8-stats and K7-amax: their first designs, at commit bdf6e88); K1-D72,
-# K8-combine, K8-apply and K7-conv-given are on their first: none), printed
-# on a line of its own before the measured `kernels` line
+# 1; K8-stats and K7-amax: their first designs, at commit bdf6e88; K8-apply
+# and K7-conv-given: at commit c44d0c1; K1-D72 and K7-conv-halo are on their
+# first: none), printed on a line of its own before the measured `kernels`
+# line
 PREV_MS = {"K1": 99.0636, "K1-D72": None, "K2": 17.1462, "K2-unroll2": 18.9899,
            "K3": 150.7475, "K4": 7.4117, "K5": 247.7191, "K6": 275.2729, "K6-bf16": 363.8384,
            "K8": 14.1938, "K7-dense": 64.8478, "K7-conv": 91.8242,
            "K9-floor": 13.6274, "K9-noexp": 14.8971, "K9-v2": 17.7919,
-           "K10": 30.4349, "K10-i8pv": 30.1989, "K8-stats": 1.1223, "K8-combine": None,
-           "K8-apply": None, "K7-amax": 0.0754, "K7-conv-given": None}
+           "K10": 30.4349, "K10-i8pv": 30.1989, "K8-stats": 1.1223,
+           "K8-apply": 0.1661, "K7-amax": 0.0754, "K7-conv-given": 0.1896,
+           "K7-conv-halo": None}
 PREV_FROM = "PERF.md §6, the time before this version (H100 80GB HBM3, 700 W)"
 
 
@@ -1526,10 +1533,8 @@ SHARD_STEPS = 10
 # K8-stats against its plain version: the counts equal, each mean within
 # STATS_RTOL of its group's standard deviation and each M2 within STATS_RTOL
 # of it (both sides sum fp32 values in another order: ~1e-7 apart at
-# commit bdf6e88); the combine entry's mean and rstd within COMBINE_RTOL (both take
-# Chan's rule in double and round once to fp32: at most an fp32 ulp or two)
+# commit bdf6e88)
 STATS_RTOL = 1e-5
-COMBINE_RTOL = 2.0 ** -22
 AMAX_DECODER = (4, 288, 512, 512)  # the frame-parallel decode's int8 convs
 # `forward_launches` run once against the package of commit bdf6e88 (the
 # first designs of K8-stats and K7-amax; a `git archive` of it on an H100
@@ -1540,19 +1545,19 @@ PREVIOUS_SPLIT_EVENTS = {"split": {"events": 5898, "memsets": 326, "copies": 153
 
 def device_line(row, label, kernel, keys, library, bound) -> None:
     """The device time of one launch of the kernel (named by `keys`) and of
-    the library call's reduction kernel (`device_ms`: torch.profiler; a
-    short kernel's CUDA-event time is its wrapper's host dispatch; the
-    memset before each is not counted), printed and kept in the row's
-    `device` entry by label."""
+    the library call's reduction kernel, where there is a library call
+    (`device_ms`: torch.profiler; a short kernel's CUDA-event time is its
+    wrapper's host dispatch; the memset before each is not counted),
+    printed and kept in the row's `device` entry by label."""
     try:
         k = device_ms(kernel, keys, 10)
-        lib = device_ms(library, ("reduce_kernel",), 10)
+        lib = None if library is None else device_ms(library, ("reduce_kernel",), 10)
     except RuntimeError as e:  # the profiler recorded nothing: no device time
         print(f"{label} device time: not measured ({e})", flush=True)
         return
     print(f"{label} device time a launch (torch.profiler): kernel {k:.4f} ms "
           f"({bound / k:.3f} of the bound {bound:.4f} ms), library's reduce_kernel "
-          f"{lib:.4f} ms", flush=True)
+          + ("none" if lib is None else f"{lib:.4f} ms"), flush=True)
     row.d.setdefault("device", {})[label] = {"ms": k, "library_ms": lib, "bound_ms": bound}
 
 
@@ -1591,23 +1596,27 @@ def amax_decoder(row, dev, g):
 
 def split_checks(rows: dict, dev, g):
     """The split kernel entries inside one process, at the shapes of a rank
-    at fsdp 2 and 4: K8's statistics over each row shard, combined
-    (`combine_stats`, Chan's rule) and applied on each shard, against the
-    plain version and the one-launch K8; K8's and K7's amax entry and
-    K7-conv with the global amax on each halo'd row shard (a zero column
-    each side, padding 0), bit for bit against the rows of the one-launch
-    conv; K1 on the padded head shard that holds the last real head and a
-    pad head. Each new entry is timed on the largest shard at fsdp 4
-    against its plain version (and the library call where one computes the
-    same function): K8-stats per shape with its plan, GB/s and bound, and
-    its statistics held to STATS_RTOL and to their own bits on a second
-    call; K8-combine on that shape's parts; K7-amax also on a
-    decoder-sized tensor (`amax_decoder`)."""
+    at fsdp 2 and 4: K8's statistics over each row shard, then K8-apply
+    from the shards' parts (Chan's rule in its prologue) on each shard,
+    against the plain version and the one-launch K8; K8's and K7's amax
+    entry, K7-conv with the global amax on each halo'd row shard (a zero
+    column each side, padding 0) and K7-conv-halo on each
+    shard's own rows and neighbour rows, bit for bit against the rows of
+    the one-launch conv; K1 on the padded head shard that holds the last
+    real head and a pad head. Each new entry is timed on the largest shard
+    at fsdp 4 against its plain version (and the library call where one
+    computes the same function): K8-stats and K8-apply per shape with their
+    plans, GB/s, bounds and device times, K8-stats' statistics held to
+    STATS_RTOL and to their own bits on a second call; K7-amax also on a
+    decoder-sized tensor (`amax_decoder`); K7-conv-given on the halo'd
+    shard; K7-conv-halo, and its pass and product apart, beside the route
+    it replaced."""
     import torch.nn.functional as F
 
     from wiw_tpu_torch.ops import group_norm as TG
     from wiw_tpu_torch.ops import quant as TQ
     from wiw_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from wiw_tpu_torch.parallel import clip_sharding as CS
     from wiw_tpu_torch.parallel.clip_sharding import split_rows
 
     def shards(x, n):
@@ -1628,15 +1637,14 @@ def split_checks(rows: dict, dev, g):
 
             def split():
                 st = torch.stack([TG.group_norm_stats(s, 32) for s in parts])
-                mean, rstd = TG.combine_stats(st, 1e-5)
-                return [TG.group_norm_apply(s, mean, rstd, w, b, silu) for s in parts]
+                return [TG.group_norm_apply(s, st, w, b, 1e-5, silu) for s in parts]
 
             out = torch.cat(split(), dim=-3)
             err, line = compare(f"K8 split {shape} fsdp {n}", out, plain)
             d1 = float((out.float() - whole.float()).abs().max())
             split_ms = cuda_ms(split, 5)
             print(f"K8 split {shape} bf16 silu over fsdp {n} ({len(parts)} shards, stats "
-                  f"+ combine + apply of every shard in one process): {split_ms:.4f} ms vs "
+                  f"+ apply of every shard in one process): {split_ms:.4f} ms vs "
                   f"the one-launch K8 on the whole x {one_ms:.4f} ms; against the plain "
                   f"version {line}; max|split - one-launch| {d1:.6g}", flush=True)
             if n != SPLIT_FSDP[-1]:
@@ -1644,15 +1652,13 @@ def split_checks(rows: dict, dev, g):
             s0 = parts[0]
             N, L = s0.shape[0], s0.numel() // (s0.shape[0] * C)
             plan = TG.stats_plan(N, L, C, 32, s0.dtype, sms)
-            before = (TG.group_norm_stats.launches, TG.combine_stats.launches)
+            before = TG.group_norm_stats.launches
             st = TG.group_norm_stats(s0, 32)
             every = torch.stack([TG.group_norm_stats(s, 32) for s in parts])
-            mean, rstd = TG.combine_stats(every, 1e-5)
-            done = (TG.group_norm_stats.launches - before[0],
-                    TG.combine_stats.launches - before[1])
-            if done != (1 + len(parts), 1):
-                raise RuntimeError(f"K8-stats / K8-combine launched {done} times for "
-                                   f"{1 + len(parts)} / 1 calls")
+            done = TG.group_norm_stats.launches - before
+            if done != 1 + len(parts):
+                raise RuntimeError(f"K8-stats launched {done} times for {1 + len(parts)} "
+                                   f"calls")
             e1 = stats_err(st, TG.group_norm_stats_plain(s0, 32))
             if not e1 <= STATS_RTOL:
                 raise RuntimeError(f"K8-stats departs from its plain version: {e1:.3g} "
@@ -1673,31 +1679,24 @@ def split_checks(rows: dict, dev, g):
             device_line(rows["K8-stats"], f"K8-stats {tuple(s0.shape)}",
                         lambda: TG.group_norm_stats(s0, 32), ("gn_stats",),
                         lambda: torch.var_mean(view, dim=(1, 3), correction=0), bound)
-            m_p, r_p = TG.combine_stats_plain(every, 1e-5)
-            e3 = max(float((mean - m_p).abs().max()),
-                     float(((rstd - r_p).abs() / r_p).max()))
-            if not e3 <= COMBINE_RTOL:
-                raise RuntimeError(f"K8-combine departs from its plain version: {e3:.3g}")
-            cbytes = every.numel() * 8 + 2 * mean.numel() * 4
-            cbound = bound_ms(cbytes, 0, BF16_FLOPS_S)
-            ms, plain_ms, _ = timed(
-                f"K8-combine of {len(parts)} parts {tuple(every.shape)} (max of |mean - "
-                f"mean'| and |rstd - rstd'| / rstd' against the plain version {e3:.3g})",
-                lambda: TG.combine_stats_plain(every, 1e-5),
-                lambda: TG.combine_stats(every, 1e-5), None, 10, 3, cbound,
-                lambda ms: f"{cbytes / ms / 1e6:.1f} GB/s")
-            rows["K8-combine"].add(1, e3, ms, plain_ms, cbound, "bytes")
-            ap = TG.group_norm_apply(s0, mean, rstd, w, b, silu)
-            e2, line = compare("K8-apply", ap, TG.group_norm_apply_plain(s0, mean, rstd, w, b,
+            before = TG.group_norm_apply.launches
+            ap = TG.group_norm_apply(s0, every, w, b, 1e-5, silu)
+            if TG.group_norm_apply.launches != before + 1:
+                raise RuntimeError("K8-apply launched other than once for one call")
+            e2, line = compare("K8-apply", ap, TG.group_norm_apply_plain(s0, every, w, b, 1e-5,
                                                                           silu))
+            abound = bound_ms(2 * nbytes, 0, BF16_FLOPS_S)
+            aplan = TG.apply_plan(N, L, C, s0.dtype, sms)
             ms, plain_ms, _ = timed(
-                f"K8-apply a rank's shard {tuple(s0.shape)} {line}",
-                lambda: TG.group_norm_apply_plain(s0, mean, rstd, w, b, silu),
-                lambda: TG.group_norm_apply(s0, mean, rstd, w, b, silu), None, 10, 3,
-                bound_ms(2 * nbytes, 0, BF16_FLOPS_S),
+                f"K8-apply a rank's shard {tuple(s0.shape)} from {len(parts)} parts ({aplan}) "
+                f"{line}",
+                lambda: TG.group_norm_apply_plain(s0, every, w, b, 1e-5, silu),
+                lambda: TG.group_norm_apply(s0, every, w, b, 1e-5, silu), None, 10, 3, abound,
                 lambda ms: f"{2 * nbytes / ms / 1e6:.1f} GB/s")
-            rows["K8-apply"].add(1, e2, ms, plain_ms, bound_ms(2 * nbytes, 0, BF16_FLOPS_S),
-                                 "bytes")
+            rows["K8-apply"].add(1, e2, ms, plain_ms, abound, "bytes")
+            device_line(rows["K8-apply"], f"K8-apply {tuple(s0.shape)}",
+                        lambda: TG.group_norm_apply(s0, every, w, b, 1e-5, silu),
+                        ("gn_apply",), None, abound)
         del x, plain, whole
 
     xshape, O = SPLIT_CONV
@@ -1715,12 +1714,24 @@ def split_checks(rows: dict, dev, g):
         halo = [xp[:, r.start:r.stop + 2].contiguous() for r in rs]
         out = torch.cat([TQ.w8a8_conv(e, w8, ws, bias, padding=0, amax=amax)
                          for e in halo], dim=1)
+
+        def edge(i):
+            return x[:, i:i + 1].contiguous() if 0 <= i < xshape[1] else None
+
+        fed = [(x[:, r.start:r.stop].contiguous(), edge(r.start - 1), edge(r.stop))
+               for r in rs]
+        before = TQ.w8a8_conv_halo.launches
+        out_fed = torch.cat([TQ.w8a8_conv_halo(*f, w8, ws, bias, amax=amax) for f in fed], 1)
+        fed_launches = TQ.w8a8_conv_halo.launches - before
         same_amax = bool(torch.equal(amax, TQ.conv_amax_plain(x)))
         same = bool(torch.equal(out, whole))
+        same_fed = bool(torch.equal(out_fed, whole))
         print(f"K7-conv split {xshape} over fsdp {n}: the amax of the shards' amax "
               f"equals the whole x's: {same_amax}; the given-amax conv on each halo'd "
-              f"shard equals the one-launch conv's rows bit for bit: {same}", flush=True)
-        if not (same_amax and same):
+              f"shard equals the one-launch conv's rows bit for bit: {same}; the halo "
+              f"entry on each shard's own rows and neighbour rows: {same_fed} "
+              f"({fed_launches} launches for {len(rs)} shards)", flush=True)
+        if not (same_amax and same and same_fed) or fed_launches != len(rs):
             raise RuntimeError("K7's split entries depart from the one-launch conv")
         if n != SPLIT_FSDP[-1]:
             continue
@@ -1741,20 +1752,59 @@ def split_checks(rows: dict, dev, g):
         amax_decoder(rows["K7-amax"], dev, g)
         plain = TQ.w8a8_conv_plain(e0, w8, ws, bias, padding=0, amax=amax)
         got = TQ.w8a8_conv(e0, w8, ws, bias, padding=0, amax=amax)
-        if not torch.equal(got, plain):
+        f0 = fed[0]
+        if not (torch.equal(got, plain) and torch.equal(
+                TQ.w8a8_conv_halo(*f0, w8, ws, bias, amax=amax),
+                TQ.w8a8_conv_halo_plain(*f0, w8, ws, bias, amax=amax))):
             raise RuntimeError("the given-amax K7-conv departs from its plain version")
+        # K7-conv-given, as the split path runs it for a 1x1 conv or a
+        # resampler's window: here on the halo'd shard
         ops, nb, _ = k7_ops_bytes(("conv", tuple(e0.shape), e0.dtype, tuple(w8.shape), 1, 0,
                                    True, torch.bfloat16))
         bound = bound_ms(nb, ops, INT8_OPS_S)
         ms, plain_ms, _ = timed(
-            f"K7-conv with the amax given, a rank's halo'd shard {tuple(e0.shape)} (bits "
-            "equal to its plain version)",
+            f"K7-conv-given, a rank's halo'd shard {tuple(e0.shape)} (bits equal to its "
+            f"plain version)",
             lambda: TQ.w8a8_conv_plain(e0, w8, ws, bias, padding=0, amax=amax),
             lambda: TQ.w8a8_conv(e0, w8, ws, bias, padding=0, amax=amax), None, 5, 1,
             bound, lambda ms: f"{ops / ms / 1e9:.1f} TOPS")
         rows["K7-conv-given"].add(1, 0.0, ms, plain_ms, bound,
                                   "operations" if ops / INT8_OPS_S > nb / HBM_BYTES_S
                                   else "bytes")
+        # K7-conv-halo as the split path runs a 3x3 conv: the halo entry on
+        # the shard's own rows and its neighbour rows (bytes: those read
+        # once, w8 and the output written once)
+        ops, nb, _ = k7_ops_bytes(("conv", tuple(s0.shape), s0.dtype, tuple(w8.shape), 1, 1,
+                                   True, torch.bfloat16))
+        nb += sum(t.numel() * t.element_size() for t in f0[1:] if t is not None)
+        bound = bound_ms(nb, ops, INT8_OPS_S)
+        ms, plain_ms, _ = timed(
+            f"K7-conv-halo, a rank's shard {tuple(s0.shape)} and its "
+            f"neighbour rows (bits equal to its plain version)",
+            lambda: TQ.w8a8_conv_halo_plain(*f0, w8, ws, bias, amax=amax),
+            lambda: TQ.w8a8_conv_halo(*f0, w8, ws, bias, amax=amax), None, 5, 1,
+            bound, lambda ms: f"{ops / ms / 1e9:.1f} TOPS")
+        rows["K7-conv-halo"].add(1, 0.0, ms, plain_ms, bound,
+                                 "operations" if ops / INT8_OPS_S > nb / HBM_BYTES_S
+                                 else "bytes")
+        # what the halo entry replaced: the padded bf16 copy, then the
+        # given-amax conv on it
+        old_ms = cuda_ms(lambda: TQ.w8a8_conv(
+            CS.pad_rows(*f0), w8, ws, bias, padding=0, amax=amax), 5)
+        print(f"  the route it replaced (a padded bf16 copy of the rows, then K7-conv with "
+              f"the amax given at padding 0): {old_ms:.4f} ms, the halo entry {ms:.4f} ms",
+              flush=True)
+        # the pass and the product apart: the pass reads the rows once and
+        # writes x8 once, the product reads x8 and w8 and writes the output
+        rows_bytes = sum(t.numel() * t.element_size() for t in f0 if t is not None)
+        x8_bytes = s0.numel() // s0.shape[1] * (s0.shape[1] + 2)
+        for part, key, pbound in (
+                ("pass", "quant_tensor", bound_ms(rows_bytes + x8_bytes, 0, BF16_FLOPS_S)),
+                ("product", "w8a8_wgmma", bound_ms(nb - rows_bytes + x8_bytes, ops, INT8_OPS_S))):
+            device_line(rows["K7-conv-halo"],
+                        f"K7-conv-halo's {part} ({key}) {tuple(s0.shape)}",
+                        lambda: TQ.w8a8_conv_halo(*f0, w8, ws, bias, amax=amax), (key,), None,
+                        pbound)
     del x, xp, whole
 
     B, H, S = SPLIT_K1
@@ -1846,8 +1896,13 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
             # untimed: the label's first shard_clip request sets up what
             # later ones reuse (NCCL's communicator and its collectives,
             # cuDNN's choices for the halo'd shapes); `generate` is warm
-            # from the earlier phases
+            # from the earlier phases. It also counts the calls of the
+            # UNet's 3x3 convs that take the halo entry in int8, which the
+            # timed request must show as K7-conv-halo's launches.
+            halo_calls, hooks = count_halo_convs(pipe.unet)
             request(True)
+            for h in hooks:
+                h.remove()
             res = {}
             for shard in (False, True):
                 gc.collect()
@@ -1869,8 +1924,8 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
             max_rel = float(dl.max() / l0.abs().max())
             mean_rel = float(dl.mean() / l0.abs().mean())
             df = (f1 - f0).abs()
-            new = {k: c1[k] for k in ("K8-stats", "K8-combine", "K8-apply", "K7-amax",
-                                      "K7-conv-given")}
+            new = {k: c1[k] for k in ("K8-stats", "K8-apply", "K7-amax", "K7-conv-given",
+                                      "K7-conv-halo")}
             print(f"shard_clip {label}: generate(shard_clip=True) on make_mesh(1, 1) "
                   f"{s1:.3f} s/request, peak {p1:.2f} GiB; generate {s0:.3f} s/request, peak "
                   f"{p0:.2f} GiB ({SHARD_STEPS} steps, 576x1024, 14 frames, serving CFG); "
@@ -1878,16 +1933,18 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
                   f"tol {bounds[0]}), mean|d| {float(dl.mean()):.6g} ({mean_rel:.6g} of "
                   f"mean|ref|, tol {bounds[1]}); frames max|d| {float(df.max()):.6g} mean|d| "
                   f"{float(df.mean()):.6g}; launches: K1 {c1['K1']} (generate: {c0['K1']}), "
-                  f"K8 {c1['K8']} (generate: {c0['K8']}), {new}, K7-conv {c1['K7-conv']} "
+                  f"K8 {c1['K8']} (generate: {c0['K8']}), {new} (the UNet's split int8 3x3 "
+                  f"conv calls: {halo_calls[0]}), K7-conv {c1['K7-conv']} "
                   f"(generate: {c0['K7-conv']}), K7-dense {c1['K7-dense']} (generate: "
                   f"{c0['K7-dense']})", flush=True)
             if (f1.shape != (1, FRAMES, 576, 1024, 3) or not torch.isfinite(f1).all()
                     or max_rel > bounds[0] or mean_rel > bounds[1]):
                 raise RuntimeError(f"shard_clip {label}: departs from generate")
             if (c1["K1"] != c0["K1"] or c1["K8-stats"] != c1["K8-apply"] or not c1["K8-stats"]
-                    or c1["K8-combine"] != c1["K8-stats"]
                     or (label == "int8") != bool(c1["K7-amax"])
-                    or c1["K7-amax"] != c1["K7-conv-given"]):
+                    or c1["K7-amax"] != c1["K7-conv-given"] + c1["K7-conv-halo"]
+                    or c1["K7-conv-halo"] != halo_calls[0]
+                    or (label == "int8") != bool(c1["K7-conv-halo"])):
                 raise RuntimeError(f"shard_clip {label}: launches {c1} against {c0}")
             for k in total:
                 total[k] += c1[k]
@@ -1931,6 +1988,7 @@ def shard_clip_phase(rows: dict, dev, g) -> dict:
                       f"forward's events {now} against bdf6e88's {before} "
                       f"({now - before:+d})", flush=True)
                 split_group_norm_events(mesh, dev, torch.Generator(device=dev).manual_seed(3))
+                split_conv_events(mesh, dev, torch.Generator(device=dev).manual_seed(4))
                 del args, whole, split, moved, step
                 peaks = {}
                 for name, m in (("sequential", None), ("frame-parallel", mesh)):
@@ -2002,10 +2060,9 @@ def forward_launches(unet, args, mesh) -> dict:
 def split_group_norm_events(mesh, dev, g) -> list:
     """The device events of one split GroupNorm (+ SiLU) layer, bf16
     parameters as served, on a level-0 temporal input under
-    `activate(mesh, ...)`: checks that K8-stats is a memset and one kernel,
-    that only the all-gather runs between it and the combine entry, and
-    only the combine entry between the all-gather and K8-apply, the last
-    event."""
+    `activate(mesh, ...)`: checks that they are exactly the memset and
+    K8-stats, the all-gather (NCCL kernels or copies) and K8-apply, in that
+    order: no cast of the parameters, no combine entry."""
     from wiw_tpu_torch.models.layers import GroupNorm
     from wiw_tpu_torch.parallel import clip_sharding
 
@@ -2021,13 +2078,9 @@ def split_group_norm_events(mesh, dev, g) -> list:
             layer()
 
     def in_order(names) -> bool:
-        at = {k: [i for i, n in enumerate(names) if k in n]
-              for k in ("gn_stats", "gn_combine", "gn_apply")}
-        if not all(len(v) == 1 for v in at.values()):
-            return False
-        i, j, k = at["gn_stats"][0], at["gn_combine"][0], at["gn_apply"][0]
-        return (i > 0 and "Memset" in names[i - 1] and k == j + 1 == len(names) - 1
-                and all("nccl" in n.lower() or "Memcpy" in n for n in names[i + 1:j]))
+        return (len(names) >= 3 and "Memset" in names[0] and "gn_stats" in names[1]
+                and "gn_apply" in names[-1]
+                and all("nccl" in n.lower() or "Memcpy" in n for n in names[2:-1]))
 
     layer()
     # the profiler may miss events of a short profile (the first ones, or
@@ -2042,12 +2095,59 @@ def split_group_norm_events(mesh, dev, g) -> list:
         if ok:
             break
     print(f"shard_clip: one split GroupNorm layer's device events, in order (the last of "
-          f"three calls): {[n[:60] for n in names]}"
-          + ("" if recorded else " (not checked: the profiler missed events in four "
-             "profiles)"), flush=True)
-    if recorded and not ok:
+          f"three calls): {[n[:60] for n in names]}", flush=True)
+    if not recorded:
+        raise RuntimeError("the profiler missed the split GroupNorm's events in four "
+                           "profiles: its events are not checked")
+    if not ok:
         raise RuntimeError("the split GroupNorm runs more than memset + K8-stats, the "
-                           "all-gather, K8-combine and K8-apply in that order")
+                           "all-gather and K8-apply in that order")
+    return names
+
+
+def split_conv_events(mesh, dev, g) -> list:
+    """The device events of one split int8 3x3 conv (a level-0 resnet conv,
+    x [28, 72, 128, 320] bf16) under `activate(mesh, ...)`, the last of
+    three calls: checks that they are exactly K7-amax (its memset and
+    kernel), the MAX all-reduce (NCCL kernels, if any) and K7-conv-halo
+    (its pass and its product): no copy or fill kernel, so no
+    padded bf16 copy of the rows is written."""
+    from wiw_tpu_torch.models.layers import Conv2d
+    from wiw_tpu_torch.ops import quant as TQ
+    from wiw_tpu_torch.parallel import clip_sharding
+
+    conv = Conv2d(320, 320, 3, padding=1)
+    TQ.quantize_module_(conv, torch.bfloat16)
+    conv = conv.to(dev)
+    x = torch.randn(28, 72, 128, 320, generator=g, device=dev).to(torch.bfloat16)
+
+    def layers():
+        with torch.inference_mode(), clip_sharding.activate(mesh, None, 72, 128):
+            for _ in range(3):
+                conv(x)
+
+    def in_order(names) -> bool:
+        return (len(names) >= 4 and "Memset" in names[0] and "amax_abs" in names[1]
+                and "quant_tensor" in names[-2] and "w8a8_wgmma" in names[-1]
+                and all("nccl" in n.lower() for n in names[2:-2]))
+
+    layers()
+    for _ in range(4):  # as split_group_norm_events: a profile that missed some again
+        names = device_events(layers)
+        products = [i for i, n in enumerate(names) if "w8a8_wgmma" in n]
+        recorded = len(products) == 3
+        names = names[products[-2] + 1:] if recorded else names
+        ok = recorded and in_order(names)
+        if ok:
+            break
+    print(f"shard_clip: one split int8 3x3 conv's device events, in order (the last of "
+          f"three calls): {[n[:60] for n in names]}", flush=True)
+    if not recorded:
+        raise RuntimeError("the profiler missed the split int8 conv's events in four "
+                           "profiles: its events are not checked")
+    if not ok:
+        raise RuntimeError("the split int8 conv runs more than K7-amax, the all-reduce and "
+                           "the halo entry's pass and product: a copy of its rows")
     return names
 
 
@@ -2209,6 +2309,26 @@ def count_int8_calls(*towers):
     return seen, handles
 
 
+def count_halo_convs(unet):
+    """Forward pre-hooks on the UNet's int8 3x3 stride-1 convs that are no
+    resampler's (`Downsample2D` and `Upsample2D` run theirs on windows of
+    their own): under a row split each call takes K7-conv-halo once.
+    Returns (a one-element list, the calls; the hook handles)."""
+    from wiw_tpu_torch.models.layers import Conv2d, Downsample2D, Upsample2D
+
+    resamplers = {id(m.conv) for m in unet.modules()
+                  if isinstance(m, (Downsample2D, Upsample2D))}
+    calls = [0]
+
+    def pre(m, args):
+        calls[0] += 1
+
+    handles = [m.register_forward_pre_hook(pre) for m in unet.modules()
+               if isinstance(m, Conv2d) and m.int8 and m.kernel_size[0] == 3
+               and m.stride[0] == 1 and id(m) not in resamplers]
+    return calls, handles
+
+
 def k7_ops_bytes(key) -> tuple[int, int, int]:
     """(int8 ops, bytes: x read once, w8 and the output written once,
     output elements) of one K7 call."""
@@ -2231,12 +2351,13 @@ K7_PASSES = {"dense": ("quant_rows",), "conv": ("amax_abs", "quant_tensor")}
 K7_PRODUCT = "w8a8_wgmma"
 
 
-def k7_split(fn, kind: str, reps: int, retries: int = 4) -> tuple[float, float]:
+def k7_split(fn, kind: str, reps: int, retries: int = 4) -> tuple[float, float, dict]:
     """Device time of one call of `fn` (a K7 wrapper of `kind`) in its
-    quantisation passes and in its product, ms, from torch.profiler over
-    `reps` calls. Each kernel runs once a call; its time is averaged over
-    the launches the profile recorded (late in a long run it records only
-    some, or none of a kernel: then the profile is taken again)."""
+    quantisation passes and in its product, ms, and each kernel's by name
+    (K7_PASSES, K7_PRODUCT), from torch.profiler over `reps` calls. Each
+    kernel runs once a call; its time is averaged over the launches the
+    profile recorded (late in a long run it records only some, or none of a
+    kernel: then the profile is taken again)."""
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -2256,8 +2377,9 @@ def k7_split(fn, kind: str, reps: int, retries: int = 4) -> tuple[float, float]:
         if retries:
             return k7_split(fn, kind, reps, retries - 1)
         raise RuntimeError(f"no {missing} kernel in the profile of a K7 call")
+    by_name = {k: ms / 1e3 for k, ms in per_call.items()}
     product = per_call.pop(K7_PRODUCT)
-    return sum(per_call.values()) / 1e3, product / 1e3
+    return sum(per_call.values()) / 1e3, product / 1e3, by_name
 
 
 def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
@@ -2335,11 +2457,16 @@ def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
             f"stride {stride} -> {str(odt)[6:]} ({where}) {line}; bits equal "
             f"at {same:.6g} of elements", plain, kern, lib, reps, 1, bound,
             lambda ms: f"{ops / ms / 1e9:.1f} TOPS, {nbytes / ms / 1e6:.0f} GB/s")
-        passes_ms, product_ms = k7_split(kern, kind, min(reps, 10))
+        passes_ms, product_ms, by_name = k7_split(kern, kind, min(reps, 10))
+        # the quantisation pass's own bound: x read once, x8 written once
+        qbound = bound_ms(int(np.prod(xshape)) * (xdtype.itemsize + 1), 0, BF16_FLOPS_S)
+        quant = ("" if kind == "dense" else
+                 f"; of the passes quant_tensor {by_name['quant_tensor']:.4f} ms "
+                 f"({qbound / by_name['quant_tensor']:.3f} of its bound {qbound:.4f} ms)")
         print(f"  device time a call: passes {passes_ms:.4f} ms + product "
               f"{product_ms:.4f} ms; product {ops / product_ms / 1e9:.1f} TOPS; "
               f"bound {100 * bound / (passes_ms + product_ms):.1f}% of the "
-              f"device time ({100 * bound / ms:.1f}% of the event time)",
+              f"device time ({100 * bound / ms:.1f}% of the event time){quant}",
               flush=True)
         row = dense if kind == "dense" else conv
         by = "operations" if ops / INT8_OPS_S > nbytes / HBM_BYTES_S else "bytes"
@@ -2351,6 +2478,9 @@ def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
         d["bound_by"] = max(d["bound_ms_by"], key=d["bound_ms_by"].get)
         for f, v in (("passes_ms", passes_ms), ("product_ms", product_ms)):
             d[f] = d.get(f, 0.0) + fwd * v
+        if kind == "conv":
+            d["quant_pass_ms"] = d.get("quant_pass_ms", 0.0) + fwd * by_name["quant_tensor"]
+            d["quant_pass_bound_ms"] = d.get("quant_pass_bound_ms", 0.0) + fwd * qbound
         d["request_ms"] += req * ms
         d["request_plain_ms"] += req * plain_ms
         d["request_bound_ms"] += req * bound
@@ -2360,11 +2490,22 @@ def k7_phase(dense: Row, conv: Row, forward: dict, request: dict, vae: dict,
             conv.d["vae_conv"] = {"x": list(xshape), "w8": list(wshape),
                                   "ms": ms, "plain_ms": plain_ms,
                                   "passes_ms": passes_ms, "product_ms": product_ms,
+                                  "quant_pass_ms": by_name["quant_tensor"],
+                                  "quant_pass_bound_ms": qbound,
                                   "bound_ms": bound, "max_abs_err": max_err}
         del x, w8, ws, b
         if kind == "dense":
             del x8, w8t
         torch.cuda.empty_cache()
+    d = conv.d
+    calls = sum(n for key, n in forward.items() if key[0] == "conv")
+    print(f"K7-conv's quantisation pass (quant_tensor) over the {calls} conv calls of a "
+          f"2-row int8 forward, device time: {d['quant_pass_ms']:.4f} ms "
+          f"({d['quant_pass_bound_ms'] / d['quant_pass_ms']:.3f} of its bound "
+          f"{d['quant_pass_bound_ms']:.4f} ms: x read once, x8 written once); at the "
+          f"decoder-sized {d['vae_conv']['x']}: {d['vae_conv']['quant_pass_ms']:.4f} ms "
+          f"({d['vae_conv']['quant_pass_bound_ms'] / d['vae_conv']['quant_pass_ms']:.3f} of "
+          f"its bound {d['vae_conv']['quant_pass_bound_ms']:.4f} ms)", flush=True)
     for row in (dense, conv):
         d = row.d
         print(f"{d['name']} a 2-row forward, device time: passes "
@@ -2605,10 +2746,10 @@ def _counters() -> dict:
             "K10": (TI.int8_qk_attention, "launches"),
             "K10-i8pv": (TI.int8_qk_attention, "launches_i8pv"),
             "K8-stats": (TG.group_norm_stats, "launches"),
-            "K8-combine": (TG.combine_stats, "launches"),
             "K8-apply": (TG.group_norm_apply, "launches"),
             "K7-amax": (TQ.conv_amax, "launches"),
-            "K7-conv-given": (TQ.w8a8_conv, "launches_given")}
+            "K7-conv-given": (TQ.w8a8_conv, "launches_given"),
+            "K7-conv-halo": (TQ.w8a8_conv_halo, "launches")}
 
 
 def reset_launches():
@@ -2691,7 +2832,7 @@ def busy_ms(prof) -> float:
 # port's hand-written kernels, products (cuBLAS, cuDNN, CUTLASS), norms,
 # and the rest (elementwise, copies, reductions)
 KERNEL_CLASSES = (
-    ("K8 GroupNorm", ("gn_resident", "gn_stream", "gn_stats", "gn_combine", "gn_apply")),
+    ("K8 GroupNorm", ("gn_resident", "gn_stream", "gn_stats", "gn_apply")),
     ("port attention and feed-forward kernels",
      ("flash_attn", "frame_attn", "geglu_ffn")),
     ("K7 W8A8 product and conv", ("w8a8_wgmma", "quant_rows", "amax_abs",
@@ -4937,22 +5078,25 @@ def main() -> int:
                         "shard_clip: one call on each GroupNorm shape of SPLIT_GN_SHAPES, "
                         "the largest shard of a rank at fsdp 4; library: torch.var_mean",
                         library=True),
-        "K8-combine": Row("combine_stats", "wiw_tpu_torch/csrc/group_norm.cu",
-                          "scripts/tune_temporal3.py:74",
-                          "shard_clip: one call on each GroupNorm shape of SPLIT_GN_SHAPES, "
-                          "the parts of fsdp 4's shards; no single PyTorch call",
-                          library=False),
         "K8-apply": Row("group_norm_apply", "wiw_tpu_torch/csrc/group_norm.cu",
                         "scripts/tune_temporal3.py:80",
-                        "shard_clip: as K8-stats; no single PyTorch call", library=False),
+                        "shard_clip: one call on each GroupNorm shape of SPLIT_GN_SHAPES, "
+                        "the largest shard of a rank at fsdp 4, from the 4 shards' parts; "
+                        "no single PyTorch call", library=False),
         "K7-amax": Row("conv_amax", "wiw_tpu_torch/csrc/w8a8.cu", "wiw_tpu/ops/quant.py:115",
                        "shard_clip: one call on a rank's largest shard of a level-0 "
                        "conv input at fsdp 4; library: torch.linalg.vector_norm(ord=inf)",
                        library=True),
         "K7-conv-given": Row("w8a8_conv_amax_given", "wiw_tpu_torch/csrc/w8a8.cu",
                              "wiw_tpu/ops/quant.py:115",
-                             "shard_clip: one level-0 3x3 conv on a rank's largest halo'd "
-                             "shard at fsdp 4; no int8 conv in PyTorch", library=False),
+                             "shard_clip: one level-0 3x3 conv at padding 0 on a rank's "
+                             "largest halo'd shard at fsdp 4; no int8 conv in PyTorch",
+                             library=False),
+        "K7-conv-halo": Row("w8a8_conv_halo", "wiw_tpu_torch/csrc/w8a8.cu",
+                            "wiw_tpu/ops/quant.py:115",
+                            "shard_clip: one level-0 3x3 conv through the halo entry on a "
+                            "rank's largest shard at fsdp 4 and its two neighbour rows; no "
+                            "int8 conv in PyTorch", library=False),
     }
     g = torch.Generator(device=dev).manual_seed(0)
     k1_phase(rows["K1"], dev, g)

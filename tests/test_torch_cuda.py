@@ -1079,30 +1079,34 @@ def _row_shards(H: int, n: int):
     ((6, 18, 32, 320), 32, torch.bfloat16, True),
     ((2, 14, 9, 16, 1280), 32, torch.bfloat16, True),
     ((4, 5, 24, 64), 32, torch.float32, False)])
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n", [2, 4])
 def test_split_group_norm_entries_match_plain_on_card(cuda_device, shape, groups, dtype,
-                                                      silu, n):
-    """K8's statistics entry on each row shard (the height, axis -3),
-    combined by Chan's rule, then the apply entry on each shard: against
-    the plain version and the one-launch K8 on the whole x; each entry
-    launches once a shard."""
+                                                      silu, param_dtype, n):
+    """K8's statistics entry on each row shard (the height, axis -3), the
+    shards' parts stacked as the all-gather gives them, then K8-apply on
+    each shard (Chan's combination in its prologue; weight and bias read in
+    their own dtype): against the plain version and the one-launch K8 on
+    the whole x; each entry launches once a shard."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
     x = (torch.randn(shape, generator=g, device=cuda_device) * 2 + 0.5).to(dtype)
     C = shape[-1]
-    w = torch.randn(C, generator=g, device=cuda_device)
-    b = torch.randn(C, generator=g, device=cuda_device)
+    w = torch.randn(C, generator=g, device=cuda_device).to(param_dtype)
+    b = torch.randn(C, generator=g, device=cuda_device).to(param_dtype)
     shards = [x.narrow(-3, r.start, len(r)) for r in _row_shards(shape[-3], n)]
     s0, a0 = TG.group_norm_stats.launches, TG.group_norm_apply.launches
-    stats = torch.stack([TG.group_norm_stats(s, groups) for s in shards])
-    mean, rstd = TG.combine_stats(stats, 1e-5)
-    out = torch.cat([TG.group_norm_apply(s, mean, rstd, w, b, silu) for s in shards], dim=-3)
+    every = torch.stack([TG.group_norm_stats(s, groups) for s in shards])
+    out = torch.cat([TG.group_norm_apply(s, every, w, b, 1e-5, silu) for s in shards], dim=-3)
     torch.cuda.synchronize()
     assert TG.group_norm_stats.launches == s0 + len(shards)
     assert TG.group_norm_apply.launches == a0 + len(shards)
-    _close(out, TG.group_norm_plain(x, w, b, groups, 1e-5, silu))
-    _close(out, TG.group_norm(x, w, b, groups, 1e-5, silu))
+    wf, bf = w.float(), b.float()
+    _close(out, TG.group_norm_plain(x, wf, bf, groups, 1e-5, silu))
+    _close(out, TG.group_norm(x, wf, bf, groups, 1e-5, silu))
+    for s, o in zip(shards, out.split([s.shape[-3] for s in shards], dim=-3)):
+        _close(o, TG.group_norm_apply_plain(s, every, w, b, 1e-5, silu))
     plain = TG.group_norm_stats_plain(x, groups)
-    whole = TG.combine_stats(stats, 0.0)
+    whole = TG.combine_stats_plain(every, 0.0)
     torch.testing.assert_close(whole[0], plain[..., 1].float(), atol=1e-5, rtol=1e-5)
 
 
@@ -1111,8 +1115,10 @@ def test_split_group_norm_entries_match_plain_on_card(cuda_device, shape, groups
 @pytest.mark.parametrize("n", [2, 4])
 def test_given_amax_conv_on_halo_rows_equals_the_whole_conv(cuda_device, x_dtype, n):
     """K7's amax entry on each row shard, their max given to K7-conv on
-    each shard's halo'd rows (a zero column each side, padding 0): the
-    codes and outputs equal the rows of the one-launch conv, bit for bit."""
+    each shard's halo'd rows (a zero column each side, padding 0), and to
+    the halo entry on each shard's own rows with its neighbour rows (none
+    at the edges): the codes and outputs equal the rows of the one-launch
+    conv, bit for bit; each entry launches once a shard."""
     from wiw_tpu_torch.ops import quant as TQ
 
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -1124,6 +1130,7 @@ def test_given_amax_conv_on_halo_rows_equals_the_whole_conv(cuda_device, x_dtype
     whole = TQ.w8a8_conv(x, w8, ws, bias, padding=1)
     shards = _row_shards(18, n)
     a0, c0 = TQ.conv_amax.launches, TQ.w8a8_conv.launches_given
+    h0 = TQ.w8a8_conv_halo.launches
     amax = torch.stack([TQ.conv_amax(x[:, r.start:r.stop]) for r in shards]).amax(0)
     assert torch.equal(amax, TQ.conv_amax_plain(x))
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
@@ -1133,6 +1140,17 @@ def test_given_amax_conv_on_halo_rows_equals_the_whole_conv(cuda_device, x_dtype
     assert TQ.conv_amax.launches == a0 + len(shards)
     assert TQ.w8a8_conv.launches_given == c0 + len(shards)
     assert torch.equal(out, whole)
+
+    def edge(i):
+        return x[:, i:i + 1].contiguous() if 0 <= i < 18 else None
+
+    fed = torch.cat([TQ.w8a8_conv_halo(x[:, r.start:r.stop].contiguous(), edge(r.start - 1),
+                                       edge(r.stop), w8, ws, bias, amax=amax)
+                     for r in shards], dim=1)
+    torch.cuda.synchronize()
+    assert TQ.w8a8_conv_halo.launches == h0 + len(shards)
+    assert TQ.w8a8_conv.launches_given == c0 + len(shards)
+    assert torch.equal(fed, whole)
 
 
 # K8-stats against its plain version: the counts equal, each mean within
@@ -1155,6 +1173,8 @@ def _stats_close(st, ref):
     ((28, 18, 128, 320), torch.bfloat16),        # level 0, C/G 10
     ((2, 14, 18, 128, 320), torch.bfloat16),     # the temporal rows of level 0
     ((28, 3, 16, 1280), torch.bfloat16),         # level 3, C/G 40
+    ((28, 3, 16, 1280), torch.float32),          # level 3 in fp32: 48 KiB of dynamic
+                                                 # shared memory, the static beside it
     ((6, 9, 32, 640), torch.float32),            # fp32, C/G 20
     ((5, 7, 13, 640), torch.bfloat16),           # C/G 20, L 91: the last tile ragged
     ((3, 5, 7, 2560), torch.float32)])           # a position wider than the block
@@ -1192,23 +1212,6 @@ def test_stats_kernel_is_deterministic_across_calls_and_streams(cuda_device):
     torch.cuda.synchronize()
     for t in [b] + out:
         assert torch.equal(a, t)
-
-
-@pytest.mark.cuda
-def test_combine_entry_matches_cpu_combine_stats(cuda_device):
-    """K8's combine entry on the card against `combine_stats` on the CPU,
-    over the parts of four row shards of which one holds no rows."""
-    rng = torch.Generator().manual_seed(5)
-    x = torch.randn(3, 11, 8, 320, generator=rng) * 3 + 0.7
-    parts = [x[:, :4], x[:, 4:4], x[:, 4:8], x[:, 8:]]
-    every = torch.stack([TG.group_norm_stats_plain(p, 32) for p in parts])
-    before = TG.combine_stats.launches
-    mean, rstd = TG.combine_stats(every.to(cuda_device), 1e-5)
-    torch.cuda.synchronize()
-    assert TG.combine_stats.launches == before + 1
-    want_mean, want_rstd = TG.combine_stats(every, 1e-5)
-    torch.testing.assert_close(mean.cpu(), want_mean, rtol=2.0 ** -22, atol=1e-7)
-    torch.testing.assert_close(rstd.cpu(), want_rstd, rtol=2.0 ** -22, atol=0.0)
 
 
 @pytest.mark.cuda

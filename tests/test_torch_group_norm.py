@@ -196,7 +196,7 @@ def test_combine_of_row_shards_with_an_empty_one_equals_the_whole():
     parts = [x[:, :4], x[:, 4:4], x[:, 4:]]
     every = torch.stack([TG.group_norm_stats_plain(p, 32) for p in parts])
     assert torch.equal(every[1], torch.zeros(3, 32, 3, dtype=torch.float64))
-    mean, rstd = TG.combine_stats(every, 1e-5)
+    mean, rstd = TG.combine_stats_plain(every, 1e-5)
     whole = TG.group_norm_stats_plain(x, 32)
     assert torch.equal(every[..., 0].sum(0), whole[..., 0])
     np.testing.assert_allclose(mean.numpy(), whole[..., 1].numpy(), atol=1e-6, rtol=1e-6)
@@ -204,20 +204,75 @@ def test_combine_of_row_shards_with_an_empty_one_equals_the_whole():
     np.testing.assert_allclose(rstd.numpy(), want.numpy(), atol=1e-6, rtol=1e-6)
 
 
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 2, 4])
+@pytest.mark.parametrize("silu", [False, True])
+def test_apply_from_the_ranks_parts_equals_combine_then_apply(x_dtype, param_dtype, R,
+                                                              silu):
+    """K8-apply from the parts `every` [R, N, G, 3] of R row shards (at R 2
+    and 4 one shard holds no rows: a part of count 0), with bf16 or fp32
+    weight and bias: its plain version, and the wrapper on CPU tensors (no
+    launch counted), equal bit for bit the chain it replaces,
+    `combine_stats_plain` then `normalise_plain` with the parameters cast
+    to fp32; the shards together within 1e-5 (fp32) of the whole
+    GroupNorm."""
+    x = torch.from_numpy(_rand((3, 8, 5, 64), 22, 1.7, 0.4)).to(x_dtype)
+    w, b = (torch.from_numpy(a).to(param_dtype) for a in _affine(64, 23))
+    cuts = {1: [0, 8], 2: [0, 0, 8], 4: [0, 3, 3, 6, 8]}[R]
+    parts = [x[:, lo:hi] for lo, hi in zip(cuts, cuts[1:])]
+    every = torch.stack([TG.group_norm_stats_plain(p, 16) for p in parts])
+    assert R == 1 or not every[..., 0].all()
+    mean, rstd = TG.combine_stats_plain(every, 1e-5)
+    before = TG.group_norm_apply.launches
+    got = []
+    for p in (p for p in parts if p.shape[1]):
+        want = TG.normalise_plain(p, mean, rstd, w.float(), b.float(), silu)
+        out = TG.group_norm_apply_plain(p, every, w, b, 1e-5, silu)
+        assert torch.equal(out, want)
+        assert torch.equal(TG.group_norm_apply(p, every, w, b, 1e-5, silu), want)
+        got.append(out)
+    assert TG.group_norm_apply.launches == before
+    if x_dtype == torch.float32:
+        whole = TG.group_norm_plain(x, w.float(), b.float(), 16, 1e-5, silu)
+        torch.testing.assert_close(torch.cat(got, 1), whole, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("N,L,C,dtype", [
+    (28, 2304, 320, torch.bfloat16),      # the level-0 shard at fsdp 4
+    (2, 32256, 320, torch.bfloat16),      # its temporal rows
+    (28, 48, 1280, torch.bfloat16),       # the level-3 shard
+    (4, 120, 64, torch.float32),          # 16 vectors a position
+    (3, 35, 2560, torch.float32),         # a position wider than the block
+    (1, 5, 640, torch.bfloat16)])         # fewer positions than one tile's least
+def test_apply_plan_covers_each_row_in_one_wave(N, L, C, dtype):
+    """K8-apply's plan: blocks of whole positions (rs * nv threads, or 256
+    taking their columns in turn), tiles that cover each row with no empty
+    one, one wave of blocks (at most SMs x APPLY_THREADS_SM threads), and no
+    more tiles than give each row thread APPLY_MIN_ROWS positions."""
+    plan = TG.apply_plan(N, L, C, dtype, 132)
+    nv = C * dtype.itemsize // 16
+    rs = max(1, 256 // nv)
+    assert plan.threads == (256 if nv > 256 else rs * nv)
+    assert plan.tiles * plan.tile >= L > (plan.tiles - 1) * plan.tile
+    assert plan.tiles == 1 or N * plan.tiles <= 132 * (TG.APPLY_THREADS_SM // plan.threads)
+    assert plan.tiles == 1 or plan.tile >= rs * TG.APPLY_MIN_ROWS - rs
+
+
 def test_split_wrappers_on_cpu_take_the_plain_versions_and_count_no_launch():
     from wiw_tpu_torch.ops import quant as TQ
 
     x = torch.from_numpy(_rand((2, 9, 4, 32), 21, 1.5, -0.2))
-    before = (TG.group_norm_stats.launches, TG.combine_stats.launches,
+    w, b = (torch.from_numpy(a) for a in _affine(32, 24))
+    before = (TG.group_norm_stats.launches, TG.group_norm_apply.launches,
               TQ.conv_amax.launches)
     st = TG.group_norm_stats(x, 8)
     assert torch.equal(st, TG.group_norm_stats_plain(x, 8))
     every = torch.stack([st, TG.group_norm_stats(x[:, :0], 8)])
-    for got, want in zip(TG.combine_stats(every, 1e-6),
-                         TG.combine_stats_plain(every, 1e-6)):
-        assert torch.equal(got, want)
+    assert torch.equal(TG.group_norm_apply(x, every, w, b, 1e-6),
+                       TG.group_norm_apply_plain(x, every, w, b, 1e-6))
     assert torch.equal(TQ.conv_amax(x.bfloat16()), TQ.conv_amax_plain(x.bfloat16()))
-    assert (TG.group_norm_stats.launches, TG.combine_stats.launches,
+    assert (TG.group_norm_stats.launches, TG.group_norm_apply.launches,
             TQ.conv_amax.launches) == before
 
 
@@ -228,6 +283,7 @@ def test_split_wrappers_refuse_devices_other_than_cpu_and_cuda():
     with pytest.raises(ValueError, match="unsupported device"):
         TG.group_norm_stats(m, 4)
     with pytest.raises(ValueError, match="unsupported device"):
-        TG.combine_stats(torch.zeros(2, 2, 4, 3, dtype=torch.float64, device="meta"), 1e-5)
+        TG.group_norm_apply(m, torch.zeros(2, 2, 4, 3, dtype=torch.float64, device="meta"),
+                            torch.ones(16, device="meta"), torch.ones(16, device="meta"), 1e-5)
     with pytest.raises(ValueError, match="unsupported device"):
         TQ.conv_amax(m.bfloat16())

@@ -146,6 +146,42 @@ def test_w8a8_conv_matches_reference(stride, out_dtype, C, O):
     _assert_out_close(out, ref, out_dtype)
 
 
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rows", [(0, 9), (0, 4), (4, 9), (3, 6)])
+def test_halo_fed_conv_equals_the_conv_on_halo_rows(x_dtype, rows):
+    """K7-conv's halo entry on rows [a, b) of H 9 (no neighbour, the bottom
+    one only, the top one only, both) with the whole call's amax: its plain
+    version, and the wrapper on CPU tensors (no launch counted), equal bit
+    for bit `w8a8_conv_plain` at padding 0 on the halo'd rows
+    (`clip_sharding.pad_rows`, the output of `halo` given those
+    neighbours), and the rows [a, b) of the whole conv at padding 1; a rank
+    without rows gets an empty output."""
+    from wiw_tpu_torch.parallel import clip_sharding as CS
+
+    a, b = rows
+    x = torch.from_numpy(_rand((2, 9, 11, 32), 6, 2.0)).to(x_dtype)
+    w8, ws = TQ.quantize_kernel(torch.from_numpy(_rand((48, 3, 3, 32), 7, 0.1)))
+    bias = torch.from_numpy(_rand((48,), 8))
+    amax = TQ.conv_amax_plain(x)
+    top = x[:, a - 1:a].contiguous() if a > 0 else None
+    bottom = x[:, b:b + 1].contiguous() if b < 9 else None
+    own = x[:, a:b].contiguous()
+    before = TQ.w8a8_conv_halo.launches
+    for dtype in (torch.float32, torch.bfloat16):
+        got = TQ.w8a8_conv_halo_plain(own, top, bottom, w8, ws, bias, amax=amax,
+                                      dtype=dtype)
+        want = TQ.w8a8_conv_plain(CS.pad_rows(own, top, bottom), w8, ws, bias, padding=0,
+                                  amax=amax, dtype=dtype)
+        assert got.shape == (2, b - a, 11, 48) and torch.equal(got, want)
+        assert torch.equal(TQ.w8a8_conv_halo(own, top, bottom, w8, ws, bias, amax=amax,
+                                             dtype=dtype), want)
+        whole = TQ.w8a8_conv_plain(x, w8, ws, bias, padding=1, dtype=dtype)
+        assert torch.equal(got, whole[:, a:b])
+    empty = TQ.w8a8_conv_halo(x[:, :0], None, None, w8, ws, bias, amax=amax)
+    assert empty.shape == (2, 0, 11, 48)
+    assert TQ.w8a8_conv_halo.launches == before
+
+
 def test_conv_scale_spans_the_whole_call():
     """The conv's activation scale covers every row of the call, as the
     reference's does: a row's output changes when a larger row is batched

@@ -843,8 +843,8 @@ int stride_blocks(int64_t vecs) {
 
 // ------------------------------------------------- split entries (shard_clip)
 // When a (row, group) has positions on several ranks, the statistics and
-// the apply are entries of their own, with the ranks' combination between
-// them.
+// the apply are entries of their own, with the all-gather of the ranks'
+// parts between them; the apply combines the parts itself.
 //
 // K8-stats (`gn_stats_kernel`), x to each row's final (count, mean, M2) per
 // group in one launch. Bound by bytes: x read once (~10 operations a
@@ -869,18 +869,30 @@ int stride_blocks(int64_t vecs) {
 // in turn, took longer on an H100 than a tile's loads: `fold_tile` keeps
 // every thread of the block busy.)
 //
-// The ranks' combination (`gn_combine_kernel`): one thread a (row, group)
-// takes the all-gathered [R, N, G, 3] in rank order, Chan's rule in double
-// skipping parts of count 0, and writes fp32 mean and rstd = 1 / sqrt(M2 / n
-// + eps) (IEEE square root and division: the CPU's rsqrt).
+// The ranks' combination (`combine_parts`): a (row, group)'s parts of the
+// all-gathered [R, N, G, 3] in rank order, Chan's rule in double skipping
+// parts of count 0, to fp32 mean and rstd = 1 / sqrt(M2 / n + eps) (IEEE
+// square root and division: the CPU's rsqrt), run in K8-apply's prologue.
 //
 // K8-apply (`gn_apply_kernel`): y = x * sc + of per 16-byte vector, sc =
 // rstd * gamma, of = beta - mean * sc (in double, as the one-launch
 // kernel's), rounded to T, then SiLU: `normalise`, the one-launch kernel's
-// arithmetic.
+// arithmetic. Bound by bytes: x read once and y written once. Block (t, n)
+// takes tile t of row n: positions [t * tile, (t + 1) * tile) and every
+// channel (`ops/group_norm.apply_plan`: one wave of blocks). Its prologue
+// combines row n's parts by `combine_parts` (G threads) and stages each
+// channel's sc and of in shared memory (gamma and beta read in their own
+// dtype); the loads of the thread's first chunk start before it, so the
+// prologue overlaps them. Thread r * nv + c then owns the 16-byte
+// column c of the nv of a position at positions r, r + rs, ... of the tile
+// (as K8-stats' threads), so its V scales and offsets sit in registers,
+// and streams them with two chunks of kApplyLoads read-only loads in
+// flight: no division and no 64-bit index in the loop. (Of two, four and
+// eight loads a chunk, two ran fastest at the split shapes on an H100 at
+// 700 W: the fewest registers, four blocks of 240 threads an SM.)
 constexpr int kStatMaxThreads = 512;
 constexpr int kStatChunk = 4;       // 16-byte loads a chunk, two chunks in flight
-constexpr int kCombineThreads = 128;
+constexpr int kApplyLoads = 2;     // 16-byte loads a chunk, two chunks in flight
 
 __device__ __forceinline__ uint4 ld_nc_na(const void* p) {
   uint4 u;
@@ -1041,56 +1053,106 @@ gn_stats_kernel(const T* __restrict__ x, double2* __restrict__ part,
   }
 }
 
-__global__ void __launch_bounds__(kCombineThreads)
-gn_combine_kernel(const double* __restrict__ every, float* __restrict__ mean,
-                  float* __restrict__ rstd, int R, int64_t NG, float eps) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kCombineThreads + threadIdx.x;
-  if (i >= NG) return;
+// Chan's rule over the R parts p, p + stride, ... of one (row, group), in
+// rank order, into its fp32 mean and rstd (K8-apply's prologue; the
+// arithmetic of `ops/group_norm.combine_stats_plain`)
+__device__ __forceinline__ void combine_parts(const double* p, int64_t stride, int R,
+                                              float eps, float& mean, float& rstd) {
   double n = 0.0, nm = 0.0;
   for (int r = 0; r < R; ++r) {
-    const double* p = every + (r * NG + i) * 3;
-    if (p[0] > 0.0) {
-      n += p[0];
-      nm += p[0] * p[1];
+    const double* q = p + r * stride;
+    if (q[0] > 0.0) {
+      n += q[0];
+      nm += q[0] * q[1];
     }
   }
   const double mu = nm / (n > 1.0 ? n : 1.0);
   double m2 = 0.0;
   for (int r = 0; r < R; ++r) {
-    const double* p = every + (r * NG + i) * 3;
-    if (p[0] > 0.0) {
-      const double d = p[1] - mu;
-      m2 += p[2] + p[0] * d * d;
+    const double* q = p + r * stride;
+    if (q[0] > 0.0) {
+      const double d = q[1] - mu;
+      m2 += q[2] + q[0] * d * d;
     }
   }
-  mean[i] = static_cast<float>(mu);
+  mean = static_cast<float>(mu);
   const float var = static_cast<float>(m2 / n);
-  rstd[i] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
+  rstd = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps)));
 }
+
+// gamma's or beta's channel c as fp32 (bf16 with `bf16`)
+__device__ __forceinline__ float param_at(const void* p, int c, bool bf16) {
+  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[c])
+              : static_cast<const float*>(p)[c];
+}
+
+// bytes of dynamic shared memory of an apply block: sc and of a channel,
+// mean and rstd a group
+__host__ __device__ inline int apply_smem(int C, int G) { return 8 * (C + G); }
 
 template <typename T, bool kSilu>
 __global__ void __launch_bounds__(kApplyThreads)
-gn_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                const float* __restrict__ rstd, const float* __restrict__ gamma,
-                const float* __restrict__ beta, T* __restrict__ y, int64_t vecs,
-                int64_t row_vecs, int C, int cg, int G) {
+gn_apply_kernel(const T* __restrict__ x, const double* __restrict__ every,
+                const void* __restrict__ gamma, const void* __restrict__ beta,
+                T* __restrict__ y, int64_t L, int C, int cg, int tile, int R, float eps,
+                bool param_bf16) {
   constexpr int V = Vec<T>::n;
-  const int cv = C / V;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kApplyThreads + threadIdx.x;
-       i < vecs; i += static_cast<int64_t>(gridDim.x) * kApplyThreads) {
-    const int64_t n = i / row_vecs;
-    const int c0 = static_cast<int>(i % cv) * V;
-    float sc[V], of[V];
+  extern __shared__ __align__(16) float sapply[];
+  const int nt = static_cast<int>(blockDim.x);
+  const int G = C / cg;
+  const int64_t n = blockIdx.y, N = gridDim.y;
+  float* sc = sapply;
+  float* of = sc + C;
+  float* gmean = of + C;
+  float* grstd = gmean + G;
+  const Lanes ln(C, V);
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * tile;
+  const int rows = static_cast<int>(L - lo < tile ? L - lo : tile);
+  const int mine = ln.active ? owned(rows, ln.row0, ln.rs) : 0;
+  const int step = ln.rs * C;  // elements between a thread's positions
+  const T* xb = x + (n * L + lo) * C;
+  T* yb = y + (n * L + lo) * C;
+  uint4 ahead[kApplyLoads] = {};
+  auto prefetch = [&](int off, int i0) {  // chunk i0 of the column at `off`
+#pragma unroll
+    for (int c = 0; c < kApplyLoads; ++c) {
+      if (i0 + c < mine) ahead[c] = ld_nc_na(xb + off + (i0 + c) * step);
+    }
+  };
+  prefetch(ln.row0 * C + ln.col * V, 0);  // in flight during the prologue
+  for (int g = threadIdx.x; g < G; g += nt) {
+    combine_parts(every + (n * G + g) * 3, N * G * 3, R, eps, gmean[g], grstd[g]);
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += nt) {
+    const int g = c / cg;
+    const float s = grstd[g] * param_at(gamma, c, param_bf16);
+    sc[c] = s;
+    of[c] = static_cast<float>(static_cast<double>(param_at(beta, c, param_bf16)) -
+                               static_cast<double>(gmean[g]) * s);
+  }
+  __syncthreads();
+  for (int col = ln.col; ln.active && col < ln.nv; col += min(ln.nv, nt)) {
+    const int off = ln.row0 * C + col * V;
+    if (col != ln.col) prefetch(off, 0);
+    float s[V], o[V];
 #pragma unroll
     for (int e = 0; e < V; ++e) {
-      const int c = c0 + e;
-      const int64_t ng = n * G + c / cg;
-      sc[e] = rstd[ng] * gamma[c];
-      of[e] = static_cast<float>(static_cast<double>(beta[c]) -
-                                 static_cast<double>(mean[ng]) * sc[e]);
+      s[e] = sc[col * V + e];
+      o[e] = of[col * V + e];
     }
-    const uint4 u = reinterpret_cast<const uint4*>(x)[i];
-    reinterpret_cast<uint4*>(y)[i] = normalise<T, kSilu>(u, sc, of);
+    for (int i0 = 0; i0 < mine; i0 += kApplyLoads) {
+      uint4 u[kApplyLoads];
+#pragma unroll
+      for (int c = 0; c < kApplyLoads; ++c) u[c] = ahead[c];
+      prefetch(off, i0 + kApplyLoads);
+#pragma unroll
+      for (int c = 0; c < kApplyLoads; ++c) {
+        if (i0 + c < mine) {
+          *reinterpret_cast<uint4*>(yb + off + (i0 + c) * step) = normalise<T, kSilu>(u[c], s, o);
+        }
+      }
+    }
   }
 }
 
@@ -1251,7 +1313,9 @@ int launch_stats(const void* x, void* work, void* out, int64_t N, int64_t L, int
                  int groups, int threads, int tile, cudaStream_t s) {
   const int smem = stats_smem(threads, C, C / Vec<T>::n, Vec<T>::n);
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
+  // the default 48 KiB holds the dynamic and the static shared memory (the
+  // kernel's `ticket`) together: past it, opt in
+  if (smem + static_cast<int>(sizeof(unsigned)) > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         gn_stats_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1292,42 +1356,38 @@ extern "C" int wiw_group_norm_stats(const void* x, void* work, void* out, int64_
                  : launch_stats<float>(x, work, out, N, L, C, groups, threads, tl, s);
 }
 
-// wiw_group_norm_combine: every, double [R, N * groups, 3], the parts'
-// (count, mean, M2) in rank order, to fp32 mean and rstd [N * groups] (ng =
-// N * groups). One launch.
-extern "C" int wiw_group_norm_combine(const void* every, void* mean, void* rstd, int R,
-                                      int64_t ng, float eps, void* stream) {
-  if (R <= 0 || ng <= 0 || (ng + kCombineThreads - 1) / kCombineThreads > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  gn_combine_kernel<<<static_cast<unsigned>((ng + kCombineThreads - 1) / kCombineThreads),
-                      kCombineThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const double*>(every), static_cast<float*>(mean),
-      static_cast<float*>(rstd), R, ng, eps);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// wiw_group_norm_apply: y [N, L, C] (x's dtype, 16-byte aligned) from fp32
-// mean and rstd [N, groups] and gamma, beta [C]; SiLU after with `silu`.
-extern "C" int wiw_group_norm_apply(const void* x, const void* mean, const void* rstd,
-                                    const void* gamma, const void* beta, void* y,
-                                    int64_t N, int64_t L, int C, int groups,
-                                    int is_bf16, int silu, void* stream) {
-  if (N <= 0 || L <= 0 || C <= 0 || C % 8 || groups <= 0 || C % groups) {
+// wiw_group_norm_apply: y [N, L, C] (x's dtype, 16-byte aligned) from the
+// ranks' parts every, double [R, N, groups, 3] in rank order (combined in
+// each block's prologue), and gamma,
+// beta [C] (bf16 with param_bf16, else fp32); SiLU after with `silu`. The
+// plan (`ops/group_norm.apply_plan`): blocks of `threads` (at most 256),
+// `tile` positions a block, ceil(L / tile) blocks a row. One launch.
+extern "C" int wiw_group_norm_apply(const void* x, const void* every, const void* gamma,
+                                    const void* beta, void* y, int R, int64_t N, int64_t L,
+                                    int C, int groups, float eps, int threads, int64_t tile,
+                                    int is_bf16, int param_bf16, int silu, void* stream) {
+  if (R <= 0 || N <= 0 || N > 65535 || L <= 0 || C <= 0 || C % 8 || groups <= 0 ||
+      C % groups || threads < 32 || threads > kApplyThreads || tile <= 0 ||
+      tile * C > 0x7fffffff || (L + tile - 1) / tile > 0x7fffffff ||
+      apply_smem(C, groups) > kSmemMax) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int V = is_bf16 ? Vec<__nv_bfloat16>::n : Vec<float>::n;
-  const int64_t row_vecs = L * C / V, vecs = N * row_vecs;
-  const float* m = static_cast<const float*>(mean);
-  const float* r = static_cast<const float*>(rstd);
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
-  const int cg = C / groups;
-#define WIW_GN_APPLY(T, S)                                                          \
-  gn_apply_kernel<T, S><<<stride_blocks(vecs), kApplyThreads, 0, s>>>(             \
-      static_cast<const T*>(x), m, r, g, b, static_cast<T*>(y), vecs, row_vecs, C, \
-      cg, groups)
+  const int smem = apply_smem(C, groups);
+  const dim3 grid(static_cast<unsigned>((L + tile - 1) / tile), static_cast<unsigned>(N));
+  const int cg = C / groups, tl = static_cast<int>(tile);
+  const double* ev = static_cast<const double*>(every);
+#define WIW_GN_APPLY(T, S)                                                              \
+  do {                                                                                  \
+    if (smem > 48 * 1024) {                                                             \
+      const cudaError_t e = cudaFuncSetAttribute(                                       \
+          gn_apply_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);    \
+      if (e != cudaSuccess) return static_cast<int>(e);                                 \
+    }                                                                                   \
+    gn_apply_kernel<T, S><<<grid, threads, smem, s>>>(                                  \
+        static_cast<const T*>(x), ev, gamma, beta, static_cast<T*>(y), L, C, cg, tl, R, \
+        eps, param_bf16 != 0);                                                          \
+  } while (0)
   if (is_bf16) {
     if (silu) WIW_GN_APPLY(__nv_bfloat16, true); else WIW_GN_APPLY(__nv_bfloat16, false);
   } else {

@@ -34,7 +34,11 @@
 //   (shard_clip) takes its scale from every rank's rows: `wiw_amax_abs` is
 //   launch 1 as an entry of its own, the ranks reduce its result with MAX,
 //   and the conv runs launches 2-3 with that amax given (bit 2 of `dtypes`),
-//   so its codes are the unsplit call's.
+//   so its codes are the unsplit call's. A split 3x3 conv takes its halo
+//   straight into launch 2 (`wiw_w8a8_conv_halo`): the rank's own rows and
+//   the two neighbour rows quantised into one padded x8, then the product
+//   at row padding 0 and column padding 1, so no padded bf16 copy of the
+//   rows is written first.
 // The operation order is the reference's and no contraction into FMAs is
 // allowed there (explicit __fmul_rn/__fadd_rn/__fdiv_rn), so the epilogue
 // rounds as XLA's does; the int32 sums are exact in any order, so K7's
@@ -240,19 +244,47 @@ amax_abs_kernel(const uint4* __restrict__ x, int64_t n16, unsigned* __restrict__
   }
 }
 
-template <typename T>
+// K7-conv's quantisation pass (`quant_tensor_kernel`): x8 = rint(x / s_a),
+// s_a = max(amax, 1e-8) / 127, the call's amax given in device memory, over
+// 8-element vectors in a grid-stride loop (`pass_blocks`); each code is
+// round-half-even of the IEEE quotient (`quant4`, as the reference's
+// jnp.round(x / s)). With kHalo, block row blockIdx.y is image n of x8
+// [Nb, h + 2, W, C], quantised from three sources: the neighbour row `top`
+// [Nb, 1, W, C], the rank's own rows x [Nb, h, W, C] and the neighbour row
+// `bottom`, zero codes where a neighbour is null (a level's edge). That is
+// a row split's halo quantised straight from where its rows lie, with no
+// padded bf16 copy between.
+template <typename T, bool kHalo>
 __global__ void __launch_bounds__(256)
-quant_tensor_kernel(const T* __restrict__ x, int64_t n8,
-                    const float* __restrict__ amax, int8_t* __restrict__ x8) {
+quant_tensor_kernel(const T* __restrict__ x, const T* __restrict__ top,
+                    const T* __restrict__ bottom, const float* __restrict__ amax,
+                    int8_t* __restrict__ x8, int64_t in8, int64_t row8) {
   const float scale = __fdiv_rn(fmaxf(*amax, kEps), 127.f);
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < n8; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    float f[8];
-    load8(x + i * 8, f);
-    uint2 v;
-    v.x = quant4(f, scale);
-    v.y = quant4(f + 4, scale);
-    *reinterpret_cast<uint2*>(x8 + i * 8) = v;
+  const int64_t n = blockIdx.y;
+  const int64_t edge = kHalo ? row8 : 0;  // vectors of a neighbour row
+  const int64_t out8 = in8 + 2 * edge;
+  const T* own = x + n * in8 * 8;
+  const T* above = kHalo && top ? top + n * row8 * 8 : nullptr;
+  const T* below = kHalo && bottom ? bottom + n * row8 * 8 : nullptr;
+  int8_t* out = x8 + n * out8 * 8;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < out8;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const T* src = nullptr;  // null: zeros, whose codes are 0
+    if (!kHalo || (i >= edge && i < edge + in8)) {
+      src = own + (i - edge) * 8;
+    } else if (i < edge) {
+      src = above ? above + i * 8 : nullptr;
+    } else {
+      src = below ? below + (i - edge - in8) * 8 : nullptr;
+    }
+    uint2 v = make_uint2(0, 0);
+    if (src) {
+      float f[8];
+      load8(src, f);
+      v.x = quant4(f, scale);
+      v.y = quant4(f + 4, scale);
+    }
+    *reinterpret_cast<uint2*>(out + i * 8) = v;
   }
 }
 
@@ -320,7 +352,7 @@ struct Params {
   const int8_t* x8;      // kConvGather: x8 NHWC
   int M, N, K;           // M: dense rows or conv output pixels; K = kh kw C
   int m_tiles, n_tiles, nk;  // nk: stages (kBoxes K boxes each) a tile
-  int H, W, C, kw, stride, pad, OH, OW;
+  int H, W, C, kw, stride, pad_h, pad_w, OH, OW;  // pad: rows, columns
   int bw, bh, tiles_w, tiles_h;  // kConvTma: the output rectangle of a tile
 };
 
@@ -553,8 +585,8 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
               if constexpr (kMode == kDense) {
                 sm90::tma_load_2d(a, &amap, &full[st], k, ti.m0);
               } else {
-                sm90::tma_load_4d(a, &amap, &full[st], c0, ti.ow0 + kx - p.pad,
-                                  ti.oh0 + ky - p.pad, ti.img);
+                sm90::tma_load_4d(a, &amap, &full[st], c0, ti.ow0 + kx - p.pad_w,
+                                  ti.oh0 + ky - p.pad_h, ti.img);
                 c0 += kBK;
                 if (c0 == p.C) {
                   c0 = 0;
@@ -587,8 +619,8 @@ w8a8_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
         const int ow = mm - q0 * p.OW;
         const int n = q0 / p.OH;
         const int oh = q0 - n * p.OH;
-        const int ih0 = oh * p.stride - p.pad;
-        const int iw0 = ow * p.stride - p.pad;
+        const int ih0 = oh * p.stride - p.pad_h;
+        const int iw0 = ow * p.stride - p.pad_w;
         const int8_t* base = p.x8 + static_cast<int64_t>(n) * p.H * p.W * p.C;
         for (int s = 0; s < p.nk; ++s, ++it) {
           const int st = it % kStages;
@@ -850,6 +882,94 @@ int amax_pass(const void* x, int64_t n8, float* am, bool fp32, cudaStream_t stre
   return static_cast<int>(cudaGetLastError());
 }
 
+// The quantisation pass into x8 on `stream`: `images` block rows of in8
+// vectors of 8 each from x (with kHalo, between row8 of top and of bottom,
+// either null), the grid-stride blocks split over the images.
+template <typename T, bool kHalo>
+int quant_pass(const void* x, const void* top, const void* bottom, const float* am,
+               int8_t* x8, int64_t images, int64_t in8, int64_t row8, cudaStream_t stream) {
+  const unsigned all = pass_blocks(images * (in8 + (kHalo ? 2 * row8 : 0)));
+  const unsigned bx = all / images > 1 ? static_cast<unsigned>(all / images) : 1u;
+  quant_tensor_kernel<T, kHalo><<<dim3(bx, static_cast<unsigned>(images)), 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(top), static_cast<const T*>(bottom), am,
+      x8, in8, row8);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the shapes and plans the conv takes: see wiw_w8a8_conv
+bool conv_ok(int Nb, int H, int W, int C, int O, int kh, int kw, int stride, int pad_h,
+             int pad_w, int OH, int OW, int bn, int bw) {
+  const bool tma = bw > 0;
+  return Nb > 0 && H > 0 && W > 0 && OH > 0 && OW > 0 && C > 0 && C % 16 == 0 && O > 0 &&
+         O % 8 == 0 && kh > 0 && kw > 0 && stride > 0 && pad_h >= 0 && pad_w >= 0 &&
+         static_cast<int64_t>(Nb) * OH * OW <= 0x7fffffff &&
+         static_cast<int64_t>(kh) * kw * C <= 0x7fffffff &&
+         static_cast<int64_t>(Nb) * H * W * C <= (static_cast<int64_t>(1) << 40) &&
+         (tma ? bn_ok<kConvTma>(bn) : bn_ok<kConvGather>(bn)) && bw >= 0 && bw <= kBM &&
+         (bw & (bw - 1)) == 0 && !(tma && (stride != 1 || C % kBK));
+}
+
+// The conv's product over x8 [Nb, H, W, C] (int8, already quantised with
+// the amax at `am`), zero padding pad_h rows and pad_w columns each side,
+// into out [Nb, OH, OW, O] (fp32 with of32, else bf16); `conv_ok` holds.
+int conv_product(int8_t* x8, const float* am, const void* w8, const void* sw,
+                 const void* bias, void* out, int Nb, int H, int W, int C, int O, int kh,
+                 int kw, int stride, int pad_h, int pad_w, int OH, int OW, int bn, int bw,
+                 bool of32, cudaStream_t stream) {
+  const bool tma = bw > 0;
+  const int M = Nb * OH * OW, K = kh * kw * C;
+  const int bh = tma ? kBM / bw : 0;
+  CUtensorMap amap{}, bmap, omap;
+  if (tma) {
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(Nb)};
+    const cuuint64_t c = static_cast<cuuint64_t>(C);
+    const cuuint64_t strides[3] = {c, c * W, c * W * H};
+    const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(bw),
+                               static_cast<cuuint32_t>(bh), 1};
+    if (!sm90_tiled_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, x8, dims, strides,
+                        box, CU_TENSOR_MAP_SWIZZLE_64B)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (!rows_map(&bmap, w8, O, K, bn / kCluster<kConvTma>) ||
+      !out_map(&omap, out, of32, O, M, Nb, OH, OW, bw, bh)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Params p{};
+  p.amax = am;
+  p.sw = static_cast<const float*>(sw);
+  p.bias = static_cast<const float*>(bias);
+  p.x8 = x8;
+  p.M = M;
+  p.N = O;
+  p.K = K;
+  p.n_tiles = (O + bn - 1) / bn;
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.kw = kw;
+  p.stride = stride;
+  p.pad_h = pad_h;
+  p.pad_w = pad_w;
+  p.OH = OH;
+  p.OW = OW;
+  if (tma) {
+    p.bw = bw;
+    p.bh = bh;
+    p.tiles_w = (OW + bw - 1) / bw;
+    p.tiles_h = (OH + bh - 1) / bh;
+    const int64_t mt = static_cast<int64_t>(Nb) * p.tiles_h * p.tiles_w;
+    if (mt > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    p.m_tiles = static_cast<int>(mt);
+    p.nk = (kh * kw * (C / kBK) + kBoxes<kConvTma> - 1) / kBoxes<kConvTma>;
+    return launch<kConvTma>(of32, bn, amap, bmap, omap, p, stream);
+  }
+  p.m_tiles = (M + kBM - 1) / kBM;
+  p.nk = (K + kBoxes<kConvGather> * kBK - 1) / (kBoxes<kConvGather> * kBK);
+  return launch<kConvGather>(of32, bn, amap, bmap, omap, p, stream);
+}
+
 }  // namespace
 
 // amax(|x|) of n elements (a multiple of 8, 16-byte aligned; bf16, or fp32
@@ -876,86 +996,52 @@ extern "C" int wiw_w8a8_conv(const void* x, void* x8, void* amax, const void* w8
                              int Nb, int H, int W, int C, int O, int kh, int kw,
                              int stride, int pad, int OH, int OW, int bn, int bw,
                              int dtypes, void* stream_) {
-  const int64_t M64 = static_cast<int64_t>(Nb) * OH * OW;
-  const int64_t K64 = static_cast<int64_t>(kh) * kw * C;
   static_assert(kCluster<kConvTma> == kCluster<kConvGather>, "one B map");
-  const bool tma = bw > 0;
-  if (Nb <= 0 || OH <= 0 || OW <= 0 || C <= 0 || C % 16 || O <= 0 || O % 8 ||
-      kh <= 0 || kw <= 0 || stride <= 0 || pad < 0 || M64 > 0x7fffffff ||
-      K64 > 0x7fffffff ||
-      static_cast<int64_t>(Nb) * H * W * C > (static_cast<int64_t>(1) << 40) ||
-      !(tma ? bn_ok<kConvTma>(bn) : bn_ok<kConvGather>(bn)) || bw < 0 || bw > kBM ||
-      (bw & (bw - 1)) || (tma && (stride != 1 || C % kBK))) {
+  if (!conv_ok(Nb, H, W, C, O, kh, kw, stride, pad, pad, OH, OW, bn, bw)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const int M = static_cast<int>(M64), K = static_cast<int>(K64);
-  const bool of32 = (dtypes >> 1) & 1;
-  const int bh = tma ? kBM / bw : 0;
-  CUtensorMap amap{}, bmap, omap;
-  if (tma) {
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
-                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(Nb)};
-    const cuuint64_t c = static_cast<cuuint64_t>(C);
-    const cuuint64_t strides[3] = {c, c * W, c * W * H};
-    const cuuint32_t box[4] = {static_cast<cuuint32_t>(kBK), static_cast<cuuint32_t>(bw),
-                               static_cast<cuuint32_t>(bh), 1};
-    if (!sm90_tiled_map(&amap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, x8, dims, strides,
-                        box, CU_TENSOR_MAP_SWIZZLE_64B)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  if (!rows_map(&bmap, w8, O, K, bn / kCluster<kConvTma>) ||
-      !out_map(&omap, out, of32, O, M, Nb, OH, OW, bw, bh)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool fp32 = dtypes & 1;
   const int64_t n8 = static_cast<int64_t>(Nb) * H * W * C / 8;
   float* am = static_cast<float*>(amax);
   int8_t* q = static_cast<int8_t*>(x8);
-  const bool given = (dtypes >> 2) & 1;
-  if (!given) {
-    const int e = amax_pass(x, n8, am, dtypes & 1, stream);
+  if (!((dtypes >> 2) & 1)) {
+    const int e = amax_pass(x, n8, am, fp32, stream);
     if (e != 0) return e;
   }
-  const unsigned blocks = pass_blocks(n8);
-  if (dtypes & 1) {
-    quant_tensor_kernel<float><<<blocks, 256, 0, stream>>>(
-        static_cast<const float*>(x), n8, am, q);
-  } else {
-    quant_tensor_kernel<__nv_bfloat16><<<blocks, 256, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), n8, am, q);
+  const int e = fp32 ? quant_pass<float, false>(x, nullptr, nullptr, am, q, 1, n8, 0, stream)
+                     : quant_pass<__nv_bfloat16, false>(x, nullptr, nullptr, am, q, 1, n8, 0,
+                                                        stream);
+  if (e != 0) return e;
+  return conv_product(q, am, w8, sw, bias, out, Nb, H, W, C, O, kh, kw, stride, pad, pad, OH,
+                      OW, bn, bw, (dtypes >> 1) & 1, stream);
+}
+
+// The 3x3 conv (stride 1, SAME) of a rank's rows under a row split, fed by
+// its halo: x [Nb, h, W, C], the rank's own rows; top and bottom [Nb, 1, W,
+// C], the rows just above and below from the neighbouring ranks, or null at
+// a level's edge (zero rows). One pass quantises the three with the given
+// amax (one fp32 at `amax`, the whole call's) straight into x8 [Nb, h + 2,
+// W, C] (int8 scratch), then the product runs at row padding 0 and column
+// padding 1 into out [Nb, h, W, O]: the rows the whole conv gives for these
+// rows. dtypes: bit 0 x, top and bottom (0 bf16, 1 fp32), bit 1 out; bn
+// and bw as wiw_w8a8_conv's for a stride-1 conv of output width W.
+extern "C" int wiw_w8a8_conv_halo(const void* x, const void* top, const void* bottom,
+                                  void* x8, const void* amax, const void* w8, const void* sw,
+                                  const void* bias, void* out, int Nb, int h, int W, int C,
+                                  int O, int bn, int bw, int dtypes, void* stream_) {
+  if (Nb > 65535 || h <= 0 || !conv_ok(Nb, h + 2, W, C, O, 3, 3, 1, 0, 1, h, W, bn, bw)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  Params p{};
-  p.amax = am;
-  p.sw = static_cast<const float*>(sw);
-  p.bias = static_cast<const float*>(bias);
-  p.x8 = q;
-  p.M = M;
-  p.N = O;
-  p.K = K;
-  p.n_tiles = (O + bn - 1) / bn;
-  p.H = H;
-  p.W = W;
-  p.C = C;
-  p.kw = kw;
-  p.stride = stride;
-  p.pad = pad;
-  p.OH = OH;
-  p.OW = OW;
-  if (tma) {
-    p.bw = bw;
-    p.bh = bh;
-    p.tiles_w = (OW + bw - 1) / bw;
-    p.tiles_h = (OH + bh - 1) / bh;
-    const int64_t mt = static_cast<int64_t>(Nb) * p.tiles_h * p.tiles_w;
-    if (mt > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-    p.m_tiles = static_cast<int>(mt);
-    p.nk = (kh * kw * (C / kBK) + kBoxes<kConvTma> - 1) / kBoxes<kConvTma>;
-    return launch<kConvTma>(of32, bn, amap, bmap, omap, p, stream);
-  }
-  p.m_tiles = (M + kBM - 1) / kBM;
-  p.nk = (K + kBoxes<kConvGather> * kBK - 1) / (kBoxes<kConvGather> * kBK);
-  return launch<kConvGather>(of32, bn, amap, bmap, omap, p, stream);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const float* am = static_cast<const float*>(amax);
+  int8_t* q = static_cast<int8_t*>(x8);
+  const int64_t row = static_cast<int64_t>(W) * C / 8;
+  const int e = (dtypes & 1)
+                    ? quant_pass<float, true>(x, top, bottom, am, q, Nb, h * row, row, stream)
+                    : quant_pass<__nv_bfloat16, true>(x, top, bottom, am, q, Nb, h * row, row,
+                                                      stream);
+  if (e != 0) return e;
+  return conv_product(q, am, w8, sw, bias, out, Nb, h + 2, W, C, O, 3, 3, 1, 0, 1, h, W, bn,
+                      bw, (dtypes >> 1) & 1, stream);
 }

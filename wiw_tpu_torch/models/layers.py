@@ -48,7 +48,7 @@ from wiw_tpu_torch.ops.fused_mlp import (
     lnff_eligible,
 )
 from wiw_tpu_torch.ops.group_norm import group_norm
-from wiw_tpu_torch.ops.quant import w8a8_conv, w8a8_dense
+from wiw_tpu_torch.ops.quant import w8a8_conv, w8a8_conv_halo, w8a8_dense
 from wiw_tpu_torch.ops.temporal_attention import temporal_self_attention
 from wiw_tpu_torch.parallel import clip_sharding
 
@@ -150,6 +150,10 @@ class Conv2d(_Promote, nn.Conv2d):
             return resample(cs, x, lambda e: self.valid(e, amax))
         if self.stride[0] != 1:
             raise ValueError("shard_clip: a strided conv runs as a resampler")
+        if self.int8:  # the neighbour rows go straight into the kernel's pass
+            return w8a8_conv_halo(x.contiguous(), *clip_sharding.neighbour_rows(cs, x),
+                                  self.weight, self.weight_scale, self.bias, amax=amax,
+                                  dtype=self.compute_dtype)
         return self.valid(clip_sharding.halo(cs, x), amax)
 
 

@@ -25,10 +25,12 @@ by op (~10 fp32 passes), so the port carries it on a kernel.
   (K8-stats: per (row, group) count, mean and M2 of the positions given,
   its tiles' partials combined on the card in the same launch; the TPU
   probe's `_stats_kernel` and the glue that merges its partials;
-  `stats_plan` picks its tiles), `combine_stats` (the ranks' parts by
-  Chan's rule, one launch) and `group_norm_apply` (affine + SiLU from the
-  given mean and rstd; `_affine_silu_kernel`), each with its plain
-  version. The one-launch K8 stays what runs without a row split.
+  `stats_plan` picks its tiles) and `group_norm_apply` (K8-apply: the
+  ranks' all-gathered parts combined by Chan's rule in each block's
+  prologue, then affine + SiLU; `_affine_silu_kernel`; `apply_plan`
+  picks its tiles), each with its plain version (the ranks' combination:
+  `combine_stats_plain`). The one-launch K8 stays what runs without a row
+  split.
 - `copy_plus_one` (the probe's `_copy_kernel`, x + 1 in bf16) measures the
   card's copy ceiling beside K8; its plain version is `x + 1`.
 - The gradient: `GroupNormFunction` runs K8 forward and saves only x and
@@ -418,46 +420,42 @@ def combine_stats_plain(every: torch.Tensor, eps: float):
     return mu.float(), torch.rsqrt(var + eps)
 
 
-def combine_stats(every: torch.Tensor, eps: float):
-    """The ranks' combination of a split GroupNorm: (mean, rstd), fp32 [N,
-    G], from the parts' statistics `every` [R, N, G, 3] (float64). CPU
-    tensors take `combine_stats_plain`; CUDA tensors launch K8's combine
-    entry (one thread a (row, group), the plain version's arithmetic),
-    counted in `combine_stats.launches`."""
-    if native.on_cpu(every):
-        return combine_stats_plain(every, eps)
-    if every.device.type != "cuda":
-        raise ValueError(f"combine_stats: unsupported device {every.device}")
-    if every.dtype != torch.float64 or every.ndim != 4 or every.shape[-1] != 3:
-        raise ValueError(f"combine_stats takes float64 [R, N, G, 3], got "
-                         f"{tuple(every.shape)} {every.dtype}")
-    every = every.contiguous()
-    R, N, G, _ = every.shape
-    mean = torch.empty(N, G, dtype=torch.float32, device=every.device)
-    rstd = torch.empty_like(mean)
-    if mean.numel() == 0:
-        return mean, rstd
-    fn = native.load_library(_LIB).wiw_group_norm_combine
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64,
-                                                ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    with native.device_of(every):
-        err = fn(every.data_ptr(), mean.data_ptr(), rstd.data_ptr(), R, N * G, float(eps),
-                 native.raw_stream(every.device))
-    if err != 0:
-        raise RuntimeError(f"combine_stats launch failed: cudaError {err}")
-    combine_stats.launches += 1
-    return mean, rstd
+APPLY_THREADS = 256      # K8-apply: a block's threads at most (csrc kApplyThreads)
+APPLY_THREADS_SM = 1024  # K8-apply: resident threads an SM at <= 64 registers a thread
+APPLY_MIN_ROWS = 4       # positions a thread takes at least: two chunks of two loads
 
 
-combine_stats.launches = 0
+class ApplyPlan(NamedTuple):
+    """K8-apply's work for one [N, L, C] shape: blocks of `threads`, each
+    taking `tile` positions of one row (every channel), `tiles` a row."""
+    threads: int
+    tile: int
+    tiles: int
 
 
-def group_norm_apply_plain(x, mean, rstd, weight, bias, silu: bool = False):
-    """The apply half: ((x - mean) * rstd) * weight + bias in fp32 per
-    (batch row, group), rounded to x's dtype, then SiLU if asked
-    (`group_norm_plain`'s arithmetic from the given statistics)."""
+@functools.lru_cache(maxsize=None)
+def apply_plan(N: int, L: int, C: int, dtype: torch.dtype,
+               sms: int = H100_SMS) -> ApplyPlan:
+    """K8-apply's plan. A thread owns one 16-byte column of the nv = C *
+    itemsize / 16 of a position at every rs-th position of its tile, rs =
+    256 // nv row threads (one, taking its columns in turn, where a
+    position is wider than 256 vectors), so a block has rs * nv threads.
+    One wave of blocks: as many tiles a row as SMs x resident blocks
+    (APPLY_THREADS_SM) give for N rows, but no tile under APPLY_MIN_ROWS
+    positions a thread (each block pays its prologue once)."""
+    nv = C * dtype.itemsize // 16
+    rs = max(1, APPLY_THREADS // nv)
+    threads = min(APPLY_THREADS, rs * nv)
+    tiles = max(1, min(sms * (APPLY_THREADS_SM // threads) // N,
+                       -(-L // (rs * APPLY_MIN_ROWS))))
+    tile = -(-L // tiles)
+    return ApplyPlan(threads, tile, -(-L // tile))
+
+
+def normalise_plain(x, mean, rstd, weight, bias, silu: bool = False):
+    """((x - mean) * rstd) * weight + bias in fp32 per (batch row, group)
+    from the given fp32 mean and rstd [N, G], rounded to x's dtype, then
+    SiLU if asked (`group_norm_plain`'s arithmetic from given statistics)."""
     G = mean.shape[1]
     g = _rows_view(x, G)
     out = ((g - mean[:, None, :, None]) * rstd[:, None, :, None]).reshape(x.shape)
@@ -465,41 +463,60 @@ def group_norm_apply_plain(x, mean, rstd, weight, bias, silu: bool = False):
     return F.silu(out) if silu else out
 
 
-def group_norm_apply(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
-                     weight: torch.Tensor, bias: torch.Tensor,
-                     silu: bool = False) -> torch.Tensor:
+def group_norm_apply_plain(x, every, weight, bias, eps: float, silu: bool = False):
+    """The apply half from the ranks' parts `every` [R, N, G, 3]: their
+    combination (`combine_stats_plain`), then `normalise_plain` with the
+    parameters in fp32."""
+    mean, rstd = combine_stats_plain(every, eps)
+    return normalise_plain(x, mean, rstd, weight.float(), bias.float(), silu)
+
+
+def group_norm_apply(x: torch.Tensor, every: torch.Tensor, weight: torch.Tensor,
+                     bias: torch.Tensor, eps: float, silu: bool = False) -> torch.Tensor:
     """The apply half of a split GroupNorm: x [N, ..., C] normalised with
-    the given fp32 mean and rstd [N, G] (+ SiLU). CPU tensors take
-    `group_norm_apply_plain`; CUDA tensors launch K8's apply entry (the
+    the statistics of the ranks' parts `every` [R, N, G, 3] (float64
+    (count, mean, M2), all-gathered in rank order) (+ SiLU). CPU tensors
+    take `group_norm_apply_plain`. CUDA tensors launch K8-apply (each
+    block combines its row's parts as `combine_stats_plain` does, then the
     one-launch kernel's arithmetic: y = x * sc + of, sc = rstd * weight, of
-    = bias - mean * sc), counted in `group_norm_apply.launches`."""
-    if native.on_cpu(x, mean, rstd, weight, bias):
-        return group_norm_apply_plain(x, mean, rstd, weight, bias, silu)
+    = bias - mean * sc; bf16/fp32 x, weight and bias of one dtype, bf16 or
+    fp32, read as they are), counted in `group_norm_apply.launches`."""
+    if native.on_cpu(x, every, weight, bias):
+        return group_norm_apply_plain(x, every, weight, bias, eps, silu)
     if x.device.type != "cuda":
         raise ValueError(f"group_norm_apply: unsupported device {x.device}")
     _check(x, weight, bias)
     x = x.contiguous()
     N, C = x.shape[0], x.shape[-1]
-    G = mean.shape[1]
+    if (every.device != x.device or every.dtype != torch.float64 or every.ndim != 4
+            or every.shape[1] != N or every.shape[-1] != 3):
+        raise ValueError(f"group_norm_apply takes every, float64 [R, {N}, G, 3] on "
+                         f"{x.device}; got {tuple(every.shape)} {every.dtype} on "
+                         f"{every.device}")
+    R, _, G, _ = every.shape
     if (x.dtype not in (torch.bfloat16, torch.float32) or C % C_STEP or C % G
-            or x.data_ptr() % 16 or mean.shape != (N, G) or rstd.shape != (N, G)):
+            or not 0 < N <= MAX_ROWS or x.data_ptr() % 16):
         raise ValueError(f"group_norm_apply takes bf16/fp32 x with C a multiple of "
-                         f"{C_STEP} and of the groups, 16-byte aligned, mean and rstd "
-                         f"[N, G]; got x {tuple(x.shape)} {x.dtype}, mean "
-                         f"{tuple(mean.shape)}")
+                         f"{C_STEP} and of the groups, 1..{MAX_ROWS} rows, 16-byte "
+                         f"aligned; got x {tuple(x.shape)} {x.dtype}, {G} groups")
+    if weight.dtype != bias.dtype or weight.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"group_norm_apply takes bf16 or fp32 weight and bias of one "
+                        f"dtype, got {weight.dtype} and {bias.dtype}")
+    L = x.numel() // (N * C)
+    plan = apply_plan(N, L, C, x.dtype, native.sm_count(x.device))
+    every, weight, bias = every.contiguous(), weight.contiguous(), bias.contiguous()
     fn = native.load_library(_LIB).wiw_group_norm_apply
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_int64] * 2
+                       + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_int64]
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    m, r = mean.float().contiguous(), rstd.float().contiguous()
-    w, b = weight.float().contiguous(), bias.float().contiguous()
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), m.data_ptr(), r.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 y.data_ptr(), N, x.numel() // (N * C), C, G,
-                 int(x.dtype == torch.bfloat16), int(silu),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+    with native.device_of(x):
+        err = fn(x.data_ptr(), every.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+                 y.data_ptr(), R, N, L, C, G, float(eps), plan.threads, plan.tile,
+                 int(x.dtype == torch.bfloat16), int(weight.dtype == torch.bfloat16),
+                 int(silu), native.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"group_norm_apply launch failed: cudaError {err}")
     group_norm_apply.launches += 1

@@ -21,7 +21,9 @@ Under shard_clip a conv's rows are split over ranks, while its scale must
 span the whole call: `conv_amax` is K7-conv's amax pass as an entry of its
 own, the ranks reduce it with MAX (`parallel/clip_sharding.global_amax`),
 and `w8a8_conv(..., amax=)` runs the conv with that amax given, skipping
-its own pass; each has its plain version beside it.
+its own pass; `w8a8_conv_halo` does so for a split 3x3 conv, taking the
+rank's rows and its two neighbour rows as they are (no padded copy); each
+has its plain version beside it.
 Dispatch is by device, as in every kernel wrapper of the port: CPU tensors
 take the plain versions (exact int32 sums, in float64), CUDA tensors launch
 K7 or raise; there is no fallback.
@@ -126,12 +128,9 @@ def w8a8_dense_plain(x, w8, w_scale, bias=None, dtype=torch.bfloat16):
     return out.to(dtype)
 
 
-def w8a8_conv_plain(x, w8, w_scale, bias=None, *, stride=1, padding=0,
-                    dtype=torch.bfloat16, amax=None):
-    """K7-conv's arithmetic: x NHWC [N, H, W, I], w8 [O, kh, kw, I] int8,
-    symmetric `padding`, the activation's amax taken from x or `amax`; the
-    int32 sums exact (float64)."""
-    x8, sa = _quant_tensor(x, amax)
+def _conv_codes(x8, sa, w8, w_scale, bias, stride, padding, dtype):
+    """The int8 conv of codes x8 NHWC with scale sa: exact int32 sums (in
+    float64), then acc * (sa * w_scale) + bias in fp32, rounded to dtype."""
     acc = F.conv2d(x8.double().permute(0, 3, 1, 2),
                    w8.double().permute(0, 3, 1, 2), stride=stride,
                    padding=padding).permute(0, 2, 3, 1)
@@ -139,6 +138,31 @@ def w8a8_conv_plain(x, w8, w_scale, bias=None, *, stride=1, padding=0,
     if bias is not None:
         out = out + bias.float()
     return out.to(dtype)
+
+
+def w8a8_conv_plain(x, w8, w_scale, bias=None, *, stride=1, padding=0,
+                    dtype=torch.bfloat16, amax=None):
+    """K7-conv's arithmetic: x NHWC [N, H, W, I], w8 [O, kh, kw, I] int8,
+    symmetric `padding`, the activation's amax taken from x or `amax`; the
+    int32 sums exact (float64)."""
+    x8, sa = _quant_tensor(x, amax)
+    return _conv_codes(x8, sa, w8, w_scale, bias, stride, padding, dtype)
+
+
+def w8a8_conv_halo_plain(x, top, bottom, w8, w_scale, bias=None, *, amax,
+                         dtype=torch.bfloat16):
+    """The halo-fed conv's arithmetic: the codes of `top`, x and `bottom`
+    (x [N, h, W, I], the neighbour rows [N, 1, W, I] or None for zero rows)
+    with the given amax, stacked along the rows into x8 [N, h + 2, W, I],
+    then the 3x3 conv at row padding 0 and column padding 1: [N, h, W, O]
+    (empty for h = 0)."""
+    if x.shape[1] == 0:
+        return x.new_empty(x.shape[0], 0, x.shape[2], w8.shape[0], dtype=dtype)
+    edge = x.new_zeros(x.shape[0], 1, *x.shape[2:])
+    rows = torch.cat([edge if top is None else top, x,
+                      edge if bottom is None else bottom], dim=1)
+    x8, sa = _quant_tensor(rows, amax)
+    return _conv_codes(x8, sa, w8, w_scale, bias, 1, (0, 1), dtype)
 
 
 K7_TILE_M = 128  # output rows (conv: pixels) of one tile of the product
@@ -203,10 +227,6 @@ def _check_common(x, w8, w_scale, bias, dtype, what):
         raise ValueError(f"{what}: w_scale and bias must be 8-byte aligned")
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def w8a8_dense(x, w8, w_scale, bias=None, dtype=torch.bfloat16):
     """x @ dequant(w8)^T + bias with the int8 product. x [..., K] float (in
     the dtype it arrives in: never promoted first), w8 [N, K] int8, w_scale
@@ -232,11 +252,11 @@ def w8a8_dense(x, w8, w_scale, bias=None, dtype=torch.bfloat16):
     sa = torch.empty(M, dtype=torch.float32, device=x.device)
     out = torch.empty(M, N, dtype=dtype, device=x.device)
     dense, _ = _bind(native.load_library(_LIB))
-    with torch.cuda.device(x.device):
+    with native.device_of(x):
         err = dense(x2.data_ptr(), x8.data_ptr(), sa.data_ptr(), w8.data_ptr(),
                     w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
                     out.data_ptr(), M, N, K, k7_plan(N)[0],
-                    _DTYPES[x.dtype], _DTYPES[dtype], _stream(x))
+                    _DTYPES[x.dtype], _DTYPES[dtype], native.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"w8a8_dense launch failed: cudaError {err}")
     w8a8_dense.launches += 1
@@ -281,23 +301,20 @@ def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
         raise ValueError(f"w8a8_conv: empty output for x {tuple(x.shape)}")
     given = amax is not None
     if given:
-        if (amax.device != x.device or amax.dtype != torch.float32
-                or amax.numel() != 1):
-            raise ValueError("w8a8_conv: amax must be one fp32 on x's device")
-        amax = amax.reshape(1).contiguous()
+        amax = _given_amax(amax, x)
     else:
         amax = torch.empty(1, dtype=torch.float32, device=x.device)
     x8 = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     out = torch.empty(Nb, OH, OW, O, dtype=dtype, device=x.device)
     bn, bw = k7_plan(O, C, stride, OW)
     _, conv = _bind(native.load_library(_LIB))
-    with torch.cuda.device(x.device):
+    with native.device_of(x):
         err = conv(x.data_ptr(), x8.data_ptr(), amax.data_ptr(), w8.data_ptr(),
                    w_scale.data_ptr(), None if bias is None else bias.data_ptr(),
                    out.data_ptr(), Nb, H, W, C, O, kh, kw, stride, padding,
                    OH, OW, bn, bw,
                    _DTYPES[x.dtype] | (_DTYPES[dtype] << 1) | (int(given) << 2),
-                   _stream(x))
+                   native.raw_stream(x.device))
     if err != 0:
         raise RuntimeError(f"w8a8_conv launch failed: cudaError {err}")
     if given:
@@ -309,6 +326,71 @@ def w8a8_conv(x, w8, w_scale, bias=None, *, stride=1, padding=0,
 
 w8a8_conv.launches = 0
 w8a8_conv.launches_given = 0
+
+
+def _given_amax(amax, x):
+    if amax.device != x.device or amax.dtype != torch.float32 or amax.numel() != 1:
+        raise ValueError("w8a8_conv: amax must be one fp32 on x's device")
+    return amax.reshape(1).contiguous()
+
+
+def w8a8_conv_halo(x, top, bottom, w8, w_scale, bias=None, *, amax,
+                   dtype=torch.bfloat16):
+    """The 3x3 SAME conv of a rank's rows under a row split, fed by its
+    halo: x [N, h, W, I] the rank's own rows (contiguous), `top` and
+    `bottom` [N, 1, W, I] the rows just above and below from the
+    neighbouring ranks, or None at a level's edge (zero rows); `amax` the
+    whole call's (a one-element fp32 tensor). Returns [N, h, W, O]: the rows
+    the whole conv gives for these rows. CPU tensors take
+    `w8a8_conv_halo_plain`. CUDA tensors launch K7-conv-given's halo entry
+    (one pass quantises the three sources into x8 [N, h + 2, W, I], then
+    the product at row padding 0 and column padding 1: no padded copy of
+    the rows), counted in `w8a8_conv_halo.launches`; a rank without rows
+    gets an empty output and no launch. x, top and bottom contiguous, of
+    one float dtype, 16-byte aligned; I a multiple of 16, O of 8."""
+    given = [t for t in (x, top, bottom, w8, w_scale, bias, amax) if t is not None]
+    if native.on_cpu(*given):
+        return w8a8_conv_halo_plain(x, top, bottom, w8, w_scale, bias, amax=amax,
+                                    dtype=dtype)
+    _check_common(x, w8, w_scale, bias, dtype, "w8a8_conv_halo")
+    if x.ndim != 4 or w8.ndim != 4 or w8.shape[1:] != (3, 3, x.shape[-1]):
+        raise ValueError(f"w8a8_conv_halo: x {tuple(x.shape)} (NHWC) against w8 "
+                         f"{tuple(w8.shape)} ([O, 3, 3, I])")
+    Nb, h, W, C = x.shape
+    O = w8.shape[0]
+    for name, t in (("top", top), ("bottom", bottom)):
+        if t is not None and (t.shape != (Nb, 1, W, C) or t.dtype != x.dtype
+                              or t.device != x.device or not t.is_contiguous()
+                              or t.data_ptr() % 16):
+            raise ValueError(f"w8a8_conv_halo: {name} must be a contiguous, 16-byte "
+                             f"aligned {x.dtype} [{Nb}, 1, {W}, {C}] on {x.device}")
+    if not x.is_contiguous() or C % K_STEP or Nb == 0 or W == 0:
+        raise ValueError(f"w8a8_conv_halo takes a contiguous non-empty x with I a "
+                         f"multiple of {K_STEP}, got {tuple(x.shape)}")
+    amax = _given_amax(amax, x)
+    if h == 0:
+        return x.new_empty(Nb, 0, W, O, dtype=dtype)
+    x8 = torch.empty(Nb, h + 2, W, C, dtype=torch.int8, device=x.device)
+    out = torch.empty(Nb, h, W, O, dtype=dtype, device=x.device)
+    bn, bw = k7_plan(O, C, 1, W)
+    fn = native.load_library(_LIB).wiw_w8a8_conv_halo
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with native.device_of(x):
+        err = fn(x.data_ptr(), None if top is None else top.data_ptr(),
+                 None if bottom is None else bottom.data_ptr(), x8.data_ptr(),
+                 amax.data_ptr(), w8.data_ptr(), w_scale.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(), Nb, h, W, C,
+                 O, bn, bw, _DTYPES[x.dtype] | (_DTYPES[dtype] << 1),
+                 native.raw_stream(x.device))
+    if err != 0:
+        raise RuntimeError(f"w8a8_conv_halo launch failed: cudaError {err}")
+    w8a8_conv_halo.launches += 1
+    return out
+
+
+w8a8_conv_halo.launches = 0
 
 
 def conv_amax_plain(x: torch.Tensor) -> torch.Tensor:

@@ -20,13 +20,15 @@ one is explicit code, called by the layers that need it while a
     and K1 run on this rank's queries against them.
   * 3x3 convs (`halo`): one row from each neighbouring rank, zero rows at
     the level's edges and a zero column each side, then the conv with
-    padding 0. A stride-2 conv (`downsample`) and nearest x2 + conv
+    padding 0; an int8 conv takes the two neighbour rows beside its own
+    rows (`neighbour_rows`), quantised into one padded int8 buffer by its
+    kernel. A stride-2 conv (`downsample`) and nearest x2 + conv
     (`upsample`) do the same on their windows; their output is re-split
     to the level rule by one uneven all-to-all (`resplit`).
   * GroupNorm (`group_norm`): K8's statistics entry on this rank's
     positions (count, mean, M2 per (row, group)), one all-gather of the
-    small [N, G, 3] tensor over 'fsdp', Chan's combination in rank order
-    on every rank (K8's combine entry), then K8's apply entry.
+    small [N, G, 3] tensor over 'fsdp', then K8's apply entry, which takes
+    Chan's combination in rank order on every rank itself.
   * int8 convs (`global_amax`): the activation scale of a W8A8 conv spans
     the whole call, as the reference's does, so this rank's amax(|x|) is
     all-reduced (MAX) over every rank that holds rows of the call (the
@@ -212,31 +214,50 @@ def _all_gather(cs: ClipSharding, t: torch.Tensor, sizes: list[int]) -> torch.Te
 
 
 # ---------------------------------------------------------------- convs
-def halo(cs: ClipSharding, x: torch.Tensor, pad_width: int = 1) -> torch.Tensor:
-    """This rank's rows [a, b) of NHWC x with the rows a-1 and b from the
-    neighbouring ranks (zeros at the level's edges) and `pad_width` zero
-    columns each side: [N, b - a + 2, W + 2 * pad_width, C]. The neighbours
-    are exchanged by point-to-point sends within the 'fsdp' group; a rank
-    without rows sends and receives nothing."""
+def neighbour_rows(cs: ClipSharding, x: torch.Tensor):
+    """The rows just outside this rank's rows [a, b) of NHWC x: (top, bottom),
+    row a - 1 from the previous rank and row b from the next, [N, 1, W, C]
+    each, None at the level's edges. They are exchanged by point-to-point
+    sends within the 'fsdp' group; a rank without rows sends and receives
+    nothing."""
     N, h, W, C = x.shape
-    out = x.new_zeros(N, h + 2, W + 2 * pad_width, C)
-    out[:, 1:h + 1, pad_width:pad_width + W] = x
+    got = [None, None]
     if h == 0 or cs.n == 1:
-        return out
+        return tuple(got)
     splits, p = cs.splits(), cs.pos
-    ops, recvs = [], []
-    for q, mine, theirs in ((p - 1, 0, 0), (p + 1, h - 1, h + 1)):
+    ops = []
+    for side, (q, mine) in enumerate(((p - 1, 0), (p + 1, h - 1))):
         if 0 <= q < cs.n and len(splits[q]):
             peer = cs.peers[q]
             buf = x.new_empty(N, 1, W, C)
             ops.append(dist.P2POp(dist.isend, x[:, mine:mine + 1].contiguous(), peer))
             ops.append(dist.P2POp(dist.irecv, buf, peer))
-            recvs.append((theirs, buf))
+            got[side] = buf
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    for row, buf in recvs:
-        out[:, row:row + 1, pad_width:pad_width + W] = buf
+    return tuple(got)
+
+
+def pad_rows(x: torch.Tensor, top, bottom, pad_width: int = 1) -> torch.Tensor:
+    """NHWC x [N, h, W, C] between the rows `top` and `bottom` ([N, 1, W,
+    C], zeros where None), with `pad_width` zero columns each side: [N, h +
+    2, W + 2 * pad_width, C]."""
+    N, h, W, C = x.shape
+    out = x.new_zeros(N, h + 2, W + 2 * pad_width, C)
+    out[:, 1:h + 1, pad_width:pad_width + W] = x
+    for row, t in ((0, top), (h + 1, bottom)):
+        if t is not None:
+            out[:, row:row + 1, pad_width:pad_width + W] = t
     return out
+
+
+def halo(cs: ClipSharding, x: torch.Tensor, pad_width: int = 1) -> torch.Tensor:
+    """This rank's rows [a, b) of NHWC x with the rows a-1 and b from the
+    neighbouring ranks (zeros at the level's edges) and `pad_width` zero
+    columns each side: [N, b - a + 2, W + 2 * pad_width, C]
+    (`neighbour_rows`, then `pad_rows`). The int8 3x3 conv takes the
+    neighbour rows alone (`quant.w8a8_conv_halo`)."""
+    return pad_rows(x, *neighbour_rows(cs, x), pad_width)
 
 
 def resplit(cs: ClipSharding, x: torch.Tensor, have: list[range],
@@ -300,18 +321,15 @@ def group_norm(cs: ClipSharding, x: torch.Tensor, weight: torch.Tensor,
                bias: torch.Tensor, groups: int, eps: float,
                silu: bool = False) -> torch.Tensor:
     """GroupNorm (+ SiLU) of x [N, ..., C] whose positions are split over
-    the 'fsdp' group: K8's statistics of this rank's positions, one
-    all-gather, Chan's combination (K8's combine entry), K8's apply. The
-    parameters are cast to fp32 first, so that nothing but the combination
-    runs between the all-gather and the apply."""
-    weight, bias = weight.float(), bias.float()
+    the 'fsdp' group: K8-stats of this rank's positions, one all-gather of
+    the [N, G, 3] parts, then K8-apply, which combines the parts by Chan's
+    rule in rank order and applies them (the parameters read as they are)."""
     stats = G.group_norm_stats(x, groups)  # [N, G, 3] float64
     every = stats.new_empty(cs.n * stats.shape[0], *stats.shape[1:])
     dist.all_gather_into_tensor(every, stats.contiguous(), group=cs.group)
-    mean, rstd = G.combine_stats(every.view(cs.n, *stats.shape), eps)
     if x.numel() == 0:
         return x
-    return G.group_norm_apply(x, mean, rstd, weight, bias, silu)
+    return G.group_norm_apply(x, every.view(cs.n, *stats.shape), weight, bias, eps, silu)
 
 
 # ------------------------------------------------------------ latent rows
